@@ -1,0 +1,85 @@
+"""Host (numpy) halves of the deployment preprocess.
+
+Numpy-only copies of the functions of
+``bodyct_dram_emph_subtype_tpu/data/host_preprocess.py`` that the device
+path uses: the exact depth selection and lung nearest-selection shipped
+with each scan, the exact standardize moments, and the two-tap linear
+resize of the heatmap un-crop.  Indices and weights are float64-derived
+(linear) or exact integer (nearest, depth), bit-identical to the device
+side (``ops/preprocess.py``, ``ops/resize.py``).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+
+def _linear_taps(out_size: int, in_size: int, align_corners: bool):
+    i = np.arange(out_size, dtype=np.float64)
+    if align_corners:
+        scale = (in_size - 1) / (out_size - 1) if out_size > 1 else 0.0
+        src = i * scale
+    else:
+        src = np.maximum((i + 0.5) * in_size / out_size - 0.5, 0.0)
+    i0 = np.clip(np.floor(src).astype(np.int64), 0, in_size - 1)
+    i1 = np.minimum(i0 + 1, in_size - 1)
+    w = (src - i0).astype(np.float32)
+    return i0, i1, w
+
+
+def resize_linear_np(x: np.ndarray, out_sizes, axes, align_corners: bool
+                     ) -> np.ndarray:
+    x = x.astype(np.float32)
+    for axis, out_size in zip(axes, out_sizes):
+        i0, i1, w = _linear_taps(out_size, x.shape[axis], align_corners)
+        shape = [1] * x.ndim
+        shape[axis] = out_size
+        w = w.reshape(shape)
+        x = (np.take(x, i0, axis=axis) * (1 - w)
+             + np.take(x, i1, axis=axis) * w)
+    return x
+
+
+def resize_linear_matmul_np(x: np.ndarray, out_sizes, axes,
+                            align_corners: bool) -> np.ndarray:
+    """n-linear resize, axes processed most-shrinking first (separable 1-D
+    operators commute, so only float32 rounding can differ)."""
+    x = x.astype(np.float32)
+    order = sorted(zip(axes, out_sizes),
+                   key=lambda p: p[1] / x.shape[p[0]])
+    return np.ascontiguousarray(resize_linear_np(
+        x, [s for _, s in order], [a for a, _ in order], align_corners))
+
+
+def resize_nearest_np(x: np.ndarray, out_sizes, axes) -> np.ndarray:
+    """torch 'nearest' as the exact integer rational floor."""
+    for axis, out_size in zip(axes, out_sizes):
+        n = x.shape[axis]
+        idx = np.minimum((np.arange(out_size, dtype=np.int64) * n)
+                         // out_size, n - 1)
+        x = np.take(x, idx, axis=axis)
+    return x
+
+
+def depth_indices_np(d_in: int, d_out: int) -> np.ndarray:
+    """``torch.linspace(0, D-1, newD).long()`` as the exact rational
+    floor."""
+    if d_out > 1:
+        return (np.arange(d_out, dtype=np.int64) * (d_in - 1)) // (d_out - 1)
+    return np.zeros(1, np.int64)
+
+
+def window_moments_np(img: np.ndarray,
+                      window=(-1150.0, -300.0)) -> np.ndarray:
+    """``[mean, 1/std]`` (float32) of the windowed volume from exact int64
+    sums, one float division each; unbiased (ddof=1) like torch
+    ``Tensor.std()``."""
+    lo_i, hi_i = int(window[0]), int(window[1])
+    c = np.clip(np.asarray(img, np.int16), lo_i, hi_i).astype(np.int32)
+    n = int(c.size)
+    s1 = int(c.sum(dtype=np.int64))
+    s2 = int((c * c).sum(dtype=np.int64))   # |c| <= 2048: c*c fits int32
+    r = hi_i - lo_i
+    mean = (s1 - n * lo_i) / (n * r)
+    var = (s2 * n - s1 * s1) / (n * max(n - 1, 1) * r * r)
+    inv_std = 1.0 / np.sqrt(var) if var > 0 else 0.0
+    return np.asarray([mean, inv_std], np.float32)

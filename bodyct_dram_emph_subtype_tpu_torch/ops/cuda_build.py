@@ -1,0 +1,153 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+The sources under ``csrc/`` have a plain C interface.  At first use they
+are compiled with ``nvcc`` for ``sm_90a`` into ONE shared library under
+``build/kernels/`` (listed in ``.gitignore``), whose file name carries a
+hash of the sources and flags, and loaded with :mod:`ctypes`.  A checkout
+therefore builds its own kernels on the first CUDA call and reuses the
+library afterwards; an edited source gets a new file name.
+
+Nothing here runs at import: the CPU tests import every module of the
+port on machines without ``nvcc`` or a card.
+
+``LAUNCHES`` counts kernel launches by kernel name.  Each wrapper adds one
+right after its kernel was launched, and nowhere else, so a caller can
+show that a run went through the kernels (``reset_launches`` before,
+``launches`` after).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Dict, Optional
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+KERNELS = ("conv3x3x3_affine", "conv3x3x3_heads_sigmoid",
+           "max_pool3d_k3s2p1")
+LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # dtype, x, w, scale, shift, residual, out, B, D, H, W, C, O, relu, stream
+    "conv3x3x3_affine": [_I, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _P],
+    # dtype, x, w, scale, shift, head_w, head_b, out, n_heads,
+    # B, D, H, W, C, O, stream
+    "conv3x3x3_heads_sigmoid": [_I, _P, _P, _P, _P, _P, _P, _P, _I,
+                                _I, _I, _I, _I, _I, _I, _P],
+    # dtype, x, out, B, D, H, W, C, stream
+    "max_pool3d_k3s2p1": [_I, _P, _P, _I, _I, _I, _I, _I, _P],
+}
+
+
+@dataclass
+class BuildInfo:
+    path: Path
+    seconds: float      # compile time of this call (0.0 when cached)
+    log: str            # nvcc/ptxas output of this call
+    cached: bool
+
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+_info: Optional[BuildInfo] = None
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launches() -> Dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found (PATH, CUDA_HOME): the CUDA "
+                           "kernels of this package need the CUDA toolkit")
+    return str(path)
+
+
+def build() -> BuildInfo:
+    """Compile ``csrc/*.cu`` into the hashed library unless it exists."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    target = BUILD_DIR / f"libdram_kernels_{_digest()}.so"
+    if target.exists():
+        return BuildInfo(target, 0.0, "", True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(p) for p in sources() if p.suffix == ".cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{log}")
+    os.replace(tmp, target)      # atomic: concurrent processes agree
+    return BuildInfo(target, seconds, log, False)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib, _info
+    with _lock:
+        if _lib is None:
+            _info = build()
+            lib = ctypes.CDLL(str(_info.path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.dram_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.dram_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def build_info() -> Optional[BuildInfo]:
+    """How the loaded library was obtained (None before first use)."""
+    return _info
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if err != 0:
+        msg = library().dram_cuda_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed: error {err} ({msg})")
+
+
+def launched(name: str) -> None:
+    LAUNCHES[name] += 1

@@ -1,0 +1,104 @@
+"""Torch-parity resampling, the parts the deployment path needs.
+
+Counterpart of ``bodyct_dram_emph_subtype_tpu/ops/resize.py``.  Linear
+resizes are dense interpolation-matrix products (two taps per output
+column, float64-derived tables); nearest and depth-linspace selections
+use EXACT integer index math.  ``F.interpolate`` is deliberately not
+used: float index floors flip at exact-integer crossings and moved whole
+mask rows and CT slices in the reference before its round 4 (DEVNOTES
+"Exact-integer resize index math").
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+
+def _interp_matrix(in_size: int, out_size: int, align_corners: bool
+                   ) -> np.ndarray:
+    """Dense (in, out) linear-interpolation matrix (two taps per column),
+    float64 index math like torch's CPU kernels."""
+    i = np.arange(out_size, dtype=np.float64)
+    if align_corners:
+        scale = (in_size - 1) / (out_size - 1) if out_size > 1 else 0.0
+        src = i * scale
+    else:
+        src = np.maximum((i + 0.5) * in_size / out_size - 0.5, 0.0)
+    i0 = np.clip(np.floor(src).astype(np.int64), 0, in_size - 1)
+    i1 = np.minimum(i0 + 1, in_size - 1)
+    w = (src - i0).astype(np.float32)
+    m = np.zeros((in_size, out_size), np.float32)
+    cols = np.arange(out_size)
+    np.add.at(m, (i0, cols), 1.0 - w)
+    np.add.at(m, (i1, cols), w)
+    return m
+
+
+def _matrix(in_size, out_size, align_corners, like: torch.Tensor):
+    return torch.from_numpy(_interp_matrix(in_size, out_size, align_corners)
+                            ).to(device=like.device, dtype=like.dtype)
+
+
+def resize_linear_matmul(x: torch.Tensor, out_sizes: Sequence[int],
+                         axes: Sequence[int], align_corners: bool
+                         ) -> torch.Tensor:
+    """n-linear resize of ``x`` over ``axes``: one matrix product per axis,
+    in ``x.dtype`` (float32 products stay float32 when TF32 is off)."""
+    for axis, out_size in zip(axes, out_sizes):
+        m = _matrix(x.shape[axis], out_size, align_corners, x)
+        x = torch.movedim(torch.tensordot(x, m, dims=([axis], [0])), -1,
+                          axis)
+    return x
+
+
+def resize_linear_matmul_transpose(x: torch.Tensor, in_sizes: Sequence[int],
+                                   axes: Sequence[int], align_corners: bool
+                                   ) -> torch.Tensor:
+    """Adjoint of :func:`resize_linear_matmul`: applies ``Rᵀ`` where ``R``
+    maps spatial sizes ``in_sizes`` to ``x.shape[axes]``, so
+    ``sum(resize(d) * x) == sum(d * resize_transpose(x))`` up to float
+    reassociation (the predict step's percentage math without full-res
+    maps)."""
+    for axis, in_size in zip(axes, in_sizes):
+        m = _matrix(in_size, x.shape[axis], align_corners, x)
+        x = torch.movedim(torch.tensordot(x, m, dims=([axis], [1])), -1,
+                          axis)
+    return x
+
+
+def nearest_indices(out_size: int, in_size: int, device=None
+                    ) -> torch.Tensor:
+    """torch 'nearest' source rows ``floor(i * in / out)`` as the exact
+    integer rational floor."""
+    i = torch.arange(out_size, dtype=torch.int64, device=device)
+    return torch.clamp((i * int(in_size)) // out_size, max=int(in_size) - 1)
+
+
+def nearest_gather_1d(x: torch.Tensor, out_size: int, axis: int,
+                      in_size=None) -> torch.Tensor:
+    """Resample one axis with torch 'nearest' semantics; ``in_size`` (the
+    true extent, default the axis length) may be smaller than the padded
+    axis."""
+    if in_size is None:
+        in_size = x.shape[axis]
+    return torch.index_select(x, axis,
+                              nearest_indices(out_size, in_size, x.device))
+
+
+def resize_nearest(x: torch.Tensor, out_sizes: Sequence[int],
+                   axes: Sequence[int]) -> torch.Tensor:
+    for axis, out_size in zip(axes, out_sizes):
+        x = nearest_gather_1d(x, out_size, axis)
+    return x
+
+
+def depth_linspace_indices(original_d: int, new_d: int,
+                           device=None) -> torch.Tensor:
+    """``torch.linspace(0, D-1, newD).long()`` as the exact rational floor
+    ``(i * (D-1)) // (newD-1)``."""
+    if new_d > 1:
+        i = torch.arange(new_d, dtype=torch.int64, device=device)
+        return (i * (int(original_d) - 1)) // (new_d - 1)
+    return torch.zeros(1, dtype=torch.int64, device=device)

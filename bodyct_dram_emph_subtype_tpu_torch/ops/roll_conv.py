@@ -1,0 +1,188 @@
+"""3x3x3 conv + fused epilogues: kernels A and B of the port.
+
+Counterpart of ``bodyct_dram_emph_subtype_tpu/ops/roll_conv.py``:
+
+- :func:`roll_conv_affine_relu` — ``relu?(conv(x)*scale + shift [+ res])``,
+  kernel A (``csrc/conv3x3x3.cu::conv3x3x3_affine``).  Replaces the Pallas
+  rolling-ring kernel ``_roll_conv_impl`` (roll_conv.py:311) at the decoder
+  us1/us2 stages and, with the residual epilogue, every conv of the
+  residual stacks that ``ops/layer1_kernel.py`` fuses.
+- :func:`roll_conv_heads_sigmoid` — the us3 stage plus the 1x1x1 task
+  heads and sigmoid, kernel B (``csrc/conv3x3x3.cu::
+  conv3x3x3_heads_sigmoid``).  Replaces ``roll_conv_heads_sigmoid``
+  (roll_conv.py:502): only the f32 maps are written, the us3 activation
+  never reaches device memory.
+
+Both take logical NDHWC activations and (3,3,3,C,O) weights — the JAX
+kernels' W-pair packed layout and per-packed-channel vectors are a TPU
+lane layout; ``pack_w``/``unpack_w`` and ``jnp.tile(v, 2)`` map one onto
+the other.  What bounds the kernels on the H100 and how they are built is
+in the CUDA source's header.
+
+A wrapper given a CPU tensor runs the plain PyTorch version beside it
+(``*_plain``, built on ``F.conv3d``); given a CUDA tensor it launches the
+kernel or raises.  ``chip_smoke.py`` holds each kernel against its plain
+version on the card.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from . import cuda_build
+
+HEADS_MAX_OUT = 64      # kernel B keeps one block's O channels: O <= BN
+HEADS_MAX = 8           # kernel B's kMaxHeads
+
+
+def _dtype_code(t: torch.Tensor) -> int:
+    if t.dtype == torch.float32:
+        return 0
+    if t.dtype == torch.bfloat16:
+        return 1
+    raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}")
+
+
+def _on_cuda(x: torch.Tensor) -> bool:
+    """True: launch the kernel.  False: the tensor lies on the CPU and the
+    plain version runs.  Any other device raises."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise RuntimeError(f"no kernel or plain version for device {x.device}")
+
+
+def _require(t: torch.Tensor, shape, dtype, device, name: str) -> None:
+    """Raise unless ``t`` is what a kernel takes: shape, dtype, device,
+    contiguous."""
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name}: expected device {device}, got {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def conv3x3x3_f32(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Plain stride-1 pad-1 3^3 conv, NDHWC x (3,3,3,C,O) -> f32 NDHWC,
+    computed in float32 from the (exactly widened) inputs."""
+    y = F.conv3d(x.float().permute(0, 4, 1, 2, 3),
+                 kernel.float().permute(4, 3, 0, 1, 2), padding=1)
+    return y.permute(0, 2, 3, 4, 1)
+
+
+def roll_conv_affine_relu_plain(x, kernel, scale, shift, residual=None,
+                                relu: bool = True) -> torch.Tensor:
+    """Plain version of kernel A (weights rounded to ``x.dtype`` as the
+    kernel takes them, f32 accumulate, one rounding at the end)."""
+    y = conv3x3x3_f32(x, kernel.to(x.dtype)) * scale.float() + shift.float()
+    if residual is not None:
+        y = y + residual.float()
+    if relu:
+        y = torch.relu(y)
+    return y.to(x.dtype).contiguous()
+
+
+def roll_conv_affine_relu(x: torch.Tensor, kernel: torch.Tensor,
+                          scale: torch.Tensor, shift: torch.Tensor,
+                          residual: Optional[torch.Tensor] = None,
+                          relu: bool = True) -> torch.Tensor:
+    """``relu?(conv3x3x3(x, kernel) * scale + shift [+ residual])``.
+
+    ``x``: (B, D, H, W, C) float32 or bfloat16, contiguous; ``kernel``:
+    (3, 3, 3, C, O); ``scale``/``shift``: (O,) — eval BatchNorm and conv
+    bias folded by the caller; ``residual``: optional (B, D, H, W, O) in
+    ``x.dtype``, added in float32 before the ReLU (the PackedBasicBlock
+    order).  Accumulates in float32, returns ``x.dtype``."""
+    if not _on_cuda(x):
+        return roll_conv_affine_relu_plain(x, kernel, scale, shift,
+                                           residual, relu)
+    b, d, h, w, c = x.shape
+    o = kernel.shape[-1]
+    dev = x.device
+    code = _dtype_code(x)
+    _require(x, (b, d, h, w, c), x.dtype, dev, "x")
+    kernel = kernel.to(device=dev, dtype=x.dtype).contiguous()
+    scale = scale.to(device=dev, dtype=torch.float32).contiguous()
+    shift = shift.to(device=dev, dtype=torch.float32).contiguous()
+    _require(kernel, (3, 3, 3, c, o), x.dtype, dev, "kernel")
+    _require(scale, (o,), torch.float32, dev, "scale")
+    _require(shift, (o,), torch.float32, dev, "shift")
+    if residual is not None:
+        _require(residual, (b, d, h, w, o), x.dtype, dev, "residual")
+    out = torch.empty((b, d, h, w, o), dtype=x.dtype, device=dev)
+    with torch.cuda.device(dev):
+        err = cuda_build.library().conv3x3x3_affine(
+            code, x.data_ptr(), kernel.data_ptr(), scale.data_ptr(),
+            shift.data_ptr(),
+            None if residual is None else residual.data_ptr(),
+            out.data_ptr(), b, d, h, w, c, o, int(relu), _stream(x))
+    cuda_build.check(err, "conv3x3x3_affine")
+    cuda_build.launched("conv3x3x3_affine")
+    return out
+
+
+def roll_conv_heads_sigmoid_plain(x, kernel, scale, shift, head_w,
+                                  head_b) -> torch.Tensor:
+    """Plain version of kernel B, with the rounding chain of the JAX
+    kernel (roll_conv.py:466-474): activation rounded to the compute
+    dtype, head logit and bias add in the compute dtype, f32 sigmoid."""
+    dt = x.dtype
+    act = torch.relu(conv3x3x3_f32(x, kernel.to(dt)) * scale.float()
+                     + shift.float())
+    act = act.to(dt).float()
+    logit = torch.matmul(act, head_w.to(dt).float()).to(dt)
+    logit = logit + head_b.float().to(dt)
+    return torch.sigmoid(logit.float()).contiguous()
+
+
+def roll_conv_heads_sigmoid(x: torch.Tensor, kernel: torch.Tensor,
+                            scale: torch.Tensor, shift: torch.Tensor,
+                            head_w: torch.Tensor,
+                            head_b: torch.Tensor) -> torch.Tensor:
+    """``sigmoid(heads(relu(conv3x3x3(x) * scale + shift)))``.
+
+    ``x``: (B, D, H, W, C); ``kernel``: (3, 3, 3, C, O) with O <= 64;
+    ``scale``/``shift``: (O,); ``head_w``: (O, HN) logical 1x1x1 head
+    weights; ``head_b``: (HN,).  Returns float32 (B, D, H, W, HN) maps."""
+    if not _on_cuda(x):
+        return roll_conv_heads_sigmoid_plain(x, kernel, scale, shift,
+                                             head_w, head_b)
+    b, d, h, w, c = x.shape
+    o = kernel.shape[-1]
+    hn = head_w.shape[-1]
+    if o > HEADS_MAX_OUT or not 0 < hn <= HEADS_MAX:
+        raise ValueError(f"heads kernel takes O <= {HEADS_MAX_OUT} and "
+                         f"1..{HEADS_MAX} heads, got O={o}, {hn} heads")
+    dev = x.device
+    code = _dtype_code(x)
+    _require(x, (b, d, h, w, c), x.dtype, dev, "x")
+    kernel = kernel.to(device=dev, dtype=x.dtype).contiguous()
+    scale = scale.to(device=dev, dtype=torch.float32).contiguous()
+    shift = shift.to(device=dev, dtype=torch.float32).contiguous()
+    head_w = head_w.to(device=dev, dtype=x.dtype).contiguous()
+    head_b = head_b.to(device=dev, dtype=torch.float32).contiguous()
+    _require(kernel, (3, 3, 3, c, o), x.dtype, dev, "kernel")
+    _require(scale, (o,), torch.float32, dev, "scale")
+    _require(shift, (o,), torch.float32, dev, "shift")
+    _require(head_w, (o, hn), x.dtype, dev, "head_w")
+    _require(head_b, (hn,), torch.float32, dev, "head_b")
+    out = torch.empty((b, d, h, w, hn), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = cuda_build.library().conv3x3x3_heads_sigmoid(
+            code, x.data_ptr(), kernel.data_ptr(), scale.data_ptr(),
+            shift.data_ptr(), head_w.data_ptr(), head_b.data_ptr(),
+            out.data_ptr(), hn, b, d, h, w, c, o, _stream(x))
+    cuda_build.check(err, "conv3x3x3_heads_sigmoid")
+    cuda_build.launched("conv3x3x3_heads_sigmoid")
+    return out

@@ -1,0 +1,433 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA GPU.
+
+    python3 chip_smoke.py          # from the repository root; needs one card
+
+Phases (each prints its own lines; any failure raises and exits non-zero):
+
+1. environment — torch/CUDA versions, the card's name and power limit;
+   TF32 off for cuDNN convs and matmuls (float32 references stay float32);
+2. build — ``nvcc`` compiles ``bodyct_dram_emph_subtype_tpu_torch/csrc``
+   for sm_90a (cached under ``build/kernels`` by source hash);
+3. kernels vs their plain PyTorch versions at every deployment site shape
+   of the med3ddram forward (B=2, 128x224x288 input), float32 and
+   bfloat16, plus one small ragged shape each: max/mean |delta| against the
+   bound, and the median time of kernel and plain version (CUDA events).
+   Bounds (set from the first H100 run, which measured at most 0.11 /
+   0.5 / 0.018 / 0.09 of the issue's looser ones): A float32 max|d| <=
+   2e-5*max|ref|; A bf16 <= 2 bf16 ulps of each reference value (measured:
+   exactly 1 ulp, a rounding split of two float32 sums; the second ulp
+   covers values near zero, where float32 order noise of up to 1.8e-5 at
+   us1.conv0 nears one ulp of the 2^-10-of-peak floor); B float32 max|d|
+   <= 1e-5*max|ref|; B bf16 maps max|d| <= 5e-3 and mean <= 1e-6; C
+   bit-equal;
+4. main path — three synthetic scans through ``run_inference`` (med3ddram,
+   bf16, batch 2, seeded random weights), output contract checked, kernel
+   launch counts checked per forward, scans/s and per-stage times; then
+   the tiny model on the card against its CPU plain path;
+5. bf16 vs float32 forward of the same weights on one scan.
+
+The line before the last is the per-kernel JSON summary; the last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+repository beside it, the script exits non-zero and prints no result.
+"""
+import json
+import math
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+if not torch.cuda.is_available():
+    sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+             "False); this smoke runs only on a GPU")
+
+from bodyct_dram_emph_subtype_tpu_torch.data.mha import read_mha, write_mha
+from bodyct_dram_emph_subtype_tpu_torch.inference.processor import (
+    _RawPredictView, build_model, run_inference)
+from bodyct_dram_emph_subtype_tpu_torch.data.datasets import \
+    SubtypingInference
+from bodyct_dram_emph_subtype_tpu_torch.models.registry import \
+    get_model_by_name
+from bodyct_dram_emph_subtype_tpu_torch.ops import cuda_build
+from bodyct_dram_emph_subtype_tpu_torch.ops.maxpool_kernel import (
+    max_pool_k3s2p1, max_pool_k3s2p1_plain)
+from bodyct_dram_emph_subtype_tpu_torch.ops.preprocess import \
+    fused_preprocess_preselected
+from bodyct_dram_emph_subtype_tpu_torch.ops.roll_conv import (
+    roll_conv_affine_relu, roll_conv_affine_relu_plain,
+    roll_conv_heads_sigmoid, roll_conv_heads_sigmoid_plain)
+
+DEV = torch.device("cuda")
+B = 2
+TARGET = (128, 224, 288)
+# (site, input shape, O, residual, launches per forward)
+A_SITES = [
+    ("layer1.conv1", (B, 32, 56, 72, 64), 64, False, 3),
+    ("layer1.conv2+res", (B, 32, 56, 72, 64), 64, True, 3),
+    ("layer2.tail.conv1", (B, 16, 28, 36, 128), 128, False, 3),
+    ("layer2.tail.conv2+res", (B, 16, 28, 36, 128), 128, True, 3),
+    ("us1.conv0", (B, 32, 56, 72, 576), 64, False, 1),
+    ("us1.conv1", (B, 32, 56, 72, 64), 64, False, 1),
+    ("us2.conv0", (B, 64, 112, 144, 128), 64, False, 1),
+    ("us2.conv1", (B, 64, 112, 144, 64), 64, False, 1),
+    ("ragged", (1, 5, 7, 9, 20), 13, True, 0),
+]
+B_SITES = [("us3+heads", (B, 64, 112, 144, 64), 32, 2, 1),
+           ("ragged", (1, 5, 7, 9, 20), 13, 2, 0)]
+C_SITES = [("stem.pool", (B, 64, 112, 144, 64), 1),
+           ("ragged", (1, 5, 7, 9, 3), 0)]
+PER_FORWARD = {"conv3x3x3_affine": 16, "conv3x3x3_heads_sigmoid": 1,
+               "max_pool3d_k3s2p1": 1}
+SOURCES = {
+    "conv3x3x3_affine": (
+        "bodyct_dram_emph_subtype_tpu_torch/csrc/conv3x3x3.cu",
+        "bodyct_dram_emph_subtype_tpu/ops/roll_conv.py:311"),
+    "conv3x3x3_heads_sigmoid": (
+        "bodyct_dram_emph_subtype_tpu_torch/csrc/conv3x3x3.cu",
+        "bodyct_dram_emph_subtype_tpu/ops/roll_conv.py:502"),
+    "max_pool3d_k3s2p1": (
+        "bodyct_dram_emph_subtype_tpu_torch/csrc/maxpool3d.cu",
+        "bodyct_dram_emph_subtype_tpu/ops/maxpool_kernel.py:161"),
+}
+
+
+class SmokeError(RuntimeError):
+    pass
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        raise SmokeError(msg)
+
+
+def median_ms(fn, reps: int = 5) -> float:
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def rand(gen, shape, scale=1.0, dtype=torch.float32):
+    return (torch.randn(shape, generator=gen, device=DEV) * scale).to(dtype)
+
+
+def bf16_ulp(ref: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each reference value, taken no lower than at 2^-10
+    of the tensor's peak (near zero the two float32 accumulations, summed
+    in different orders, differ by more than a bf16 ulp of the cancelled
+    result)."""
+    mag = ref.float().abs()
+    mag = mag.clamp_min(max(mag.max().item() * 2.0 ** -10, 2.0 ** -126))
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def phase_environment():
+    print("== phase 1: environment")
+    print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
+          f"cuda {torch.version.cuda}  devices {torch.cuda.device_count()}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
+        f"{torch.cuda.get_device_name(0)}, power limit unknown"
+    print(card)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return card
+
+
+def phase_build():
+    print("== phase 2: build")
+    t0 = time.perf_counter()
+    cuda_build.library()
+    info = cuda_build.build_info()
+    for line in info.log.splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas:", line.strip())
+    print(f"kernels built with nvcc for sm_90a in {info.seconds:.1f} s "
+          f"({'cached' if info.cached else 'compiled'}; load "
+          f"{time.perf_counter() - t0:.1f} s): {info.path.name}")
+
+
+def compare_a(gen, shape, o, residual, dtype):
+    c = shape[-1]
+    x = rand(gen, shape, 0.5, dtype).relu_()
+    k = rand(gen, (3, 3, 3, c, o), math.sqrt(2.0 / (27 * c)))
+    sc = torch.rand(o, generator=gen, device=DEV) + 0.5
+    sh = rand(gen, (o,), 0.1)
+    res = rand(gen, shape[:4] + (o,), 0.5, dtype) if residual else None
+    got = roll_conv_affine_relu(x, k, sc, sh, residual=res)
+    torch.cuda.synchronize()
+    ref = roll_conv_affine_relu_plain(x, k, sc, sh, res)
+    delta = (got.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        bound = 2e-5 * ref.abs().max().item()
+        ratio = delta.max().item() / bound
+        btxt = f"<= 2e-5*max|ref| = {bound:.3g}"
+    else:
+        ratio = (delta / (2 * bf16_ulp(ref))).max().item()
+        btxt = "<= 2 bf16 ulp(ref)"
+    t_k = median_ms(lambda: roll_conv_affine_relu(x, k, sc, sh,
+                                                  residual=res))
+    t_p = median_ms(lambda: roll_conv_affine_relu_plain(x, k, sc, sh, res))
+    flops = 2.0 * math.prod(shape[:4]) * 27 * c * o
+    return delta, ratio, btxt, t_k, t_p, f"{flops / t_k / 1e9:.1f} TFLOP/s"
+
+
+def compare_b(gen, shape, o, hn, dtype):
+    c = shape[-1]
+    x = rand(gen, shape, 0.5, dtype).relu_()
+    k = rand(gen, (3, 3, 3, c, o), math.sqrt(2.0 / (27 * c)))
+    sc = torch.rand(o, generator=gen, device=DEV) + 0.5
+    sh = rand(gen, (o,), 0.1)
+    hw = rand(gen, (o, hn), 0.3)
+    hb = rand(gen, (hn,), 0.1)
+    got = roll_conv_heads_sigmoid(x, k, sc, sh, hw, hb)
+    torch.cuda.synchronize()
+    ref = roll_conv_heads_sigmoid_plain(x, k, sc, sh, hw, hb)
+    delta = (got - ref).abs()
+    if dtype == torch.float32:
+        bound = 1e-5 * ref.abs().max().item()
+        ratio = delta.max().item() / bound
+        btxt = f"<= 1e-5*max|ref| = {bound:.3g}"
+    else:
+        ratio = max(delta.max().item() / 5e-3, delta.mean().item() / 1e-6)
+        btxt = "max <= 5e-3, mean <= 1e-6"
+    t_k = median_ms(lambda: roll_conv_heads_sigmoid(x, k, sc, sh, hw, hb))
+    t_p = median_ms(lambda: roll_conv_heads_sigmoid_plain(x, k, sc, sh, hw,
+                                                          hb))
+    flops = 2.0 * math.prod(shape[:4]) * (27 * c * o + o * hn)
+    return delta, ratio, btxt, t_k, t_p, f"{flops / t_k / 1e9:.1f} TFLOP/s"
+
+
+def compare_c(gen, shape, dtype):
+    x = rand(gen, shape, 1.0, dtype)
+    got = max_pool_k3s2p1(x)
+    torch.cuda.synchronize()
+    ref = max_pool_k3s2p1_plain(x)
+    delta = (got.float() - ref.float()).abs()
+    ratio = 0.0 if torch.equal(got, ref) else math.inf
+    t_k = median_ms(lambda: max_pool_k3s2p1(x))
+    t_p = median_ms(lambda: max_pool_k3s2p1_plain(x))
+    nbytes = (x.numel() + got.numel()) * x.element_size()
+    return delta, ratio, "bit-equal", t_k, t_p, \
+        f"{nbytes / t_k / 1e6:.0f} GB/s"
+
+
+def phase_kernels():
+    print("== phase 3: kernels vs plain versions (B=2 deployment sites)")
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    summary = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+               for k in PER_FORWARD}
+    runs = ([("conv3x3x3_affine", s[0], s[1], s[4],
+              lambda dt, s=s: compare_a(gen, *s[1:4], dt)) for s in A_SITES]
+            + [("conv3x3x3_heads_sigmoid", s[0], s[1], s[4],
+                lambda dt, s=s: compare_b(gen, *s[1:4], dt)) for s in B_SITES]
+            + [("max_pool3d_k3s2p1", s[0], s[1], s[2],
+                lambda dt, s=s: compare_c(gen, s[1], dt))
+               for s in C_SITES])
+    for kernel, site, shape, count, run in runs:
+        for dtype in (torch.float32, torch.bfloat16):
+            delta, ratio, btxt, t_k, t_p, rate = run(dtype)
+            dname = "f32" if dtype == torch.float32 else "bf16"
+            ok = ratio <= 1.0
+            print(f"{kernel:24s} {site:22s} {dname:4s} {str(shape):24s} "
+                  f"max|d|={delta.max().item():.3e} "
+                  f"mean|d|={delta.mean().item():.3e} ({btxt}; "
+                  f"{ratio:.3f} of bound) kernel {t_k:.3f} ms "
+                  f"plain {t_p:.3f} ms [{rate}] {'ok' if ok else 'FAIL'}")
+            check(ok, f"{kernel} {site} {dname}: outside its bound")
+            s = summary[kernel]
+            s["max_abs_err"] = max(s["max_abs_err"], delta.max().item())
+            if dtype == torch.bfloat16:       # the main path's dtype
+                s["ms"] += count * t_k
+                s["plain_ms"] += count * t_p
+            del delta
+            torch.cuda.empty_cache()
+    return summary
+
+
+def write_scans(scan_dir: Path, lobe_dir: Path, n: int = 3):
+    """Synthetic int16 CTs of about (180, 320, 320) with a lobe ellipsoid
+    whose lung crop fits the default pad_shape (160, 288, 384)."""
+    shape = (180, 320, 320)
+    spacing = (0.7, 0.7, 1.5)                      # ITK (x, y, z)
+    for i in range(n):
+        rng = np.random.RandomState(100 + i)
+        zz, yy, xx = np.ogrid[:shape[0], :shape[1], :shape[2]]
+        r = (0.38 + 0.02 * i, 0.30, 0.38)
+        lobe = ((((zz - shape[0] / 2) / (shape[0] * r[0])) ** 2
+                 + ((yy - shape[1] / 2) / (shape[1] * r[1])) ** 2
+                 + ((xx - shape[2] / 2) / (shape[2] * r[2])) ** 2) < 1)
+        ct = np.full(shape, -1000, np.int16)
+        ct[lobe] = (-870 + 70 * rng.randn(int(lobe.sum()))).astype(np.int16)
+        write_mha(scan_dir / f"scan{i}.mha", ct, spacing)
+        write_mha(lobe_dir / f"scan{i}.mha", lobe.astype(np.uint8), spacing)
+    return shape
+
+
+def check_outputs(out_dir: Path, results, uids, shape):
+    check([r["entity"] for r in results] == uids, f"results order {results}")
+    for r in results:
+        m = r["metrics"]
+        check(set(m) == {"cle_severity_score",
+                         "cle_lesion_percentage_per_lung",
+                         "pse_severity_score",
+                         "pse_lesion_percentage_per_lung"}, f"metrics {m}")
+        check(0 <= int(m["cle_severity_score"]) <= 5
+              and 0 <= int(m["pse_severity_score"]) <= 2, f"scores {m}")
+        for name in ("cle", "pse"):
+            pct = float(m[f"{name}_lesion_percentage_per_lung"])
+            check(math.isfinite(pct) and 0.0 <= pct <= 1.0, f"pct {m}")
+        check(r["error_messages"] == [], f"errors {r}")
+    for fname in ("centrilobular-emphysema-score.json",
+                  "araseptal-emphysema-score.json"):
+        js = json.loads((out_dir / fname).read_text())
+        check(set(js) == {"score", "percentage"}, f"{fname}: {js}")
+    check(len(json.loads((out_dir / "results.json").read_text())) ==
+          len(uids), "results.json length")
+    for sub in ("centrilobular-emphysema-heatmap",
+                "paraseptal-emphysema-heatmap"):
+        for uid in uids:
+            img = read_mha(out_dir / "images" / sub / f"{uid}.mha")
+            check(img.array.shape == shape and img.array.dtype == np.uint8,
+                  f"{sub}/{uid}: {img.array.shape} {img.array.dtype}")
+
+
+def phase_main_path(work: Path):
+    print("== phase 4: main path (run_inference, med3ddram, bf16, batch 2)")
+    scan_dir, lobe_dir, out_dir = work / "ct", work / "lobes", work / "out"
+    for d in (scan_dir, lobe_dir, out_dir):
+        d.mkdir(parents=True)
+    t0 = time.perf_counter()
+    shape = write_scans(scan_dir, lobe_dir)
+    print(f"wrote 3 synthetic scans {shape} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    model = build_model("med3ddram", ckp_path=None, seed=0)
+    stats = {}
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    results = run_inference(
+        str(scan_dir), str(lobe_dir), str(out_dir), target_size=TARGET,
+        compute_dtype="bfloat16", batch_size=B, workers=2, model=model,
+        device=DEV, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = cuda_build.launches()
+    uids = [f"scan{i}" for i in range(3)]
+    check_outputs(out_dir, results, uids, shape)
+    nb = stats["batches"]
+    for kernel, per in PER_FORWARD.items():
+        print(f"launches {kernel}: {launches[kernel]} over {nb} forward "
+              f"batches (expected {per} per forward)")
+        check(launches[kernel] == per * nb and nb > 0,
+              f"{kernel}: {launches[kernel]} launches for {nb} batches")
+    for r in results:
+        print("result", json.dumps(r))
+    stage = {k: v / nb for k, v in stats["stage_ms"].items()}
+    print("per batch of 2 (ms): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in stage.items())
+        + "  (device: upload..download; host: postprocess)")
+    print(f"main path: 3 scans in {stats['pipeline_s']:.2f} s pipeline "
+          f"({3 / stats['pipeline_s']:.3f} scans/s), "
+          f"run_inference {wall:.2f} s")
+    return model, scan_dir, lobe_dir, launches, stage, \
+        3 / stats["pipeline_s"]
+
+
+def phase_small_reference():
+    print("== phase 4b: med3ddramtiny on the card vs its CPU plain path")
+    model = get_model_by_name("med3ddramtiny")
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((1, 32, 48, 64, 1), generator=gen)
+    lung = (torch.rand((1, 32, 48, 64, 1), generator=gen) > 0.3).float()
+    with torch.inference_mode():
+        d_cpu, r_cpu = model(x, lung)
+        model.to(DEV)
+        d_gpu, r_gpu = model(x.to(DEV), lung.to(DEV))
+    for a, b in zip(d_gpu, d_cpu):
+        err = (a.cpu() - b).abs().max().item()
+        check(a.shape == b.shape and torch.isfinite(a).all().item(),
+              "tiny maps")
+        check(err <= 1e-4, f"tiny map max|d| {err}")
+    for a, b in zip(r_gpu, r_cpu):
+        err = (a.cpu() - b).abs().max().item()
+        check(err <= 1e-5, f"tiny fraction |d| {err}")
+    print(f"tiny model maps max|d| "
+          f"{max((a.cpu() - b).abs().max().item() for a, b in zip(d_gpu, d_cpu)):.3e}"
+          f" (<= 1e-4), fractions max|d| "
+          f"{max((a.cpu() - b).abs().max().item() for a, b in zip(r_gpu, r_cpu)):.3e}"
+          f" (<= 1e-5) ok")
+
+
+def phase_bf16_vs_f32(model, scan_dir: Path, lobe_dir: Path):
+    print("== phase 5: bf16 vs float32 forward, same weights, one scan")
+    dataset = SubtypingInference(str(scan_dir), str(lobe_dir),
+                                 keep_original=False, compute_ess=False)
+    view = _RawPredictView(dataset, (TARGET[0], 288, 384), TARGET)
+    item = view[0]
+    with torch.inference_mode():
+        pre = fused_preprocess_preselected(
+            torch.from_numpy(item["image_raw"][None]).to(DEV),
+            torch.from_numpy(item["lung_raw"][None]).to(DEV),
+            [item["in_sizes"].tolist()],
+            torch.from_numpy(item["moments"][None]).to(DEV),
+            target_size=TARGET, em_threshold=-910.0)
+        x = pre["image"][..., None]
+        lung = pre["lung_mask"][..., None]
+        d32, r32 = model(x, lung)
+        d16, r16 = model(x.to(torch.bfloat16), lung)
+    for name, i in (("cle", 0), ("pse", 1)):
+        frac = abs(r16[i].item() - r32[i].item())
+        delta = (d16[i] - d32[i]).abs()
+        mean, flips = delta.mean().item(), (delta > 0.5).float().mean().item()
+        check(torch.isfinite(d16[i]).all().item(), f"{name} bf16 map finite")
+        print(f"{name}: fraction f32 {r32[i].item():.6f} bf16 "
+              f"{r16[i].item():.6f} |d|={frac:.2e} (< 5e-3); map mean|d|="
+              f"{mean:.3e} (< 1.5e-2); flip rate (|d|>0.5) {flips:.2e} "
+              f"(printed, not asserted)")
+        check(frac < 5e-3, f"{name} fraction |d| {frac}")
+        check(mean < 1.5e-2, f"{name} map mean |d| {mean}")
+
+
+def main():
+    card = phase_environment()
+    phase_build()
+    summary = phase_kernels()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        model, scan_dir, lobe_dir, launches, stage, rate = \
+            phase_main_path(Path(tmp))
+        phase_small_reference()
+        phase_bf16_vs_f32(model, scan_dir, lobe_dir)
+    kernels = []
+    for name, s in summary.items():
+        source, replaces = SOURCES[name]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+                        "plain_ms": s["plain_ms"]})
+    print(f"card: {card}; main path {rate:.3f} scans/s; kernel ms are per "
+          f"B=2 bf16 forward (sum over each kernel's sites)")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,93 @@
+"""The port's eval forward (plain versions on the CPU) against the JAX
+model in conv mode ``direct`` under ``jax.default_matmul_precision(
+"highest")``, both on the same weights (JAX init -> ``state_dict_from_jax``
+-> ``load_state_dict(strict=True)``).  Both dense maps and both lesion
+fractions within rtol 1e-4 / atol 1e-5 (float32 on both sides)."""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bodyct_dram_emph_subtype_tpu.models import get_model_by_name as jax_model
+from bodyct_dram_emph_subtype_tpu.models.resnet3d import \
+    ResNetSegReg as JaxSegReg
+from bodyct_dram_emph_subtype_tpu_torch.models.blocks import BasicBlock
+from bodyct_dram_emph_subtype_tpu_torch.models.registry import \
+    get_model_by_name
+from bodyct_dram_emph_subtype_tpu_torch.models.resnet3d import ResNetSegReg
+from bodyct_dram_emph_subtype_tpu_torch.models.torch_import import \
+    state_dict_from_jax
+
+
+def _jax_forward(model, x, lung):
+    xj, lj = jnp.asarray(x), jnp.asarray(lung)
+    init = jax.jit(functools.partial(model.init, train=False))
+    variables = jax.tree.map(np.asarray, init(jax.random.PRNGKey(0), xj, lj))
+    with jax.default_matmul_precision("highest"):
+        dense, regs = jax.jit(functools.partial(model.apply, train=False))(
+            variables, xj, lj)
+    return variables, dense, regs
+
+
+def _compare(port, variables, dense, regs, x, lung):
+    port.load_state_dict(state_dict_from_jax(variables), strict=True)
+    with torch.inference_mode():
+        tdense, tregs = port(torch.from_numpy(x), torch.from_numpy(lung))
+    assert len(tdense) == len(dense) == 2
+    for got, want in zip(tdense, dense):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-4, atol=1e-5)
+    for got, want in zip(tregs, regs):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-4, atol=1e-5)
+
+
+def test_tiny_dram_forward_matches_jax():
+    rng = np.random.RandomState(0)
+    x = rng.randn(1, 16, 32, 32, 1).astype(np.float32)
+    lung = (rng.rand(1, 16, 32, 32, 1) > 0.3).astype(np.float32)
+    variables, dense, regs = _jax_forward(jax_model("med3ddramtiny"), x, lung)
+    _compare(get_model_by_name("med3ddramtiny"), variables, dense, regs,
+             x, lung)
+
+
+def test_layer2_tail_forward_matches_jax():
+    """layers=(1, 2, 1, 1) at 32^3: the layer2 identity tail runs
+    ``fused_layer1`` (the engagement shape of
+    ``test_packed_decoder.py::test_packed_model_roll_mode_matches_direct``),
+    with a half-resolution lung mask."""
+    rng = np.random.RandomState(1)
+    x = rng.randn(1, 32, 32, 32, 1).astype(np.float32)
+    lung = (rng.rand(1, 16, 16, 16, 1) > 0.5).astype(np.float32)
+    variables, dense, regs = _jax_forward(JaxSegReg(layers=(1, 2, 1, 1)),
+                                          x, lung)
+    _compare(ResNetSegReg(BasicBlock, (1, 2, 1, 1)), variables, dense, regs,
+             x, lung)
+
+
+def test_lungs_default_and_eval_only():
+    model = get_model_by_name("med3ddramtiny")
+    x = torch.zeros(1, 8, 16, 16, 1)
+    with torch.inference_mode():
+        dense, regs = model(x)
+    assert dense[0].shape == (1, 4, 8, 8, 1)
+    torch.testing.assert_close(regs[0], dense[0].mean(dim=(1, 2, 3, 4)))
+    model.train()
+    with pytest.raises(RuntimeError, match="eval"):
+        model(x)
+
+
+@pytest.mark.parametrize("name", ["med3d", "med3d18", "med3d50",
+                                  "med3dtiny"])
+def test_classification_archs_not_ported_yet(name):
+    with pytest.raises(NotImplementedError):
+        get_model_by_name(name)
+
+
+def test_unknown_arch_lists_known():
+    with pytest.raises(KeyError, match="med3ddram"):
+        get_model_by_name("med3ddramm")
