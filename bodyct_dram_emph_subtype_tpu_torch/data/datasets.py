@@ -5,18 +5,21 @@ Numpy-only copy of ``bodyct_dram_emph_subtype_tpu/data/datasets.py``'s
 ``ratio_to_label`` (reference ``dataset.py:14-93,99-112``): paired
 ``*.mha`` scan + lobe glob, z-y-x geometry reversal, lung dilation (2
 iterations, full 3^3 structure), outside-lung -2048 mask-out, lung-bbox
-crop + 5 mm border, -910 HU ``ess_mask``, per-uid ITK meta cache.  The
-training dataset comes with the training slice.
+crop + 5 mm border, -910 HU ``ess_mask``, per-uid ITK meta cache; and the
+training dataset ``COPDGeneSubtyping`` over a per-series ``.npz`` archive
+and its ``merged.csv`` (reference ``dataset.py:96-155``).  Reference
+``.pth`` caches are not read yet (ROADMAP section 1).
 """
 from __future__ import annotations
 
 import glob
 from pathlib import Path
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
 from ..ops.morphology import binary_dilate_np, find_crops_np
+from .csv_utils import read_csv_in_dict
 from .mha import read_mha
 
 CLE_RATIO_MAP = {0: (0.0, 0.01), 1: (0.01, 0.05), 2: (0.05, 0.1),
@@ -119,3 +122,60 @@ class SubtypingInference:
             "spacing": spacing, "origin": origin, "direction": direction,
         }
         return ret
+
+
+class COPDGeneSubtyping:
+    """Training dataset over a cached per-series archive: ``{uid}.npz``
+    (``image`` int16, ``lung_mask``, ``cls_label``, ``pse_label``) plus
+    ``merged.csv`` (``SeriesInstanceUID``, ``CT_Visual_Emph_Severity_P1``,
+    ``CT_Visual_Emph_Paraseptal_P1``).  Each item adds the -950 HU
+    ``em_mask`` inside the lung and its ``index``."""
+
+    cle_ratio_map = CLE_RATIO_MAP
+    pse_ratio_map = PSE_RATIO_MAP
+
+    @classmethod
+    def get_series_uids(cls, csv_file) -> List[str]:
+        selected, _ = read_csv_in_dict(csv_file, "SeriesInstanceUID")
+        return sorted(selected.keys())
+
+    def __init__(self, archive_path: str, series_uids: Sequence[str]):
+        self.archive_path = archive_path
+        self.series_uids = list(series_uids)
+        self.meta, _ = read_csv_in_dict(archive_path + "/merged.csv",
+                                        "SeriesInstanceUID")
+        self.subtyping_labels: Dict[str, Dict[str, int]] = {}
+        for uid in self.series_uids:
+            self.subtyping_labels[uid] = {
+                "cle": int(float(self.meta[uid]["CT_Visual_Emph_Severity_P1"])),
+                "pse": int(float(self.meta[uid]["CT_Visual_Emph_Paraseptal_P1"])),
+            }
+        # set by the trainer from the sampler (models.py:110-114)
+        self.cle_class_weights: Optional[np.ndarray] = None
+        self.pse_class_weights: Optional[np.ndarray] = None
+
+    def __len__(self):
+        return len(self.series_uids)
+
+    def __getitem__(self, index):
+        d = self.get_data(self.series_uids[index])
+        d["index"] = np.asarray([index], np.int64)
+        return d
+
+    def _load_cached(self, uid: str) -> Dict[str, Any]:
+        npz = Path(self.archive_path) / f"{uid}.npz"
+        if npz.exists():
+            with np.load(npz) as z:
+                return {k: z[k] for k in z.files}
+        if (Path(self.archive_path) / f"{uid}.pth").exists():
+            raise NotImplementedError(
+                f"{uid}.pth: reference .pth caches are not read by the "
+                f"PyTorch package yet (ROADMAP section 1); convert the "
+                f"archive to .npz")
+        raise FileNotFoundError(f"no cache entry for series {uid} ({npz})")
+
+    def get_data(self, uid: str) -> Dict[str, Any]:
+        data = self._load_cached(uid)
+        data["em_mask"] = np.logical_and(np.asarray(data["image"]) < -950,
+                                         np.asarray(data["lung_mask"]) > 0)
+        return data

@@ -1,14 +1,18 @@
-"""Host (numpy) halves of the deployment preprocess.
+"""Host (numpy) preprocess: the deployment halves and the training view.
 
 Numpy-only copies of the functions of
-``bodyct_dram_emph_subtype_tpu/data/host_preprocess.py`` that the device
-path uses: the exact depth selection and lung nearest-selection shipped
-with each scan, the exact standardize moments, and the two-tap linear
-resize of the heatmap un-crop.  Indices and weights are float64-derived
-(linear) or exact integer (nearest, depth), bit-identical to the device
-side (``ops/preprocess.py``, ``ops/resize.py``).
+``bodyct_dram_emph_subtype_tpu/data/host_preprocess.py`` that the port
+uses: the exact depth selection and lung nearest-selection shipped with
+each scan, the exact standardize moments, the two-tap linear resize of the
+heatmap un-crop, and ``preprocess_sample`` / ``PreprocessedView``, which
+the train loader reads through (window -> standardize -> in-plane bilinear
++ linspace depth subsample, reference ``models.py:57-63``).  Indices and
+weights are float64-derived (linear) or exact integer (nearest, depth),
+bit-identical to the device side (``ops/preprocess.py``, ``ops/resize.py``).
 """
 from __future__ import annotations
+
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -83,3 +87,46 @@ def window_moments_np(img: np.ndarray,
     var = (s2 * n - s1 * s1) / (n * max(n - 1, 1) * r * r)
     inv_std = 1.0 / np.sqrt(var) if var > 0 else 0.0
     return np.asarray([mean, inv_std], np.float32)
+
+
+def preprocess_sample(sample: Dict[str, np.ndarray],
+                      target_size: Tuple[int, int, int],
+                      window=(-1150.0, -300.0)) -> Dict[str, np.ndarray]:
+    """window -> standardize -> interpolate one archive sample; masks get
+    nearest in-plane + the same depth subsampling."""
+    out = dict(sample)
+    img = np.asarray(sample["image"]).astype(np.float32)
+    lo, hi = window
+    img = np.clip(img, lo, hi)
+    img = (img - lo) / (hi - lo)
+    img = (img - img.mean()) / (img.std(ddof=1) + 0.0)
+    d_new, h_new, w_new = target_size
+    d_idx = depth_indices_np(img.shape[0], d_new)
+    img = resize_linear_np(img, (h_new, w_new), (1, 2), align_corners=True)
+    out["image"] = np.ascontiguousarray(img[d_idx])
+    for key in sample:
+        if "mask" in key:
+            m = np.asarray(sample[key]).astype(np.float32)
+            m = resize_nearest_np(m, (h_new, w_new), (1, 2))
+            out[key] = np.ascontiguousarray(m[d_idx])
+    return out
+
+
+class PreprocessedView:
+    """Dataset adapter: ``preprocess_sample`` on ``__getitem__`` (what the
+    loader threads run)."""
+
+    def __init__(self, dataset, target_size, window=(-1150.0, -300.0)):
+        self.dataset = dataset
+        self.target_size = tuple(target_size)
+        self.window = window
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, index):
+        return preprocess_sample(self.dataset[index], self.target_size,
+                                 self.window)
+
+    def __getattr__(self, name):
+        return getattr(self.dataset, name)

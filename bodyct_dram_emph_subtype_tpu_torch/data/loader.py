@@ -31,22 +31,28 @@ def default_collate(samples: List[Dict[str, Any]]) -> Dict[str, Any]:
 
 class DataLoader:
     """Iterates ``dataset`` over ``indices`` in batches, ``num_workers``
-    threads reading samples and up to ``PREFETCH`` batches ahead."""
+    threads reading samples and up to ``PREFETCH`` batches ahead;
+    ``drop_last`` drops a short final batch (the training loader)."""
 
     PREFETCH = 2
 
     def __init__(self, dataset, indices: Optional[Sequence[int]] = None,
-                 batch_size: int = 1, num_workers: int = 4):
+                 batch_size: int = 1, num_workers: int = 4,
+                 drop_last: bool = False):
         self.dataset = dataset
         self.indices = indices
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
+        self.drop_last = drop_last
 
     def _index_batches(self) -> List[List[int]]:
         idx = (list(self.indices) if self.indices is not None
                else list(range(len(self.dataset))))
-        return [idx[i:i + self.batch_size]
-                for i in range(0, len(idx), self.batch_size)]
+        batches = [idx[i:i + self.batch_size]
+                   for i in range(0, len(idx), self.batch_size)]
+        if self.drop_last and batches and len(batches[-1]) < self.batch_size:
+            batches.pop()
+        return batches
 
     def __len__(self):
         return len(self._index_batches())

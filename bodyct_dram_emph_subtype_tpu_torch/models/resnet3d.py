@@ -1,4 +1,4 @@
-"""The dRAM regression model (``ResNetSegReg``), eval forward, NDHWC.
+"""The dRAM regression model (``ResNetSegReg``), NDHWC.
 
 Counterpart of ``bodyct_dram_emph_subtype_tpu/models/resnet3d.py``
 (``_Trunk``, ``_Decoder``, ``ResNetSegReg``; reference ``med3d.py:288-388``):
@@ -13,7 +13,8 @@ Module names equal the reference checkpoint's keys (``conv1``, ``bn1``,
 ``fcs.i``), so a reference ``best.ckpt`` state dict (``model.`` prefix
 stripped) loads with ``load_state_dict`` (``models/torch_import.py``).
 
-The kernel sites (always taken on a CUDA tensor, plain versions on CPU):
+``forward`` dispatches on ``self.training``.  The eval kernel sites
+(always taken on a CUDA tensor, plain versions on CPU):
 
 - stem max-pool + layer1 -> ``fused_pool_layer1`` (kernel C + 6 x A),
 - layer2 blocks 1..n-1 -> ``fused_layer1`` (6 x A),
@@ -21,6 +22,17 @@ The kernel sites (always taken on a CUDA tensor, plain versions on CPU):
 - us3 + heads + sigmoid -> ``roll_conv_heads_sigmoid`` (1 x B).
 
 The stem conv, layer2 block 0 and the dilated layer3/4 run on cuDNN.
+
+The training forward follows the JAX package's train-mode routing
+(``packed_decoder=True``, conv mode ``roll``): every 3x3x3 conv of the
+layer1 identity blocks and of us1/us2/us3 goes through ``roll_conv_packed``
+(kernel A forward and dgrad, kernel D wgrad) — :data:`TRAIN_ROLL_SITES`
+lists them — while the stem conv, layer2-4 (layer2 has stride 2, so the
+JAX package never packs it in training) and the heads run on cuDNN / ATen,
+the pool is ``F.max_pool3d`` (JAX: ``nn.max_pool``), BatchNorm uses batch
+statistics (``blocks.batch_norm_train``) and the heads are
+``sigmoid(conv1x1(x).float())``.
+
 The JAX package's W-pair packing, space-to-depth stem, quad/pair stems,
 ``remat_scopes`` and conv-mode switches are TPU layouts and knobs and are
 not ported.  ``ResNetSegCls`` and ``ResNet`` come with a later slice.
@@ -36,8 +48,28 @@ from ..ops.layer1_kernel import fused_layer1, fused_pool_layer1
 from ..ops.masked_pool import lung_masked_fraction
 from ..ops.maxpool_kernel import max_pool_k3s2p1
 from ..ops.roll_conv import roll_conv_heads_sigmoid
-from .blocks import (BasicBlock, UpsampleConvBlock, affine, bn_affine,
-                     conv3d_ndhwc, init_weights, kernel_dhwio)
+from .blocks import (BasicBlock, UpsampleConvBlock, affine, batch_norm_train,
+                     bn_affine, conv3d_ndhwc, init_weights, kernel_dhwio,
+                     max_pool3d_ndhwc, roll_conv_bias)
+
+# The training sites of ``roll_conv_packed`` in med3ddram (resnet34segreg):
+# (module name of the conv, spatial divisor of its input against the model
+# input, C, O).  The JAX package routes exactly these through its kernels 6
+# (forward + dgrad) and 7 (wgrad, all but us3, whose 2*32 packed gradient
+# lanes go to XLA) at the deployment shape; the port sends all 11 through
+# kernels A and D.
+TRAIN_ROLL_SITES: Tuple[Tuple[str, int, int, int], ...] = tuple(
+    (f"layer1.{i}.conv{j}", 4, 64, 64) for i in range(3) for j in (1, 2)
+) + (("us1.conv_blocks.0.0", 4, 576, 64), ("us1.conv_blocks.1.0", 4, 64, 64),
+     ("us2.conv_blocks.0.0", 2, 128, 64), ("us2.conv_blocks.1.0", 2, 64, 64),
+     ("us3.0", 2, 64, 32))
+
+
+def train_roll_site_shapes(batch: int, size: Sequence[int]):
+    """``[(name, input shape (B, D, H, W, C), O)]`` of
+    :data:`TRAIN_ROLL_SITES` for a (batch, *size) model input."""
+    return [(name, (batch, *(s // div for s in size), c), o)
+            for name, div, c, o in TRAIN_ROLL_SITES]
 
 
 def _stack_params(blocks: Sequence[BasicBlock]):
@@ -64,6 +96,10 @@ class _Trunk(nn.Module):
         self.layer2 = self._make_layer(block, 128, layers[1], 2, 1)
         self.layer3 = self._make_layer(block, 256, layers[2], 1, 2)
         self.layer4 = self._make_layer(block, 512, layers[3], 1, 4)
+        if block is BasicBlock:
+            # identity blocks: the training convs go through the kernels
+            for blk in self.layer1:
+                blk.roll_train = True
 
     def _make_layer(self, block, planes, blocks, stride, dilation):
         mods = [block(self.inplanes, planes, stride, dilation)]
@@ -73,6 +109,11 @@ class _Trunk(nn.Module):
         return nn.Sequential(*mods)
 
     def trunk(self, x: torch.Tensor):
+        if self.training:
+            stem = torch.relu(batch_norm_train(conv3d_ndhwc(x, self.conv1),
+                                               self.bn1))
+            x1 = self.layer1(max_pool3d_ndhwc(stem))
+            return stem, x1, self.layer4(self.layer3(self.layer2(x1)))
         stem = affine(conv3d_ndhwc(x, self.conv1), self.bn1, relu=True)
         if self.block is BasicBlock:
             # identity blocks: pool + the whole layer1 stack on kernels C, A
@@ -96,8 +137,9 @@ class ResNetSegReg(_Trunk):
 
     ``x`` is (B, D, H, W, 1) in the compute dtype (float32 or bfloat16);
     ``lungs`` (B, D', H', W', 1) at any resolution, or None for all-lung.
-    Weights are drawn from ``generator`` (default: a generator seeded 0).
-    Eval forward only — BatchNorm is folded from its running statistics.
+    Weights are drawn from ``generator`` (default: a generator seeded 0);
+    the model is built in eval mode.  Under ``.train()`` the forward uses
+    and updates the BatchNorm batch statistics and is differentiable.
     """
 
     def __init__(self, block: Type[nn.Module] = BasicBlock,
@@ -120,6 +162,15 @@ class ResNetSegReg(_Trunk):
         xup1 = self.us1(x4, x1)
         xup2 = self.us2(xup1, stem)
         conv, bn, _ = self.us3
+        if self.training:
+            x = torch.relu(batch_norm_train(roll_conv_bias(xup2, conv), bn))
+            dt = x.dtype
+            # 1x1x1 heads: logits rounded to the compute dtype, bias added
+            # in it, sigmoid in float32 (JAX resnet3d.py:413-419)
+            return torch.cat(
+                [torch.sigmoid((torch.matmul(x, fc.weight.reshape(1, -1).t()
+                                             .to(dt)) + fc.bias.to(dt))
+                               .float()) for fc in self.fcs], dim=-1)
         mul, add = bn_affine(bn)
         head_w = torch.cat([fc.weight.reshape(1, -1).t() for fc in self.fcs],
                            dim=1)
@@ -130,9 +181,6 @@ class ResNetSegReg(_Trunk):
 
     def forward(self, x: torch.Tensor, lungs: Optional[torch.Tensor] = None
                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
-        if self.training:
-            raise RuntimeError("ResNetSegReg runs the eval forward only "
-                               "(call .eval())")
         stem, x1, x4 = self.trunk(x)
         dense = self._decoder_heads(x4, x1, stem)
         dense_outs = [dense[..., i:i + 1] for i in range(dense.shape[-1])]

@@ -12,6 +12,9 @@ variable tree: it inverts ``torch_key_to_flax_path`` — the mapping of
 ``bodyct_dram_emph_subtype_tpu/models/torch_import.py:33-94``, copied here
 because that package imports jax — and transposes DHWIO kernels to OIDHW.
 It takes numpy (or any array-like) leaves and never imports jax.
+:func:`optimizer_state_from_jax` carries the JAX package's Adam state
+(optax ``ScaleByAdamState``) onto ``torch.optim.Adam`` under the same key
+mapping.
 """
 from __future__ import annotations
 
@@ -161,6 +164,14 @@ def load_reference_checkpoint(model: torch.nn.Module, path: str
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(ckpt, dict) and "state_dict" in ckpt:
         ckpt = ckpt["state_dict"]
+    return load_state_dict_greedy(model, ckpt)
+
+
+def load_state_dict_greedy(model: torch.nn.Module,
+                           ckpt: Mapping[str, Any]) -> Dict[str, int]:
+    """Load the entries of ``ckpt`` whose key (``model.`` prefix stripped)
+    and shape match ``model``; skip the rest with a warning and report the
+    counts."""
     own = model.state_dict()
     keep = {}
     report = {"loaded": 0, "shape_mismatch": 0, "unexpected": 0,
@@ -170,12 +181,13 @@ def load_reference_checkpoint(model: torch.nn.Module, path: str
         if key not in own:
             logger.warning("[torch_import] unexpected entry: %s", key)
             report["unexpected"] += 1
-        elif tuple(value.shape) != tuple(own[key].shape):
+        elif tuple(np.shape(value)) != tuple(own[key].shape):
             logger.warning("[torch_import] shape mismatch: %s %s vs %s",
                            key, tuple(value.shape), tuple(own[key].shape))
             report["shape_mismatch"] += 1
         else:
-            keep[key] = value
+            keep[key] = torch.as_tensor(np.asarray(value)) \
+                if not isinstance(value, torch.Tensor) else value
             report["loaded"] += 1
     for key in own:
         if key not in keep and not key.endswith("num_batches_tracked"):
@@ -183,3 +195,39 @@ def load_reference_checkpoint(model: torch.nn.Module, path: str
             report["missing"] += 1
     model.load_state_dict(keep, strict=False)
     return report
+
+
+def optimizer_state_from_jax(opt_state: Any, model: torch.nn.Module
+                             ) -> Dict[int, Dict[str, torch.Tensor]]:
+    """optax ``ScaleByAdamState`` (``count``, ``mu``, ``nu``; or a tuple
+    holding one) -> the ``"state"`` entry of a ``torch.optim.Adam``
+    state dict for an optimizer built over ``model.parameters()``: per
+    parameter index ``step`` (the count), ``exp_avg`` (mu) and
+    ``exp_avg_sq`` (nu), conv moments DHWIO -> OIDHW.  Load it with
+    ``opt.load_state_dict({"state": ..., "param_groups":
+    opt.state_dict()["param_groups"]})``."""
+    if not hasattr(opt_state, "mu"):
+        found = [s for s in opt_state if hasattr(s, "mu")]
+        if len(found) != 1:
+            raise ValueError("no single ScaleByAdamState in the opt state")
+        opt_state = found[0]
+    step = float(np.asarray(opt_state.count))
+    moments = {}
+    for name, tree in (("exp_avg", opt_state.mu),
+                       ("exp_avg_sq", opt_state.nu)):
+        for path, leaf in _flatten(tree).items():
+            arr = np.asarray(leaf, dtype=np.float32)
+            if arr.ndim == 5:
+                arr = arr.transpose(4, 3, 0, 1, 2)
+            key = flax_path_to_torch_key("params", path)
+            moments.setdefault(key, {})[name] = torch.tensor(arr)
+    state = {}
+    for i, (key, p) in enumerate(model.named_parameters()):
+        if key not in moments:
+            raise KeyError(f"no Adam moments for parameter {key}")
+        m = moments[key]
+        if tuple(m["exp_avg"].shape) != tuple(p.shape):
+            raise ValueError(f"{key}: moments {tuple(m['exp_avg'].shape)} "
+                             f"vs parameter {tuple(p.shape)}")
+        state[i] = {"step": torch.tensor(step), **m}
+    return state

@@ -1,6 +1,9 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-The sources under ``csrc/`` have a plain C interface.  At first use they
+The sources under ``csrc/`` (``conv3x3x3.cu``: kernels A and B;
+``maxpool3d.cu``: C; ``conv3x3x3_wgrad.cu``: D; every ``*.cu`` there is
+compiled, and ``pyproject.toml`` ships them as package data) have a plain
+C interface.  At first use they
 are compiled with ``nvcc`` for ``sm_90a`` into ONE shared library under
 ``build/kernels/`` (listed in ``.gitignore``), whose file name carries a
 hash of the sources and flags, and loaded with :mod:`ctypes`.  A checkout
@@ -30,11 +33,12 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 KERNELS = ("conv3x3x3_affine", "conv3x3x3_heads_sigmoid",
-           "max_pool3d_k3s2p1")
+           "max_pool3d_k3s2p1", "conv3x3x3_wgrad")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _P = ctypes.c_void_p
@@ -49,6 +53,8 @@ _SIGNATURES = {
                                 _I, _I, _I, _I, _I, _I, _P],
     # dtype, x, out, B, D, H, W, C, stream
     "max_pool3d_k3s2p1": [_I, _P, _P, _I, _I, _I, _I, _I, _P],
+    # dtype, x, g, workspace, out, B, D, H, W, C, O, splits, stream
+    "conv3x3x3_wgrad": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -100,24 +106,49 @@ def _nvcc() -> str:
 
 
 def build() -> BuildInfo:
-    """Compile ``csrc/*.cu`` into the hashed library unless it exists."""
+    """Compile ``csrc/*.cu`` into the hashed library unless it exists: one
+    ``nvcc -c`` per source, all started together, then one link."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    target = BUILD_DIR / f"libdram_kernels_{_digest()}.so"
+    digest = _digest()
+    target = BUILD_DIR / f"libdram_kernels_{digest}.so"
     if target.exists():
         return BuildInfo(target, 0.0, "", True)
+    nvcc = _nvcc()
+    tag = f"{digest}.{os.getpid()}"
     tmp = target.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sources() if p.suffix == ".cu")]
+    jobs = []
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    try:
+        for src in (p for p in sources() if p.suffix == ".cu"):
+            obj = BUILD_DIR / f"{src.stem}_{tag}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs = []
+        for cmd, _, proc in jobs:
+            out, _ = proc.communicate(timeout=900)
+            logs.append(out)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{out}")
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+               *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=300)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{logs[-1]}")
+        os.replace(tmp, target)      # atomic: concurrent processes agree
+    finally:
+        for _, obj, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            obj.unlink(missing_ok=True)
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
-    os.replace(tmp, target)      # atomic: concurrent processes agree
-    return BuildInfo(target, seconds, log, False)
+    return BuildInfo(target, time.perf_counter() - t0, "".join(logs), False)
 
 
 def library() -> ctypes.CDLL:

@@ -13,7 +13,18 @@ Counterpart of ``bodyct_dram_emph_subtype_tpu/ops/roll_conv.py``:
   (roll_conv.py:502): only the f32 maps are written, the us3 activation
   never reaches device memory.
 
-Both take logical NDHWC activations and (3,3,3,C,O) weights — the JAX
+- :func:`roll_conv_packed` — the training conv (no epilogue) as a
+  ``torch.autograd.Function``: forward and input gradient (dgrad: the same
+  conv on the output gradient with spatially flipped, I/O-transposed
+  weights) on kernel A with an identity epilogue, weight gradient on
+  kernel D (``csrc/conv3x3x3_wgrad.cu::conv3x3x3_wgrad``), rounded to the
+  weights' dtype as ``_bwd`` rounds it (roll_conv.py:821).  Replaces the
+  custom VJP ``roll_conv_packed`` (roll_conv.py:771-831) and its wgrad
+  kernel ``roll_conv_wgrad`` (roll_conv.py:682).  The JAX VJP's
+  ``_pad_pair_lanes`` is a TPU lane trick: the port's us3 dgrad is an
+  ordinary kernel-A launch with C=32, O=64.
+
+All take logical NDHWC activations and (3,3,3,C,O) weights — the JAX
 kernels' W-pair packed layout and per-packed-channel vectors are a TPU
 lane layout; ``pack_w``/``unpack_w`` and ``jnp.tile(v, 2)`` map one onto
 the other.  What bounds the kernels on the H100 and how they are built is
@@ -35,6 +46,8 @@ from . import cuda_build
 
 HEADS_MAX_OUT = 64      # kernel B keeps one block's O channels: O <= BN
 HEADS_MAX = 8           # kernel B's kMaxHeads
+WGRAD_ROWS, WGRAD_COLS, WGRAD_K = 128, 64, 16   # kernel D's block tile
+WGRAD_TARGET_BLOCKS = 4 * 132                   # 4 blocks per H100 SM
 
 
 def _dtype_code(t: torch.Tensor) -> int:
@@ -186,3 +199,115 @@ def roll_conv_heads_sigmoid(x: torch.Tensor, kernel: torch.Tensor,
     cuda_build.check(err, "conv3x3x3_heads_sigmoid")
     cuda_build.launched("conv3x3x3_heads_sigmoid")
     return out
+
+
+def conv3x3x3_dgrad_plain(g: torch.Tensor, kernel: torch.Tensor
+                          ) -> torch.Tensor:
+    """Plain input gradient of the stride-1 pad-1 3^3 conv: (B,D,H,W,O)
+    ``g`` x (3,3,3,C,O) -> (B,D,H,W,C) in ``g.dtype``, computed in float32
+    from ``g`` and the weights rounded to ``g.dtype`` (as the kernel takes
+    them), one rounding at the end."""
+    b, d, h, w, _ = g.shape
+    c = kernel.shape[3]
+    dx = torch.nn.grad.conv3d_input(
+        (b, c, d, h, w), kernel.to(g.dtype).float().permute(4, 3, 0, 1, 2),
+        g.float().permute(0, 4, 1, 2, 3), padding=1)
+    return dx.permute(0, 2, 3, 4, 1).to(g.dtype).contiguous()
+
+
+def conv3x3x3_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain weight gradient: (B,D,H,W,C) ``x`` and (B,D,H,W,O) ``g`` ->
+    float32 (3,3,3,C,O), computed in float32 from the exactly widened
+    operands."""
+    c, o = x.shape[-1], g.shape[-1]
+    dw = torch.nn.grad.conv3d_weight(
+        x.float().permute(0, 4, 1, 2, 3), (o, c, 3, 3, 3),
+        g.float().permute(0, 4, 1, 2, 3), padding=1)
+    return dw.permute(2, 3, 4, 1, 0).contiguous()
+
+
+def conv3x3x3_dgrad(g: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Input gradient of the stride-1 pad-1 3^3 conv (B,D,H,W,O) ->
+    (B,D,H,W,C): on a CUDA tensor one launch of kernel A with an identity
+    epilogue on the flipped, I/O-transposed weights; on a CPU tensor
+    :func:`conv3x3x3_dgrad_plain`."""
+    if not _on_cuda(g):
+        return conv3x3x3_dgrad_plain(g, kernel)
+    kt = kernel.flip((0, 1, 2)).transpose(3, 4).contiguous()
+    c = kt.shape[-1]
+    one = torch.ones(c, dtype=torch.float32, device=g.device)
+    zero = torch.zeros(c, dtype=torch.float32, device=g.device)
+    return roll_conv_affine_relu(g, kt, one, zero, relu=False)
+
+
+def wgrad_splits(m: int, c: int, o: int) -> int:
+    """Kernel D's number S of voxel ranges for ``m`` voxels: enough blocks
+    for about four per SM, at least 4 K steps per range."""
+    tiles = -(-27 * c // WGRAD_ROWS) * -(-o // WGRAD_COLS)
+    return max(1, min(-(-WGRAD_TARGET_BLOCKS // tiles),
+                      -(-m // (4 * WGRAD_K)), 65535))
+
+
+def conv3x3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Weight gradient ``dW[kd,kh,kw,c,o] = sum x[b,d+kd-1,h+kh-1,w+kw-1,c]
+    * g[b,d,h,w,o]`` (x zero outside the volume): (B,D,H,W,C) ``x`` and
+    (B,D,H,W,O) ``g``, both float32 or both bfloat16 and contiguous ->
+    float32 (3,3,3,C,O).  On a CUDA tensor kernel D (partials over
+    :func:`wgrad_splits` voxel ranges, summed in a fixed order); on a CPU
+    tensor :func:`conv3x3x3_wgrad_plain`."""
+    if not _on_cuda(x):
+        return conv3x3x3_wgrad_plain(x, g)
+    b, d, h, w, c = x.shape
+    o = g.shape[-1]
+    dev = x.device
+    code = _dtype_code(x)
+    _require(x, (b, d, h, w, c), x.dtype, dev, "x")
+    _require(g, (b, d, h, w, o), x.dtype, dev, "g")
+    splits = wgrad_splits(b * d * h * w, c, o)
+    out = torch.empty((3, 3, 3, c, o), dtype=torch.float32, device=dev)
+    ws = (torch.empty((splits, 27 * c, o), dtype=torch.float32, device=dev)
+          if splits > 1 else None)
+    with torch.cuda.device(dev):
+        err = cuda_build.library().conv3x3x3_wgrad(
+            code, x.data_ptr(), g.data_ptr(),
+            None if ws is None else ws.data_ptr(), out.data_ptr(),
+            b, d, h, w, c, o, splits, _stream(x))
+    cuda_build.check(err, "conv3x3x3_wgrad")
+    cuda_build.launched("conv3x3x3_wgrad")
+    return out
+
+
+class _RollConvPacked(torch.autograd.Function):
+    """Forward: kernel A, identity epilogue.  Backward: dgrad on kernel A,
+    wgrad on kernel D rounded to the weights' dtype (roll_conv.py:821)."""
+
+    @staticmethod
+    def forward(ctx, x, kernel):
+        x = x.contiguous()
+        ctx.save_for_backward(x, kernel)
+        o = kernel.shape[-1]
+        one = torch.ones(o, dtype=torch.float32, device=x.device)
+        zero = torch.zeros(o, dtype=torch.float32, device=x.device)
+        return roll_conv_affine_relu(x, kernel, one, zero, relu=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, kernel = ctx.saved_tensors
+        g = g.contiguous()
+        dx = conv3x3x3_dgrad(g, kernel) if ctx.needs_input_grad[0] else None
+        dw = (conv3x3x3_wgrad(x, g).to(kernel.dtype)
+              if ctx.needs_input_grad[1] else None)
+        return dx, dw
+
+
+def roll_conv_packed(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Differentiable stride-1 pad-1 3^3 conv without bias or epilogue:
+    NDHWC ``x`` (B,D,H,W,C) in the compute dtype x (3,3,3,C,O) ``kernel``
+    in the same dtype -> (B,D,H,W,O) in that dtype (float32 accumulation,
+    one rounding).  Each call runs one kernel-A launch forward and, in the
+    backward, one kernel-A launch (dgrad) and one kernel-D launch
+    (wgrad)."""
+    if x.dtype != kernel.dtype:
+        raise TypeError(f"x is {x.dtype} but kernel is {kernel.dtype}: cast "
+                        f"the weights to the compute dtype first")
+    return _RollConvPacked.apply(x, kernel)

@@ -1,0 +1,129 @@
+"""Training entry point of the PyTorch package:
+
+    python -m bodyct_dram_emph_subtype_tpu_torch.train --model_arch med3ddram \\
+        --data_path <archive> --train_csv <csv> --valid_csv <csv> \\
+        --test_csv <csv> --model_path ./models --batch_size 2 \\
+        --compute_dtype bfloat16
+
+The flags of the root ``train.py`` that this slice supports, and the same
+flow (``train.py:123-133``): ``init_state`` -> ``setup_checkpointing`` ->
+``try_resume`` -> ``fit`` -> ``restore_best`` -> ``evaluate("test")``.
+``--input_pipeline device``, ``--mesh``, ``--multihost``, ``--ngpus`` > 1,
+``--remat`` other than ``none``, ``--noise_rng rbg`` and the CLS archs
+raise ``NotImplementedError``; ``--packed_decoder`` (a TPU lane layout) is
+accepted and has no effect, ``--profile``/``--debug_nans`` are not ported
+and log so.  ``--device cpu`` runs every kernel site's plain version.
+"""
+import logging
+from argparse import ArgumentParser
+from typing import Optional, Sequence
+
+
+def _size(text: str):
+    return tuple(int(v) for v in text.replace("x", ",").split(","))
+
+
+def build_parser() -> ArgumentParser:
+    p = ArgumentParser(prog="python -m bodyct_dram_emph_subtype_tpu_torch."
+                            "train")
+    p.add_argument("--model_arch", default="med3ddram50", type=str)
+    p.add_argument("--lr", "--learning-rate", default=0.0001, type=float)
+    p.add_argument("--ngpus", "--nchips", dest="nchips", default=None,
+                   type=int, help="more than 1 needs DDP (not ported)")
+    p.add_argument("--mesh", default=None, type=str,
+                   help="not ported (multi-device)")
+    p.add_argument("--momentum", default=None, type=float,
+                   help="ignored (reference parity: Adam uses lr only)")
+    p.add_argument("--reload_only_weights", default=1, type=int)
+    p.add_argument("--weight_decay", default=None, type=float,
+                   help="ignored (reference parity: Adam uses lr only)")
+    p.add_argument("--ckp", type=str, default=None)
+    p.add_argument("--target_size", default=(128, 224, 288), type=_size)
+    p.add_argument("--data_path", default="./COPDGene_cache/", type=str)
+    p.add_argument("--train_csv", default="./COPDGene_cache/merged.csv")
+    p.add_argument("--valid_csv", default="./COPDGene_cache/merged.csv")
+    p.add_argument("--test_csv", default="./COPDGene_cache/merged.csv")
+    p.add_argument("--model_path", default="./models/", type=str)
+    p.add_argument("--workers", default=2, type=int)
+    p.add_argument("--batch_size", default=1, type=int)
+    p.add_argument("--num_samples", default=128, type=int)
+    p.add_argument("--max_epochs", default=120, type=int)
+    p.add_argument("--seed", default=0, type=int)
+    p.add_argument("--sampler_seed", default=None, type=int,
+                   help="fixed sampler seed (default: wall clock, as the "
+                        "reference)")
+    p.add_argument("--compute_dtype", default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--input_pipeline", default="host",
+                   choices=["host", "device"])
+    p.add_argument("--pad_shape", default=None, type=_size,
+                   help="device input pipeline only (not ported)")
+    p.add_argument("--multihost", action="store_true")
+    p.add_argument("--profile", action="store_true")
+    p.add_argument("--debug_nans", action="store_true")
+    p.add_argument("--remat", default="none", type=str,
+                   help="only 'none' is ported")
+    p.add_argument("--noise_rng", default="threefry",
+                   choices=["threefry", "rbg"])
+    p.add_argument("--grad_accum", default=1, type=int)
+    p.add_argument("--packed_decoder", action="store_true",
+                   help="accepted; the W-pair packing is a TPU layout")
+    p.add_argument("--device", default=None,
+                   help="cuda (default when available) or cpu")
+    p.add_argument("--local_rank", default=0, type=int,
+                   help="this argument is not used and should be ignored")
+    return p
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+    from .loop import SubtypeTrainer, TrainerConfig
+    if args.multihost:
+        raise NotImplementedError("--multihost needs DDP, which is not "
+                                  "ported yet (ROADMAP section 1, 'DDP')")
+    config = TrainerConfig(
+        model_arch=args.model_arch, lr=args.lr, max_epochs=args.max_epochs,
+        batch_size=args.batch_size, num_samples=args.num_samples,
+        target_size=tuple(args.target_size), workers=args.workers,
+        data_path=args.data_path, train_csv=args.train_csv,
+        valid_csv=args.valid_csv, test_csv=args.test_csv,
+        model_path=args.model_path, nchips=args.nchips, seed=args.seed,
+        sampler_seed=args.sampler_seed, compute_dtype=args.compute_dtype,
+        input_pipeline=args.input_pipeline, mesh=args.mesh,
+        remat=args.remat, noise_rng=args.noise_rng,
+        grad_accum=args.grad_accum, device=args.device)
+    trainer = SubtypeTrainer(config)
+    config.exp_path.mkdir(parents=True, exist_ok=True)
+    root = logging.getLogger()
+    handlers = [logging.FileHandler(config.exp_path / "debug.log"),
+                logging.StreamHandler()]
+    for handler in handlers:
+        handler.setFormatter(logging.Formatter(
+            "%(asctime)s [%(levelname)s] %(message)s"))
+        root.addHandler(handler)
+    if root.level > logging.INFO or root.level == logging.NOTSET:
+        root.setLevel(logging.INFO)
+    try:
+        if args.momentum is not None or args.weight_decay is not None:
+            logging.warning("--momentum/--weight_decay are ignored: the "
+                            "optimizer is Adam(lr), as in the reference")
+        for flag in ("profile", "debug_nans"):
+            if getattr(args, flag):
+                logging.warning("--%s is not ported to the PyTorch package; "
+                                "ignored", flag)
+        trainer.init_state()
+        trainer.setup_checkpointing()
+        trainer.try_resume(reload_only_weights=bool(args.reload_only_weights),
+                           ckp=args.ckp)
+        trainer.fit()
+        best_epoch = trainer.restore_best()
+        trainer.evaluate("test", epoch=best_epoch)
+    finally:
+        for handler in handlers:
+            root.removeHandler(handler)
+            handler.close()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

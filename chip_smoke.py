@@ -21,11 +21,39 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    us1.conv0 nears one ulp of the 2^-10-of-peak floor); B float32 max|d|
    <= 1e-5*max|ref|; B bf16 maps max|d| <= 5e-3 and mean <= 1e-6; C
    bit-equal;
+3b. the training kernels vs their plain versions at every site of
+   ``TRAIN_ROLL_SITES`` (the B=2 med3ddram train step at 128x224x288,
+   float32 and bfloat16) plus one ragged shape: kernel D (weight gradient)
+   against ``conv3x3x3_wgrad_plain`` (cuDNN wgrad in float32 of the exactly
+   widened operands; D writes float32 for both input dtypes, bound max|d|
+   <= 5e-5*max|ref|; the first card run measured at most 0.48 of it, at
+   us1.conv0's 258 k-voxel sums) and bit-equal on a second run; the dgrad
+   (kernel A on the flipped, I/O-transposed weights) against
+   ``conv3x3x3_dgrad_plain`` (A's bounds: float32 2e-5*max|ref|, measured
+   at most 0.13 of it; bf16 2 bf16 ulps, measured exactly one);
 4. main path — three synthetic scans through ``run_inference`` (med3ddram,
    bf16, batch 2, seeded random weights), output contract checked, kernel
    launch counts checked per forward, scans/s and per-stage times; then
    the tiny model on the card against its CPU plain path;
-5. bf16 vs float32 forward of the same weights on one scan.
+5. bf16 vs float32 forward of the same weights on one scan;
+6. training path — a synthetic ``.npz`` archive of 4 scans (int16 CT with a
+   lung ellipsoid, stored 180x320x320) through the trainer in-process
+   (med3ddram, bf16, B=2, one epoch of 4 steps, augmentation on), then
+   ``restore_best`` and a test evaluation over the archive: finite losses,
+   params and BN running statistics moved, 22 kernel-A and 11 kernel-D
+   launches (no B or C) in every train step, the eval launch counts, a
+   checkpoint that ``try_resume`` reloads; ms per step, volumes/s, peak
+   device memory and one step split into loader wait, augment, forward,
+   backward and optimizer (CUDA events);
+6b. one med3ddramtiny train step (float32, augment off) on the card with
+   its kernels against the CPU plain path, same weights and batch: loss
+   |d| <= 1e-4 relative; each gradient ||d||/||g|| <= 5e-3 and max|d| <=
+   2e-2 of its peak (measured on the first card runs: 2.1e-3 and 8.8e-3
+   at worst; float32 order noise of cuDNN vs CPU convs, amplified by the
+   train BatchNorms' backward, whose E[x^2] - mean^2 variance cancels; the
+   decoder conv biases ahead of a train BN, whose gradient is zero in
+   exact arithmetic, are not compared); BN running statistics <= 1e-4
+   relative.
 
 The line before the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -33,6 +61,7 @@ repository beside it, the script exits non-zero and prints no result.
 """
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -59,9 +88,18 @@ from bodyct_dram_emph_subtype_tpu_torch.ops.maxpool_kernel import (
     max_pool_k3s2p1, max_pool_k3s2p1_plain)
 from bodyct_dram_emph_subtype_tpu_torch.ops.preprocess import \
     fused_preprocess_preselected
+from bodyct_dram_emph_subtype_tpu_torch.models.resnet3d import \
+    train_roll_site_shapes
 from bodyct_dram_emph_subtype_tpu_torch.ops.roll_conv import (
-    roll_conv_affine_relu, roll_conv_affine_relu_plain,
-    roll_conv_heads_sigmoid, roll_conv_heads_sigmoid_plain)
+    conv3x3x3_dgrad, conv3x3x3_dgrad_plain, conv3x3x3_wgrad,
+    conv3x3x3_wgrad_plain, roll_conv_affine_relu,
+    roll_conv_affine_relu_plain, roll_conv_heads_sigmoid,
+    roll_conv_heads_sigmoid_plain)
+from bodyct_dram_emph_subtype_tpu_torch.train.loop import (SubtypeTrainer,
+                                                           TrainerConfig)
+from bodyct_dram_emph_subtype_tpu_torch.train.state import make_optimizer
+from bodyct_dram_emph_subtype_tpu_torch.train.steps import \
+    make_reg_train_step
 
 DEV = torch.device("cuda")
 B = 2
@@ -84,6 +122,12 @@ C_SITES = [("stem.pool", (B, 64, 112, 144, 64), 1),
            ("ragged", (1, 5, 7, 9, 3), 0)]
 PER_FORWARD = {"conv3x3x3_affine": 16, "conv3x3x3_heads_sigmoid": 1,
                "max_pool3d_k3s2p1": 1}
+# (site, x shape, O) of the training convs, plus a ragged shape
+TRAIN_SITES = train_roll_site_shapes(B, TARGET) + [
+    ("ragged", (1, 5, 7, 9, 20), 13)]
+GRAD_L2_BOUND, GRAD_PEAK_BOUND = 5e-3, 2e-2      # phase 6b
+PER_TRAIN_STEP = {"conv3x3x3_affine": 22, "conv3x3x3_wgrad": 11,
+                  "conv3x3x3_heads_sigmoid": 0, "max_pool3d_k3s2p1": 0}
 SOURCES = {
     "conv3x3x3_affine": (
         "bodyct_dram_emph_subtype_tpu_torch/csrc/conv3x3x3.cu",
@@ -94,6 +138,9 @@ SOURCES = {
     "max_pool3d_k3s2p1": (
         "bodyct_dram_emph_subtype_tpu_torch/csrc/maxpool3d.cu",
         "bodyct_dram_emph_subtype_tpu/ops/maxpool_kernel.py:161"),
+    "conv3x3x3_wgrad": (
+        "bodyct_dram_emph_subtype_tpu_torch/csrc/conv3x3x3_wgrad.cu",
+        "bodyct_dram_emph_subtype_tpu/ops/roll_conv.py:682"),
 }
 
 
@@ -262,6 +309,78 @@ def phase_kernels():
     return summary
 
 
+def compare_d(gen, shape, o, dtype):
+    x = rand(gen, shape, 0.5, dtype)
+    g = rand(gen, shape[:4] + (o,), 0.5, dtype)
+    got = conv3x3x3_wgrad(x, g)
+    again = conv3x3x3_wgrad(x, g)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"kernel D not bit-reproducible {shape}")
+    ref = conv3x3x3_wgrad_plain(x, g)
+    delta = (got - ref).abs()
+    bound = 5e-5 * ref.abs().max().item()
+    ratio = delta.max().item() / bound
+    t_k = median_ms(lambda: conv3x3x3_wgrad(x, g))
+    t_p = median_ms(lambda: conv3x3x3_wgrad_plain(x, g))
+    flops = 2.0 * math.prod(shape[:4]) * 27 * shape[-1] * o
+    return delta, ratio, f"<= 5e-5*max|ref| = {bound:.3g}; bit-equal rerun", \
+        t_k, t_p, f"{flops / t_k / 1e9:.1f} TFLOP/s"
+
+
+def compare_dgrad(gen, shape, o, dtype):
+    c = shape[-1]
+    g = rand(gen, shape[:4] + (o,), 0.5, dtype)
+    k = rand(gen, (3, 3, 3, c, o), math.sqrt(2.0 / (27 * o))).to(dtype)
+    got = conv3x3x3_dgrad(g, k)
+    torch.cuda.synchronize()
+    ref = conv3x3x3_dgrad_plain(g, k)
+    delta = (got.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        bound = 2e-5 * ref.abs().max().item()
+        ratio = delta.max().item() / bound
+        btxt = f"<= 2e-5*max|ref| = {bound:.3g}"
+    else:
+        ratio = (delta / (2 * bf16_ulp(ref))).max().item()
+        btxt = "<= 2 bf16 ulp(ref)"
+    t_k = median_ms(lambda: conv3x3x3_dgrad(g, k))
+    t_p = median_ms(lambda: conv3x3x3_dgrad_plain(g, k))
+    flops = 2.0 * math.prod(shape[:4]) * 27 * c * o
+    return delta, ratio, btxt, t_k, t_p, f"{flops / t_k / 1e9:.1f} TFLOP/s"
+
+
+def phase_train_kernels():
+    print("== phase 3b: training kernels vs plain versions (B=2 train sites)")
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    wgrad = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    dgrad = {"ms": 0.0, "plain_ms": 0.0}
+    for site, shape, o in TRAIN_SITES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = "f32" if dtype == torch.float32 else "bf16"
+            for kernel, run in (("conv3x3x3_wgrad", compare_d),
+                                ("dgrad(conv3x3x3_affine)", compare_dgrad)):
+                delta, ratio, btxt, t_k, t_p, rate = run(gen, shape, o, dtype)
+                ok = ratio <= 1.0
+                print(f"{kernel:24s} {site:20s} {dname:4s} {str(shape):24s} "
+                      f"O={o:<3d} max|d|={delta.max().item():.3e} "
+                      f"mean|d|={delta.mean().item():.3e} ({btxt}; "
+                      f"{ratio:.3f} of bound) kernel {t_k:.3f} ms "
+                      f"plain {t_p:.3f} ms [{rate}] {'ok' if ok else 'FAIL'}")
+                check(ok, f"{kernel} {site} {dname}: outside its bound")
+                if kernel == "conv3x3x3_wgrad":
+                    wgrad["max_abs_err"] = max(wgrad["max_abs_err"],
+                                               delta.max().item())
+                if dtype == torch.bfloat16 and site != "ragged":
+                    acc = wgrad if kernel == "conv3x3x3_wgrad" else dgrad
+                    acc["ms"] += t_k
+                    acc["plain_ms"] += t_p
+                del delta
+                torch.cuda.empty_cache()
+    print(f"per B=2 bf16 train step: kernel D {wgrad['ms']:.2f} ms (plain "
+          f"{wgrad['plain_ms']:.2f}), dgrad on A {dgrad['ms']:.2f} ms (plain "
+          f"{dgrad['plain_ms']:.2f})")
+    return wgrad, dgrad
+
+
 def write_scans(scan_dir: Path, lobe_dir: Path, n: int = 3):
     """Synthetic int16 CTs of about (180, 320, 320) with a lobe ellipsoid
     whose lung crop fits the default pad_shape (160, 288, 384)."""
@@ -405,24 +524,259 @@ def phase_bf16_vs_f32(model, scan_dir: Path, lobe_dir: Path):
         check(mean < 1.5e-2, f"{name} map mean |d| {mean}")
 
 
+def write_archive(root: Path, shape=(180, 320, 320)):
+    """Synthetic training archive of 4 scans: int16 CT with a lung
+    ellipsoid at a stored size of ``shape``, ``{uid}.npz`` +
+    ``merged.csv`` (4 CLE classes, so 2 samples each make one epoch of 4
+    steps)."""
+    rows = ["SeriesInstanceUID,CT_Visual_Emph_Severity_P1,"
+            "CT_Visual_Emph_Paraseptal_P1"]
+    zz, yy, xx = np.ogrid[:shape[0], :shape[1], :shape[2]]
+    c = [s / 2 for s in shape]
+    for i, (cle, pse) in enumerate(((0, 0), (2, 1), (3, 2), (5, 1))):
+        rng = np.random.RandomState(200 + i)
+        lung = ((((zz - c[0]) / (0.39 * shape[0])) ** 2
+                 + ((yy - c[1]) / ((0.31 + 0.015 * i) * shape[1])) ** 2
+                 + ((xx - c[2]) / (0.39 * shape[2])) ** 2) < 1)
+        ct = np.full(shape, -1000, np.int16)
+        ct[lung] = (-900 + 80 * rng.randn(int(lung.sum()))).astype(np.int16)
+        np.savez(root / f"scan{i}.npz", image=ct, lung_mask=lung,
+                 cls_label=cle, pse_label=pse)
+        rows.append(f"scan{i},{cle},{pse}")
+    (root / "merged.csv").write_text("\n".join(rows) + "\n")
+    return shape
+
+
+class StepClock:
+    """The trainer's ``step_mark`` hook: a CUDA event and a host time at
+    each phase boundary, and the kernel launch counts at each ``loader``
+    mark (one train step lies between two of them)."""
+
+    def __init__(self):
+        self.steps, self.cur, self.launches = [], None, []
+
+    def __call__(self, name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        if name == "loader":
+            self.launches.append(cuda_build.launches())
+            if self.cur is not None:
+                self.steps.append(self.cur)
+            self.cur = []
+        self.cur.append((name, ev, time.perf_counter()))
+
+    def breakdown(self, step):
+        marks = self.steps[step]
+        torch.cuda.synchronize()
+        out = {"loader wait": 1e3 * (marks[1][2] - marks[0][2])}
+        for (name, ev, _), (_, ev2, _) in zip(marks[1:], marks[2:]):
+            out[name] = ev.elapsed_time(ev2)
+        return out
+
+    def wall_ms(self):
+        """Host ms from each step's loader mark to the next one's."""
+        starts = [s[0][2] for s in self.steps] + [self.cur[0][2]]
+        return [1e3 * (b - a) for a, b in zip(starts, starts[1:])]
+
+
+def phase_train(work: Path):
+    print("== phase 6: training path (trainer, med3ddram, bf16, B=2, "
+          "augmentation on)")
+    t0 = time.perf_counter()
+    shape = write_archive(work)
+    print(f"wrote 4 synthetic scans {shape} as .npz in "
+          f"{time.perf_counter() - t0:.1f} s")
+    csv = str(work / "merged.csv")
+    cfg = TrainerConfig(model_arch="med3ddram", lr=1e-4, max_epochs=1,
+                        batch_size=B, num_samples=2, target_size=TARGET,
+                        workers=4, data_path=str(work), train_csv=csv,
+                        valid_csv="", test_csv=csv,
+                        model_path=str(work / "models"), sampler_seed=0,
+                        compute_dtype="bfloat16", device="cuda")
+    trainer = SubtypeTrainer(cfg)
+    trainer.init_state()
+    trainer.setup_checkpointing()
+    check(not trainer.try_resume(), "resumed from an empty directory")
+    before = {k: v.detach().clone()
+              for k, v in trainer.model.state_dict().items()}
+    losses = []
+    step = trainer._train_step
+
+    def logged_step(*args, **kw):
+        metrics, preds = step(*args, **kw)
+        losses.append({k: float(v) for k, v in metrics.items()})
+        return metrics, preds
+
+    trainer._train_step = logged_step
+    clock = StepClock()
+    trainer.step_mark = clock
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    train_launches = cuda_build.launches()
+    n = len(clock.steps)
+    check(n >= 4 and len(losses) == n, f"{n} train steps")
+    for i, m in enumerate(losses):
+        print(f"step {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in m.items()))
+        check(all(math.isfinite(v) for v in m.values()), f"step {i} losses")
+    for i in range(n):
+        per = {k: clock.launches[i + 1][k] - clock.launches[i][k]
+               for k in PER_TRAIN_STEP}
+        check(per == PER_TRAIN_STEP, f"step {i} launches {per}")
+    print(f"launches per train step (every one of {n}): "
+          + ", ".join(f"{k} {v}" for k, v in PER_TRAIN_STEP.items()))
+    after = trainer.model.state_dict()
+    moved = {k: (after[k].float() - before[k].float()).abs().max().item()
+             for k in before if not k.endswith("num_batches_tracked")}
+    check(all(v > 0 for k, v in moved.items() if k.endswith("weight")),
+          "a weight did not move")
+    stats = [k for k in moved if "running" in k]
+    check(all(moved[k] > 0 for k in stats), "a BN running statistic did not "
+          "move")
+    print(f"every weight moved (min max|d| "
+          f"{min(v for k, v in moved.items() if k.endswith('weight')):.3e}); "
+          f"all {len(stats)} BN running statistics moved")
+    wall = clock.wall_ms()
+    med = statistics.median(wall[1:])
+    split = clock.breakdown(n - 1)
+    print(f"train step ms (loader to loader): "
+          + ", ".join(f"{t:.1f}" for t in wall)
+          + f"; median without the first {med:.1f} ms, "
+          f"{B / med * 1e3:.3f} volumes/s; fit {fit_s:.1f} s "
+          f"(incl. epoch end and checkpoint)")
+    print("last step split (ms): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in split.items())
+        + " (loader wait: host clock; the rest: CUDA events)")
+    print(f"peak device memory {peak / 2 ** 30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated)")
+    best = trainer.restore_best()
+    cuda_build.reset_launches()
+    metrics = trainer.evaluate("test", epoch=best)
+    torch.cuda.synchronize()
+    eval_launches = cuda_build.launches()
+    forwards = -(-4 // B)
+    for k, per in PER_FORWARD.items():
+        check(eval_launches[k] == per * forwards,
+              f"test eval {k}: {eval_launches[k]} for {forwards} forwards")
+    check(eval_launches["conv3x3x3_wgrad"] == 0, "wgrad launched in eval")
+    check(0.0 <= metrics["epoch_test_acc_cle"] <= 1.0, f"{metrics}")
+    print(f"test evaluation over the archive (best epoch {best}): "
+          f"acc_cle {metrics['epoch_test_acc_cle']:.3f} acc_pse "
+          f"{metrics['epoch_test_acc_pse']:.3f}; launches "
+          + ", ".join(f"{k} {v}" for k, v in eval_launches.items()))
+    check(trainer.ckpt.epochs() == [0], f"checkpoints {trainer.ckpt.epochs()}")
+    again = SubtypeTrainer(cfg)
+    again.init_state()
+    again.setup_checkpointing()
+    check(again.try_resume(reload_only_weights=False) and again.epoch == 1,
+          "try_resume did not reload the checkpoint")
+    saved = trainer.ckpt.restore(0)["model"]
+    check(all(torch.equal(v.cpu(), saved[k])
+              for k, v in again.model.state_dict().items()),
+          "resumed weights differ from the checkpoint")
+    print("checkpoint epoch_0000.pt written; try_resume reloads weights, "
+          "Adam state and epoch 1")
+    total = {k: train_launches[k] + eval_launches[k] for k in train_launches}
+    return total, {"step_ms": med, "volumes_s": B / med * 1e3,
+                   "peak_gib": peak / 2 ** 30, "split": split}
+
+
+def phase_train_small():
+    print("== phase 6b: med3ddramtiny train step on the card vs its CPU "
+          "plain path (float32, augment off)")
+    rng = np.random.RandomState(7)
+    size = (32, 48, 64)
+    batch = {"image": rng.randn(B, *size).astype(np.float32),
+             "lung_mask": (rng.rand(B, *size) > 0.3).astype(np.float32),
+             "em_mask": (rng.rand(B, *size) > 0.8).astype(np.float32),
+             "cls_label": np.asarray([3, 0]), "pse_label": np.asarray([1, 2])}
+    cw_cle, cw_pse = np.full(6, 1 / 6), np.full(3, 1 / 3)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = get_model_by_name(
+            "med3ddramtiny", generator=torch.Generator().manual_seed(3))
+        with torch.no_grad():           # keep the maps off the clip edge
+            for fc in model.fcs:
+                fc.weight.mul_(0.05)
+                fc.bias.fill_(-1.5)
+        model.to(dev)
+        step = make_reg_train_step(model, make_optimizer(model.parameters()),
+                                   augment=False)
+        cuda_build.reset_launches()
+        metrics, _ = step(batch, 0.0, cw_cle, cw_pse)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = cuda_build.launches()
+            check(counts["conv3x3x3_affine"] == 14
+                  and counts["conv3x3x3_wgrad"] == 7, f"tiny step {counts}")
+        out[dev] = (float(metrics["loss"]),
+                    {k: p.grad.detach().cpu() for k, p in
+                     model.named_parameters()},
+                    {k: b.detach().cpu() for k, b in model.named_buffers()
+                     if "running" in k})
+    (l_cpu, g_cpu, s_cpu), (l_gpu, g_gpu, s_gpu) = out["cpu"], out["cuda"]
+    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    # the decoder conv biases feed a train BatchNorm, which removes them:
+    # their gradient is 0 in exact arithmetic and float32 noise here
+    noise = [k for k in g_cpu
+             if re.fullmatch(r"us[12]\.conv_blocks\.\d\.0\.bias|us3\.0\.bias", k)]
+    l2 = {k: ((g_gpu[k] - g_cpu[k]).norm() / g_cpu[k].norm()).item()
+          for k in g_cpu if k not in noise}
+    peak = {k: ((g_gpu[k] - g_cpu[k]).abs().max()
+                / g_cpu[k].abs().max()).item() for k in l2}
+    worst_l2, worst_peak = max(l2, key=l2.get), max(peak, key=peak.get)
+    stat = max(((s_gpu[k] - s_cpu[k]).abs()
+                / s_cpu[k].abs().clamp_min(1e-3)).max().item()
+               for k in s_cpu)
+    print(f"loss cpu {l_cpu:.7f} card {l_gpu:.7f} rel|d| {rel:.2e} (<= 1e-4);"
+          f" gradients: ||d||/||g|| {l2[worst_l2]:.2e} at worst "
+          f"({worst_l2}; <= {GRAD_L2_BOUND:g}), max|d| {peak[worst_peak]:.2e} "
+          f"of the tensor's peak at worst ({worst_peak}; <= "
+          f"{GRAD_PEAK_BOUND:g}); {len(noise)} pre-BN conv biases, zero in "
+          f"exact arithmetic, not compared; BN running stats rel|d| "
+          f"{stat:.2e} (<= 1e-4); 14 A + 7 D launches")
+    for k in sorted(l2, key=l2.get, reverse=True)[:4]:
+        print(f"  {k}: ||d||/||g|| {l2[k]:.2e}, max|d|/peak {peak[k]:.2e}")
+    check(l2[worst_l2] <= GRAD_L2_BOUND, f"tiny step gradient L2 {l2}")
+    check(peak[worst_peak] <= GRAD_PEAK_BOUND, f"tiny step gradient peak")
+    check(rel <= 1e-4, f"tiny step loss rel|d| {rel}")
+    check(stat <= 1e-4, f"tiny step BN stats rel|d| {stat}")
+
+
 def main():
     card = phase_environment()
     phase_build()
     summary = phase_kernels()
+    summary["conv3x3x3_wgrad"], _ = phase_train_kernels()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         model, scan_dir, lobe_dir, launches, stage, rate = \
             phase_main_path(Path(tmp))
         phase_small_reference()
         phase_bf16_vs_f32(model, scan_dir, lobe_dir)
+        del model
+        torch.cuda.empty_cache()
+        work = Path(tmp) / "train"
+        work.mkdir()
+        train_launches, train = phase_train(work)
+    phase_train_small()
     kernels = []
     for name, s in summary.items():
         source, replaces = SOURCES[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces,
+                        "launches": launches[name] + train_launches[name],
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                         "plain_ms": s["plain_ms"]})
-    print(f"card: {card}; main path {rate:.3f} scans/s; kernel ms are per "
-          f"B=2 bf16 forward (sum over each kernel's sites)")
+    print(f"card: {card}; main path {rate:.3f} scans/s; training "
+          f"{train['step_ms']:.1f} ms per B=2 bf16 step "
+          f"({train['volumes_s']:.3f} volumes/s, peak "
+          f"{train['peak_gib']:.2f} GiB); launches are the inference (phase "
+          f"4) plus the training path (phase 6); kernel ms per B=2 bf16 "
+          f"forward (A, B, C) or train step (D), summed over the sites")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,8 +21,10 @@ from bodyct_dram_emph_subtype_tpu_torch.ops.layer1_kernel import (
 from bodyct_dram_emph_subtype_tpu_torch.ops.maxpool_kernel import (
     max_pool_k3s2p1, max_pool_k3s2p1_plain)
 from bodyct_dram_emph_subtype_tpu_torch.ops.roll_conv import (
+    conv3x3x3_dgrad_plain, conv3x3x3_wgrad, conv3x3x3_wgrad_plain,
     roll_conv_affine_relu, roll_conv_affine_relu_plain,
-    roll_conv_heads_sigmoid, roll_conv_heads_sigmoid_plain)
+    roll_conv_heads_sigmoid, roll_conv_heads_sigmoid_plain,
+    roll_conv_packed, wgrad_splits)
 
 pytestmark = pytest.mark.cuda
 
@@ -134,3 +136,55 @@ def test_fused_pool_layer1_matches_plain(dev, dtype):
     got, ref = got.float().cpu(), ref.float()
     tol = 1e-4 if dtype == torch.float32 else 3e-2
     assert (got - ref).abs().max().item() <= tol * max(1.0, ref.abs().max())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,o", [
+    ((2, 5, 7, 9, 20), 13),     # ragged C (scalar gathers), O, many splits
+    ((1, 4, 6, 10, 64), 32),    # us3's O = 32 < the 64-column tile
+    ((1, 6, 8, 12, 72), 70),    # two column tiles, 128-bit gathers
+])
+def test_wgrad_kernel_matches_plain(dev, dtype, shape, o):
+    """Kernel D against its plain version (both accumulate the exactly
+    widened operands in float32: 5e-5 of the peak covers the order), with
+    more than one voxel range, and bit-equal on a second run."""
+    rng = np.random.RandomState(4)
+    c = shape[-1]
+    assert wgrad_splits(int(np.prod(shape[:4])), c, o) > 1
+    x = _t(rng, shape, dev, 0.5, dtype)
+    g = _t(rng, shape[:4] + (o,), dev, 0.5, dtype)
+    before = cuda_build.launches()["conv3x3x3_wgrad"]
+    got = conv3x3x3_wgrad(x, g)
+    again = conv3x3x3_wgrad(x, g)
+    torch.cuda.synchronize()
+    assert cuda_build.launches()["conv3x3x3_wgrad"] == before + 2
+    ref = conv3x3x3_wgrad_plain(x, g)
+    assert got.dtype == torch.float32 and got.shape == (3, 3, 3, c, o)
+    assert (got - ref).abs().max().item() <= 5e-5 * ref.abs().max().item()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,o", [((2, 4, 6, 10, 16), 24),
+                                     ((1, 4, 5, 8, 64), 32)])
+def test_roll_conv_packed_backward_matches_plain_autograd(dev, dtype, shape,
+                                                          o):
+    """The autograd Function on the card (A forward, A dgrad, D wgrad
+    rounded to the weights' dtype) against the plain versions on the same
+    inputs and output gradient."""
+    rng = np.random.RandomState(5)
+    c = shape[-1]
+    x = _t(rng, shape, dev, 0.5, dtype).requires_grad_()
+    k = _t(rng, (3, 3, 3, c, o), dev, 0.1, dtype).requires_grad_()
+    gy = _t(rng, shape[:4] + (o,), dev, 0.5, dtype)
+    y = roll_conv_packed(x, k)
+    y.backward(gy)
+    torch.cuda.synchronize()
+    ref_y = roll_conv_affine_relu_plain(
+        x.detach(), k.detach(), torch.ones(o, device=dev),
+        torch.zeros(o, device=dev), relu=False)
+    ref_dx = conv3x3x3_dgrad_plain(gy, k.detach())
+    ref_dk = conv3x3x3_wgrad_plain(x.detach(), gy).to(dtype)
+    assert x.grad.dtype == dtype and k.grad.dtype == dtype
+    for got, ref in ((y, ref_y), (x.grad, ref_dx), (k.grad, ref_dk)):
+        _assert_close(got.detach(), ref, dtype)

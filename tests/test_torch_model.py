@@ -71,14 +71,73 @@ def test_layer2_tail_forward_matches_jax():
 
 def test_lungs_default_and_eval_only():
     model = get_model_by_name("med3ddramtiny")
+    before = model.bn1.running_var.clone()
     x = torch.zeros(1, 8, 16, 16, 1)
     with torch.inference_mode():
         dense, regs = model(x)
     assert dense[0].shape == (1, 4, 8, 8, 1)
     torch.testing.assert_close(regs[0], dense[0].mean(dim=(1, 2, 3, 4)))
+    # eval mode reads the running statistics and leaves them alone; the
+    # training forward (no longer refused) uses batch statistics, updates
+    # them and is differentiable
+    assert torch.equal(model.bn1.running_var, before)
     model.train()
-    with pytest.raises(RuntimeError, match="eval"):
-        model(x)
+    x = torch.randn(1, 8, 16, 16, 1, generator=torch.Generator()
+                    .manual_seed(0))
+    dense, regs = model(x)
+    assert dense[0].shape == (1, 4, 8, 8, 1) and dense[0].requires_grad
+    regs[0].sum().backward()
+    assert model.conv1.weight.grad is not None
+    assert not torch.equal(model.bn1.running_var, before)
+
+
+@pytest.mark.parametrize("block", ["basic", "bottleneck"])
+def test_train_forward_matches_jax(block):
+    """The training forward (batch statistics, roll_conv_packed sites on
+    their plain versions) of a 1-block-per-layer model against JAX's
+    ``train=True`` apply: both maps, both fractions and every updated BN
+    running statistic.  The train BNs amplify float32 order noise, so the
+    maps hold atol 5e-5 (the eval test's rtol 1e-4 stays) and the
+    statistics atol 1e-5 (the Bottleneck us1 conv sums 27*2304 terms; its
+    running means near 1e-3 differ by 1.8e-6)."""
+    from bodyct_dram_emph_subtype_tpu.models import blocks as jblocks
+    from bodyct_dram_emph_subtype_tpu_torch.models.blocks import Bottleneck
+    from bodyct_dram_emph_subtype_tpu_torch.models.torch_import import \
+        flax_path_to_torch_key
+    jblock = jblocks.BasicBlock if block == "basic" else jblocks.Bottleneck
+    tblock = BasicBlock if block == "basic" else Bottleneck
+    rng = np.random.RandomState(2)
+    x = rng.randn(2, 16, 16, 16, 1).astype(np.float32)
+    lung = (rng.rand(2, 16, 16, 16, 1) > 0.3).astype(np.float32)
+    model = JaxSegReg(block=jblock, layers=(1, 1, 1, 1), packed_decoder=True)
+    init = jax.jit(functools.partial(model.init, train=False))
+    variables = jax.tree.map(np.asarray, init(jax.random.PRNGKey(1),
+                                              jnp.asarray(x), jnp.asarray(lung)))
+    with jax.default_matmul_precision("highest"):
+        (dense, regs), upd = model.apply(variables, jnp.asarray(x),
+                                         jnp.asarray(lung), train=True,
+                                         mutable=["batch_stats"])
+    port = ResNetSegReg(tblock, (1, 1, 1, 1))
+    port.load_state_dict(state_dict_from_jax(variables), strict=True)
+    port.train()
+    tdense, tregs = port(torch.from_numpy(x), torch.from_numpy(lung))
+    for got, want in zip(list(tdense) + list(tregs), list(dense) + list(regs)):
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   rtol=1e-4, atol=5e-5)
+    buffers = dict(port.named_buffers())
+
+    def flat(tree, prefix=()):
+        if isinstance(tree, dict):
+            return [kv for k, v in tree.items() for kv in flat(v, prefix + (k,))]
+        return [(prefix, np.asarray(tree))]
+
+    stats = flat(jax.tree.map(np.asarray, dict(upd["batch_stats"])))
+    assert len(stats) == sum(k.endswith(("running_mean", "running_var"))
+                             for k in buffers)
+    for path, v in stats:
+        key = flax_path_to_torch_key("batch_stats", path)
+        np.testing.assert_allclose(buffers[key].numpy(), v, rtol=1e-5,
+                                   atol=1e-5, err_msg=key)
 
 
 @pytest.mark.parametrize("name", ["med3d", "med3d18", "med3d50",
