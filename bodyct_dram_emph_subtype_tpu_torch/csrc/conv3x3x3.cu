@@ -11,6 +11,15 @@
 //       (the same conv + 1x1x1 heads + sigmoid epilogue, kernel B)
 // and, as a loop of kernel-A launches, the conv phase of
 //   bodyct_dram_emph_subtype_tpu/ops/layer1_kernel.py:142 fused_layer1.
+// With an identity epilogue and a dilation d (tap (kd,kh,kw) reads the
+// input at d*(k-1), zero padding d) kernel A also replaces the opt-in conv
+// mode kernels
+//   bodyct_dram_emph_subtype_tpu/ops/pallas_conv.py:80 _pallas_conv3d_impl
+//   bodyct_dram_emph_subtype_tpu/ops/tap_conv.py:118 _tap_conv3d_impl
+//   bodyct_dram_emph_subtype_tpu/ops/flat_conv.py:140 _flat_conv_impl
+// which compute one stride-1 3^3 conv in three MXU-filling layouts; the
+// dilated layer3/4 convs, which the TPU runs on space-to-batch subgrids,
+// run here on the logical tensor at d = 2 and 4.
 //
 // Design: an implicit GEMM, M = B*D*H*W output voxels, N = O output
 // channels, K = 27 taps x C input channels.  A block owns a BM x BN output
@@ -52,6 +61,7 @@ struct ConvArgs {
   int n_heads;
   int B, D, H, W, C, O;
   int relu;
+  int dil;               // tap spacing and zero padding (1: plain 3^3)
 };
 
 // Gather 8 consecutive input channels of one voxel row into registers.
@@ -125,9 +135,9 @@ __global__ void __launch_bounds__(NT) conv3x3x3_kernel(ConvArgs a) {
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
   for (int tap = 0; tap < 27; ++tap) {
-    const int id = ad + tap / 9 - 1;
-    const int ih = ah + (tap / 3) % 3 - 1;
-    const int iw = aw + tap % 3 - 1;
+    const int id = ad + (tap / 9 - 1) * a.dil;
+    const int ih = ah + ((tap / 3) % 3 - 1) * a.dil;
+    const int iw = aw + (tap % 3 - 1) * a.dil;
     const bool in_vol = a_valid && id >= 0 && id < a.D && ih >= 0 &&
                         ih < a.H && iw >= 0 && iw < a.W;
     const T* xrow =
@@ -235,7 +245,8 @@ cudaError_t launch(const ConvArgs& a, cudaStream_t stream) {
 }
 
 bool bad_shape(const ConvArgs& a) {
-  return a.B <= 0 || a.D <= 0 || a.H <= 0 || a.W <= 0 || a.C <= 0 || a.O <= 0;
+  return a.B <= 0 || a.D <= 0 || a.H <= 0 || a.W <= 0 || a.C <= 0 ||
+         a.O <= 0 || a.dil <= 0;
 }
 
 }  // namespace
@@ -244,11 +255,11 @@ bool bad_shape(const ConvArgs& a) {
 extern "C" int conv3x3x3_affine(int dtype, const void* x, const void* w,
                                 const float* scale, const float* shift,
                                 const void* residual, void* out, int B, int D,
-                                int H, int W, int C, int O, int relu,
+                                int H, int W, int C, int O, int relu, int dil,
                                 void* stream) {
   using namespace dram;
   ConvArgs a{x, w, scale, shift, residual, out, nullptr, nullptr, 0,
-             B, D, H, W, C, O, relu};
+             B, D, H, W, C, O, relu, dil};
   if (bad_shape(a)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) return (int)launch<float, false>(a, s);
@@ -264,7 +275,7 @@ extern "C" int conv3x3x3_heads_sigmoid(int dtype, const void* x, const void* w,
                                        void* stream) {
   using namespace dram;
   ConvArgs a{x, w, scale, shift, nullptr, out, head_w, head_b, n_heads,
-             B, D, H, W, C, O, 1};
+             B, D, H, W, C, O, 1, 1};
   if (bad_shape(a) || O > BN || n_heads <= 0 || n_heads > kMaxHeads)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

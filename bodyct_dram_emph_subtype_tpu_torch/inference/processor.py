@@ -339,11 +339,15 @@ def _finalize_scan(uid: str, rec: Dict[str, Any], *, dataset,
 
 def build_model(model_arch: str = "med3ddram",
                 ckp_path: Optional[str] = "best.ckpt",
-                seed: int = 0) -> torch.nn.Module:
+                seed: int = 0,
+                compute_dtype: str = "float32") -> torch.nn.Module:
     """An eval model with a reference checkpoint's weights when
-    ``ckp_path`` exists, else random weights drawn from ``seed``."""
+    ``ckp_path`` exists, else random weights drawn from ``seed``.  The
+    bfloat16 model has the packed decoder, as the JAX processor builds it
+    (processor.py:555-556)."""
     model = get_model_by_name(
-        model_arch, generator=torch.Generator().manual_seed(seed))
+        model_arch, generator=torch.Generator().manual_seed(seed),
+        packed_decoder=compute_dtype == "bfloat16")
     if ckp_path and Path(ckp_path).is_file():
         report = load_reference_checkpoint(model, ckp_path)
         logger.info("loaded weights from %s: %s", ckp_path, report)
@@ -400,7 +404,7 @@ def run_inference(scan_path: str, lobe_path: str, output_path: str,
     if len(dataset) == 0:
         raise FileNotFoundError(f"no .mha scans under {scan_path}")
     if model is None:
-        model = build_model(model_arch, ckp_path, seed)
+        model = build_model(model_arch, ckp_path, seed, compute_dtype)
     model = model.to(device).eval()
 
     up_shape = (target_size[0], int(pad_shape[1]), int(pad_shape[2]))

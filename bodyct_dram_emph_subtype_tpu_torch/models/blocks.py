@@ -8,30 +8,110 @@ Counterpart of the logical (non-packed) parts of
 
 Parameters are ``nn.Conv3d`` / ``nn.BatchNorm3d`` under the reference's
 module names, so a reference state dict loads unchanged.  Activations stay
-NDHWC (channels last) as in the JAX package; the convs that no kernel of
-this port serves go to cuDNN through ``F.conv3d`` on a channels-last-3d
-view (dilated layer3/4 with native dilation — the TPU's space-to-batch and
-subgrid W-merge are layouts and are not ported).  Compute runs in the
+NDHWC (channels last) as in the JAX package.  Compute runs in the
 activation dtype (float32 or bfloat16); weights are cast to it at use.
 
-``forward`` dispatches on ``self.training``.  Eval BatchNorm is folded to
-a per-channel float32 ``mul``/``add`` (eps 1e-5, ``packed.py:355-361``).
-Training BatchNorm is :func:`batch_norm_train`; the 3x3x3 stride-1 convs
-that the JAX package routes through ``roll_conv_packed`` in training (the
-identity blocks of layer1 and the decoder stages) run on the port's
-``roll_conv_packed`` (kernels A and D), every other conv on cuDNN.
+The 3-D conv lowering mode (:func:`set_conv3d_mode`, read from
+``$BODYCT_CONV3D_MODE`` at import; the port's default is ``roll``, the
+JAX package's ``direct``) picks the kernels, as ``conv3d_apply`` does in
+the JAX package (blocks.py:150-234):
+
+- ``roll``: the kernel sites are chosen per module (fused layer1 stacks,
+  decoder stages and heads on kernels A/B/C, ``roll_conv_packed`` in
+  training); :func:`conv3d_apply` sends every other conv to cuDNN.
+- ``pallas``, ``tapmm``, ``flat``: :func:`conv3d_apply` sends each
+  stride-1 3^3 conv whose JAX gate passes (``ops/pallas_conv.py``,
+  ``tap_conv.py``, ``flat_conv.py``) to kernel A, every other conv to
+  cuDNN; no module-level kernel site is taken.  The gate judges the shape
+  the JAX package convolves: for a dilation-d conv, the space-to-batch
+  subgrid shape (B*d^3, D/d, H/d, W/d, C) with the dims rounded up to
+  multiples of d (``DilatedConv3d``, blocks.py:370).  The port runs the
+  same numbers as a dilated conv on the logical tensor: space-to-batch and
+  the subgrid W-merge are TPU layouts and are not ported.
+- ``direct``, ``d2sum``, ``d2cat``, ``packw``: every conv on cuDNN (the
+  TPU lowerings of those names compute the same conv).
+
+Outside the roll module sites a conv is rounded to the compute dtype and
+its bias added in it (``Conv3d.__call__``, blocks.py:257-262), BatchNorm
+rounds its output, and the residual add runs in the compute dtype
+(blocks.py:544): the JAX package's unpacked rounding chain.  Eval
+BatchNorm is folded to a per-channel float32 ``mul``/``add`` (eps 1e-5,
+``packed.py:355-361``); training BatchNorm is :func:`batch_norm_train`.
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.flat_conv import flat_conv3d, supports_flat_conv
+from ..ops.pallas_conv import pallas_conv3d, supports_pallas_conv3d
 from ..ops.resize import resize_linear_matmul
 from ..ops.roll_conv import roll_conv_affine_relu, roll_conv_packed
+from ..ops.tap_conv import supports_tap_conv3d, tap_conv3d
+
+CONV3D_MODES = ("direct", "d2sum", "d2cat", "pallas", "tapmm", "packw",
+                "roll", "flat")
+_CONV3D_MODE = os.environ.get("BODYCT_CONV3D_MODE", "roll")
+
+# mode -> (JAX gate on (shape, kernel shape, itemsize), the port's op)
+_MODE_OPS = {
+    "pallas": (lambda s, k, i: supports_pallas_conv3d(s, k, (1, 1, 1), i),
+               pallas_conv3d),
+    "tapmm": (lambda s, k, i: supports_tap_conv3d(s, k, (1, 1, 1), i),
+              tap_conv3d),
+    "flat": (supports_flat_conv, flat_conv3d),
+}
+
+
+def set_conv3d_mode(mode: str) -> None:
+    """Set the 3-D conv lowering mode (one of :data:`CONV3D_MODES`; the
+    port's default is ``roll``, the JAX package's ``direct``).  Takes
+    effect at the next forward.  Unlike the JAX setter, which refuses
+    ``flat`` though its ``conv3d_apply`` runs it, every mode that
+    ``conv3d_apply`` understands is accepted."""
+    global _CONV3D_MODE
+    if mode not in CONV3D_MODES:
+        raise ValueError(f"unknown conv3d mode {mode!r}; known: "
+                         f"{CONV3D_MODES}")
+    _CONV3D_MODE = mode
+
+
+def get_conv3d_mode() -> str:
+    return _CONV3D_MODE
+
+
+def jax_conv_shape(x_shape: Sequence[int], dilation: int
+                   ) -> Tuple[int, ...]:
+    """The activation shape the JAX package convolves for a 3^3 conv of
+    dilation ``dilation`` on NDHWC ``x_shape``: the space-to-batch subgrid
+    (B*d^3, ceil(D/d), ceil(H/d), ceil(W/d), C), or ``x_shape`` itself at
+    d = 1."""
+    b, d, h, w, c = x_shape
+    n = dilation
+    return (b * n ** 3, -(-d // n), -(-h // n), -(-w // n), c)
+
+
+def mode_conv_op(mode: str, x_shape: Sequence[int],
+                 kernel_shape: Sequence[int], stride: Sequence[int],
+                 dilation: int, itemsize: int):
+    """The op (``pallas_conv3d``, ``tap_conv3d``, ``flat_conv3d``) that a
+    conv of NDHWC input ``x_shape``, (kd, kh, kw, C, O) ``kernel_shape``,
+    ``stride`` and ``dilation`` (padding = dilation) runs on under
+    ``mode``, or None for cuDNN: the JAX routing of ``conv3d_apply``
+    (blocks.py:174-205) with its gates on :func:`jax_conv_shape`."""
+    if mode not in _MODE_OPS or tuple(kernel_shape[:3]) != (3, 3, 3) \
+            or tuple(stride) != (1, 1, 1):
+        return None
+    gate, op = _MODE_OPS[mode]
+    if not gate(jax_conv_shape(x_shape, dilation), tuple(kernel_shape),
+                itemsize):
+        return None
+    return op
 
 
 def bn_affine(bn: nn.BatchNorm3d) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -47,12 +127,36 @@ def kernel_dhwio(conv: nn.Conv3d) -> torch.Tensor:
 
 
 def conv3d_ndhwc(x: torch.Tensor, conv: nn.Conv3d) -> torch.Tensor:
-    """``conv`` (its stride, padding, dilation, bias) on NDHWC ``x`` via
-    cuDNN, in ``x.dtype``; returns contiguous NDHWC."""
-    bias = None if conv.bias is None else conv.bias.to(x.dtype)
-    y = F.conv3d(x.permute(0, 4, 1, 2, 3), conv.weight.to(x.dtype), bias,
+    """``conv`` (its stride, padding, dilation) on NDHWC ``x`` via cuDNN,
+    rounded to ``x.dtype``, then its bias added in ``x.dtype``; returns
+    contiguous NDHWC."""
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), conv.weight.to(x.dtype), None,
                  conv.stride, conv.padding, conv.dilation)
-    return y.permute(0, 2, 3, 4, 1).contiguous()
+    y = y.permute(0, 2, 3, 4, 1).contiguous()
+    if conv.bias is not None:
+        y = y + conv.bias.to(x.dtype)
+    return y
+
+
+def conv3d_apply(x: torch.Tensor, conv: nn.Conv3d,
+                 mode: Optional[str] = None) -> torch.Tensor:
+    """``conv`` on NDHWC ``x`` under conv mode ``mode`` (default: the
+    global mode): a stride-1 3^3 conv whose JAX gate passes runs on its
+    mode op (kernel A; on a CPU tensor its plain version), everything else
+    on cuDNN.  The conv is rounded to ``x.dtype``, then the bias added in
+    it."""
+    op = None
+    if tuple(conv.padding) == tuple(conv.dilation):
+        op = mode_conv_op(mode or _CONV3D_MODE, tuple(x.shape),
+                          tuple(conv.kernel_size) + (conv.in_channels,
+                                                     conv.out_channels),
+                          conv.stride, conv.dilation[0], x.element_size())
+    if op is None:
+        return conv3d_ndhwc(x, conv)
+    y = op(x, kernel_dhwio(conv).to(x.dtype), dilation=conv.dilation[0])
+    if conv.bias is not None:
+        y = y + conv.bias.to(x.dtype)
+    return y
 
 
 def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm3d) -> torch.Tensor:
@@ -77,6 +181,14 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm3d) -> torch.Tensor:
     return (xf * mul + add).to(x.dtype)
 
 
+def decoder_conv(x: torch.Tensor, conv: nn.Conv3d,
+                 packed: bool) -> torch.Tensor:
+    """A decoder conv outside conv mode ``roll``: the packed decoder's
+    convs go to cuDNN whatever the mode, the unpacked decoder's through
+    :func:`conv3d_apply`."""
+    return conv3d_ndhwc(x, conv) if packed else conv3d_apply(x, conv)
+
+
 def roll_conv_bias(x: torch.Tensor, conv: nn.Conv3d) -> torch.Tensor:
     """Training 3x3x3 stride-1 conv through ``roll_conv_packed``: output
     rounded to ``x.dtype`` first, then the conv bias added in that dtype
@@ -93,13 +205,11 @@ def max_pool3d_ndhwc(x: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
-def affine(y: torch.Tensor, bn: nn.BatchNorm3d, relu: bool,
-           residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Folded eval BN (+ residual) (+ ReLU) in float32, back to y.dtype."""
+def affine(y: torch.Tensor, bn: nn.BatchNorm3d,
+           relu: bool = False) -> torch.Tensor:
+    """Folded eval BN (+ ReLU) in float32, rounded back to y.dtype."""
     mul, add = bn_affine(bn)
     out = y.float() * mul + add
-    if residual is not None:
-        out = out + residual.float()
     if relu:
         out = torch.relu(out)
     return out.to(y.dtype)
@@ -137,11 +247,12 @@ def downsample_shortcut_a(x: torch.Tensor, planes: int,
 class BasicBlock(nn.Module):
     """Two 3x3x3 convs + identity / type-'A' shortcut (``med3d.py:115-144``).
 
-    In eval mode the identity blocks of layer1 and the layer2 tail run
-    through ``ops/layer1_kernel.py`` (kernel A); this ``forward`` serves the
-    rest (strided, channel-changing and dilated blocks) through cuDNN.  In
-    training a block with ``roll_train`` set (the trunk sets it on layer1)
-    runs both convs through ``roll_conv_packed``, the others on cuDNN."""
+    In eval mode under conv mode ``roll`` the identity blocks of layer1 and
+    the layer2 tail run through ``ops/layer1_kernel.py`` (kernel A); this
+    ``forward`` serves every other block, each conv through
+    :func:`conv3d_apply`, with the JAX package's unpacked rounding chain.
+    In training under ``roll`` a block with ``roll_train`` set (the trunk
+    sets it on layer1) runs both convs through ``roll_conv_packed``."""
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
@@ -158,22 +269,18 @@ class BasicBlock(nn.Module):
                                bias=False)
         self.bn2 = nn.BatchNorm3d(planes)
 
-    def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
-        conv = roll_conv_bias if self.roll_train else conv3d_ndhwc
-        out = torch.relu(batch_norm_train(conv(x, self.conv1), self.bn1))
-        out = batch_norm_train(conv(out, self.conv2), self.bn2)
+    def _conv(self, x: torch.Tensor, conv: nn.Conv3d) -> torch.Tensor:
+        if self.training and self.roll_train and _CONV3D_MODE == "roll":
+            return roll_conv_bias(x, conv)
+        return conv3d_apply(x, conv)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bn = batch_norm_train if self.training else affine
+        out = torch.relu(bn(self._conv(x, self.conv1), self.bn1))
+        out = bn(self._conv(out, self.conv2), self.bn2)
         residual = (downsample_shortcut_a(x, self.planes, self.stride)
                     if self.use_downsample else x)
         return torch.relu(out + residual)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            return self._train_forward(x)
-        out = affine(conv3d_ndhwc(x, self.conv1), self.bn1, relu=True)
-        residual = (downsample_shortcut_a(x, self.planes, self.stride)
-                    if self.use_downsample else x)
-        return affine(conv3d_ndhwc(out, self.conv2), self.bn2, relu=True,
-                      residual=residual)
 
     def fused_params(self):
         """(kernels, muls, adds) of both convs for ``fused_layer1``."""
@@ -184,7 +291,8 @@ class BasicBlock(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """1-3-1 bottleneck, expansion 4 (``med3d.py:147-184``), via cuDNN."""
+    """1-3-1 bottleneck, expansion 4 (``med3d.py:147-184``): each conv
+    through :func:`conv3d_apply`, the JAX unpacked rounding chain."""
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
@@ -201,25 +309,14 @@ class Bottleneck(nn.Module):
         self.conv3 = nn.Conv3d(planes, planes * 4, 1, bias=False)
         self.bn3 = nn.BatchNorm3d(planes * 4)
 
-    def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = torch.relu(batch_norm_train(conv3d_ndhwc(x, self.conv1),
-                                          self.bn1))
-        out = torch.relu(batch_norm_train(conv3d_ndhwc(out, self.conv2),
-                                          self.bn2))
-        out = batch_norm_train(conv3d_ndhwc(out, self.conv3), self.bn3)
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bn = batch_norm_train if self.training else affine
+        out = torch.relu(bn(conv3d_apply(x, self.conv1), self.bn1))
+        out = torch.relu(bn(conv3d_apply(out, self.conv2), self.bn2))
+        out = bn(conv3d_apply(out, self.conv3), self.bn3)
         residual = (downsample_shortcut_a(x, self.planes * 4, self.stride)
                     if self.use_downsample else x)
         return torch.relu(out + residual)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            return self._train_forward(x)
-        out = affine(conv3d_ndhwc(x, self.conv1), self.bn1, relu=True)
-        out = affine(conv3d_ndhwc(out, self.conv2), self.bn2, relu=True)
-        residual = (downsample_shortcut_a(x, self.planes * 4, self.stride)
-                    if self.use_downsample else x)
-        return affine(conv3d_ndhwc(out, self.conv3), self.bn3, relu=True,
-                      residual=residual)
 
 
 def crop_concat(t1: torch.Tensor, t2: torch.Tensor) -> torch.Tensor:
@@ -236,9 +333,13 @@ def crop_concat(t1: torch.Tensor, t2: torch.Tensor) -> torch.Tensor:
 class UpsampleConvBlock(nn.Module):
     """x2 trilinear (align_corners=True) upsample as interpolation-matrix
     products + crop-concat + conv-BN-ReLU stages (``med3d.py:50-89``).
-    In eval mode each stage is one launch of kernel A with the conv bias
-    and eval BN folded into its epilogue (``packed.py::packed_stage``); in
-    training each stage is ``roll_conv_packed`` + bias, train BN, ReLU."""
+    Under conv mode ``roll`` each eval stage is one launch of kernel A with
+    the conv bias and eval BN folded into its epilogue
+    (``packed.py::packed_stage``), and each training stage is
+    ``roll_conv_packed`` + bias, train BN, ReLU.  In the other modes a
+    stage is conv, BN, ReLU with the conv through :func:`conv3d_apply`,
+    or, for the packed decoder (``packed``: ``PackedConv3`` calls XLA's
+    conv outside ``roll``, packed.py:318-328), on cuDNN."""
 
     def __init__(self, in_chs: int, base_chs: Sequence[int] = (64, 64),
                  scale_factor: int = 2):
@@ -252,16 +353,20 @@ class UpsampleConvBlock(nn.Module):
             in_chs = ch
         self.conv_blocks = nn.ModuleList(blocks)
 
-    def forward(self, inputs: torch.Tensor, cats: torch.Tensor
-                ) -> torch.Tensor:
+    def forward(self, inputs: torch.Tensor, cats: torch.Tensor,
+                packed: bool = False) -> torch.Tensor:
         s = self.scale_factor
         d, h, w = inputs.shape[1:4]
         up = resize_linear_matmul(inputs, (d * s, h * s, w * s), (1, 2, 3),
                                   align_corners=True).to(inputs.dtype)
         x = crop_concat(up, cats.to(inputs.dtype)).contiguous()
-        if self.training:
+        roll = _CONV3D_MODE == "roll"
+        if self.training or not roll:
+            bn_fn = batch_norm_train if self.training else affine
             for conv, bn, _ in self.conv_blocks:
-                x = torch.relu(batch_norm_train(roll_conv_bias(x, conv), bn))
+                y = (roll_conv_bias(x, conv) if roll
+                     else decoder_conv(x, conv, packed))
+                x = torch.relu(bn_fn(y, bn))
             return x
         for conv, bn, _ in self.conv_blocks:
             mul, add = bn_affine(bn)

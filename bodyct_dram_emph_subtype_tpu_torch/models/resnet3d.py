@@ -13,8 +13,10 @@ Module names equal the reference checkpoint's keys (``conv1``, ``bn1``,
 ``fcs.i``), so a reference ``best.ckpt`` state dict (``model.`` prefix
 stripped) loads with ``load_state_dict`` (``models/torch_import.py``).
 
-``forward`` dispatches on ``self.training``.  The eval kernel sites
-(always taken on a CUDA tensor, plain versions on CPU):
+``forward`` dispatches on ``self.training`` and on the conv mode
+(``blocks.set_conv3d_mode``).  The eval kernel sites under ``roll`` (the
+port's default; always taken on a CUDA tensor, plain versions on CPU;
+:func:`roll_eval_sites`):
 
 - stem max-pool + layer1 -> ``fused_pool_layer1`` (kernel C + 6 x A),
 - layer2 blocks 1..n-1 -> ``fused_layer1`` (6 x A),
@@ -22,10 +24,13 @@ stripped) loads with ``load_state_dict`` (``models/torch_import.py``).
 - us3 + heads + sigmoid -> ``roll_conv_heads_sigmoid`` (1 x B).
 
 The stem conv, layer2 block 0 and the dilated layer3/4 run on cuDNN.
+With the quad stem on (``set_quad_stem_enable``, ``models/experimental.py``;
+eval, ``roll``, ``packed_decoder``) the stem conv, BN, ReLU and pool run
+as one launch of kernel E and layer1 as ``fused_layer1``.
 
-The training forward follows the JAX package's train-mode routing
-(``packed_decoder=True``, conv mode ``roll``): every 3x3x3 conv of the
-layer1 identity blocks and of us1/us2/us3 goes through ``roll_conv_packed``
+The training forward under ``roll`` follows the JAX package's train-mode
+routing (``packed_decoder=True``): every 3x3x3 conv of the layer1
+identity blocks and of us1/us2/us3 goes through ``roll_conv_packed``
 (kernel A forward and dgrad, kernel D wgrad) — :data:`TRAIN_ROLL_SITES`
 lists them — while the stem conv, layer2-4 (layer2 has stride 2, so the
 JAX package never packs it in training) and the heads run on cuDNN / ATen,
@@ -33,13 +38,22 @@ the pool is ``F.max_pool3d`` (JAX: ``nn.max_pool``), BatchNorm uses batch
 statistics (``blocks.batch_norm_train``) and the heads are
 ``sigmoid(conv1x1(x).float())``.
 
-The JAX package's W-pair packing, space-to-depth stem, quad/pair stems,
-``remat_scopes`` and conv-mode switches are TPU layouts and knobs and are
-not ported.  ``ResNetSegCls`` and ``ResNet`` come with a later slice.
+Under the conv modes ``pallas``, ``tapmm`` and ``flat`` (eval and
+training) no module-level kernel site is taken, as in the JAX package,
+where every packed and fused route needs ``roll`` (``packed.py:481, 496,
+512, 527``): the pool is ``F.max_pool3d``, every block runs unpacked, the
+heads are unfused, and each 3^3 conv that the mode's JAX gate accepts runs
+on kernel A through ``blocks.conv3d_apply`` — :func:`mode_conv_sites`
+lists them.  ``packed_decoder`` matters only there: the packed decoder's
+convs go to cuDNN (``packed.py:318-328``).
+
+The JAX package's W-pair packing, space-to-depth stem, pair stem and
+``remat_scopes`` are TPU layouts and knobs and are not ported.
+``ResNetSegCls`` and ``ResNet`` come with a later slice.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple, Type
+from typing import Dict, List, Optional, Sequence, Tuple, Type
 
 import torch
 import torch.nn as nn
@@ -48,9 +62,14 @@ from ..ops.layer1_kernel import fused_layer1, fused_pool_layer1
 from ..ops.masked_pool import lung_masked_fraction
 from ..ops.maxpool_kernel import max_pool_k3s2p1
 from ..ops.roll_conv import roll_conv_heads_sigmoid
+from ..ops.stem_kernel import fused_stem_pool, supports_fused_stem
+from . import blocks
 from .blocks import (BasicBlock, UpsampleConvBlock, affine, batch_norm_train,
-                     bn_affine, conv3d_ndhwc, init_weights, kernel_dhwio,
-                     max_pool3d_ndhwc, roll_conv_bias)
+                     bn_affine, conv3d_ndhwc, decoder_conv, init_weights,
+                     kernel_dhwio, max_pool3d_ndhwc, mode_conv_op,
+                     roll_conv_bias)
+from .experimental import (set_quad_stem_enable,  # noqa: F401 (re-export)
+                           use_quad_stem)
 
 # The training sites of ``roll_conv_packed`` in med3ddram (resnet34segreg):
 # (module name of the conv, spatial divisor of its input against the model
@@ -70,6 +89,83 @@ def train_roll_site_shapes(batch: int, size: Sequence[int]):
     :data:`TRAIN_ROLL_SITES` for a (batch, *size) model input."""
     return [(name, (batch, *(s // div for s in size), c), o)
             for name, div, c, o in TRAIN_ROLL_SITES]
+
+
+def roll_eval_sites(layers: Sequence[int], quad: bool = False
+                    ) -> List[Tuple[str, str, Dict[str, int]]]:
+    """The kernel sites of a BasicBlock ``ResNetSegReg`` eval forward
+    under conv mode ``roll`` where every JAX gate passes (the deployment
+    shape): ``[(site, JAX kernel module, {port kernel: launches})]``, one
+    entry per JAX ``pallas_call`` site.  ``quad``: the quad stem on and
+    ``supports_fused_stem`` holding (kernel E)."""
+    a = "conv3x3x3_affine"
+    if quad:
+        head = [("conv1+bn1+pool", "stem_kernel", {"stem_pool": 1}),
+                ("layer1", "layer1_kernel", {a: 2 * layers[0]})]
+    else:
+        head = [("pool+layer1", "layer1_kernel",
+                 {"max_pool3d_k3s2p1": 1, a: 2 * layers[0]})]
+    return head + [("layer2.tail", "layer1_kernel", {a: 2 * (layers[1] - 1)})] \
+        + [(f"us{i}.conv_blocks.{j}.0", "roll_conv", {a: 1})
+           for i in (1, 2) for j in (0, 1)] \
+        + [("us3+heads", "roll_conv", {"conv3x3x3_heads_sigmoid": 1})]
+
+
+def _ceil_div(shape: Sequence[int], s: int) -> Tuple[int, ...]:
+    return tuple(-(-n // s) for n in shape)
+
+
+def conv3d_apply_sites(model: "ResNetSegReg", batch: int,
+                       size: Sequence[int]
+                       ) -> List[Tuple[str, Tuple[int, ...], nn.Conv3d]]:
+    """``[(module name, NDHWC input shape, conv)]`` of every conv that the
+    forward outside conv mode ``roll`` sends through ``blocks.conv3d_apply``
+    for a (batch, *size) input, in forward order: every conv of the
+    residual layers and, for a model with the unpacked decoder, the five
+    decoder convs.  The stem conv and the heads never go through it."""
+    sites = []
+    s = _ceil_div(_ceil_div(size, 2), 2)          # stem, pool
+    outs = []
+    for lname in ("layer1", "layer2", "layer3", "layer4"):
+        for i, blk in enumerate(getattr(model, lname)):
+            for cname, conv in blk.named_children():
+                if not isinstance(conv, nn.Conv3d):
+                    continue
+                sites.append((f"{lname}.{i}.{cname}",
+                              (batch, *s, conv.in_channels), conv))
+                s = _ceil_div(s, conv.stride[0])
+        outs.append(s)
+    if not model.packed_decoder:
+        s = tuple(2 * n for n in outs[3])
+        for us in ("us1", "us2"):
+            for j, (conv, _, _) in enumerate(getattr(model, us).conv_blocks):
+                sites.append((f"{us}.conv_blocks.{j}.0",
+                              (batch, *s, conv.in_channels), conv))
+            s = tuple(2 * n for n in s)
+        s = tuple(n // 2 for n in s)
+        sites.append(("us3.0", (batch, *s, model.us3[0].in_channels),
+                      model.us3[0]))
+    return sites
+
+
+def mode_conv_sites(model: "ResNetSegReg", mode: str, batch: int,
+                    size: Sequence[int], dtype: torch.dtype
+                    ) -> List[Tuple[str, Tuple[int, ...], Tuple[int, ...],
+                                    int, str]]:
+    """The convs that conv mode ``mode`` runs on kernel A in one forward
+    (eval or training) of a (batch, *size) input in ``dtype``:
+    ``[(module name, NDHWC input shape, kernel shape (3,3,3,C,O),
+    dilation, op name)]``, the sites of the JAX package's ``pallas_call``
+    for that mode."""
+    out = []
+    for name, shape, conv in conv3d_apply_sites(model, batch, size):
+        kshape = tuple(conv.kernel_size) + (conv.in_channels,
+                                            conv.out_channels)
+        op = mode_conv_op(mode, shape, kshape, conv.stride,
+                          conv.dilation[0], dtype.itemsize)
+        if op is not None:
+            out.append((name, shape, kshape, conv.dilation[0], op.__name__))
+    return out
 
 
 def _stack_params(blocks: Sequence[BasicBlock]):
@@ -109,16 +205,21 @@ class _Trunk(nn.Module):
         return nn.Sequential(*mods)
 
     def trunk(self, x: torch.Tensor):
-        if self.training:
-            stem = torch.relu(batch_norm_train(conv3d_ndhwc(x, self.conv1),
-                                               self.bn1))
+        if self.training or blocks.get_conv3d_mode() != "roll":
+            bn = batch_norm_train if self.training else affine
+            stem = torch.relu(bn(conv3d_ndhwc(x, self.conv1), self.bn1))
             x1 = self.layer1(max_pool3d_ndhwc(stem))
             return stem, x1, self.layer4(self.layer3(self.layer2(x1)))
-        stem = affine(conv3d_ndhwc(x, self.conv1), self.bn1, relu=True)
-        if self.block is BasicBlock:
+        if use_quad_stem(x.shape, False, self.packed_decoder, x.dtype):
+            stem, pooled = self._quad_stem(x)
+            x1 = (fused_layer1(pooled, *_stack_params(self.layer1))
+                  if self.block is BasicBlock else self.layer1(pooled))
+        elif self.block is BasicBlock:
             # identity blocks: pool + the whole layer1 stack on kernels C, A
+            stem = affine(conv3d_ndhwc(x, self.conv1), self.bn1, relu=True)
             x1 = fused_pool_layer1(stem, *_stack_params(self.layer1))
         else:
+            stem = affine(conv3d_ndhwc(x, self.conv1), self.bn1, relu=True)
             x1 = self.layer1(max_pool_k3s2p1(stem))
         x2 = self.layer2[0](x1)
         if self.block is BasicBlock:
@@ -128,6 +229,16 @@ class _Trunk(nn.Module):
                 x2 = blk(x2)
         x4 = self.layer4(self.layer3(x2))
         return stem, x1, x4
+
+    def _quad_stem(self, x: torch.Tensor):
+        """(stem, pooled) of the quad stem path: one launch of kernel E
+        where the JAX gate ``supports_fused_stem`` holds, else the cuDNN
+        conv, BN and ReLU and kernel C (``experimental.py:139-150``)."""
+        mul, add = bn_affine(self.bn1)
+        if supports_fused_stem(tuple(x.shape), 64, x.element_size()):
+            return fused_stem_pool(x, kernel_dhwio(self.conv1), mul, add)
+        stem = affine(conv3d_ndhwc(x, self.conv1), self.bn1, relu=True)
+        return stem, max_pool_k3s2p1(stem)
 
 
 class ResNetSegReg(_Trunk):
@@ -140,12 +251,18 @@ class ResNetSegReg(_Trunk):
     Weights are drawn from ``generator`` (default: a generator seeded 0);
     the model is built in eval mode.  Under ``.train()`` the forward uses
     and updates the BatchNorm batch statistics and is differentiable.
+    ``packed_decoder`` is the JAX model's attribute (the bf16 processor
+    sets it): outside conv mode ``roll`` it sends the decoder convs to
+    cuDNN, and under ``roll`` it is a gate of the quad stem; it adds no
+    parameter.
     """
 
     def __init__(self, block: Type[nn.Module] = BasicBlock,
                  layers: Sequence[int] = (3, 4, 6, 3),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 packed_decoder: bool = False):
         super().__init__(block, layers)
+        self.packed_decoder = packed_decoder
         exp = block.expansion
         self.us1 = UpsampleConvBlock(512 * exp + 64 * exp, (64, 64))
         self.us2 = UpsampleConvBlock(64 + 64, (64, 64))
@@ -159,11 +276,16 @@ class ResNetSegReg(_Trunk):
         self.eval()
 
     def _decoder_heads(self, x4, x1, stem) -> torch.Tensor:
-        xup1 = self.us1(x4, x1)
-        xup2 = self.us2(xup1, stem)
+        packed = self.packed_decoder
+        xup1 = self.us1(x4, x1, packed)
+        xup2 = self.us2(xup1, stem, packed)
         conv, bn, _ = self.us3
-        if self.training:
-            x = torch.relu(batch_norm_train(roll_conv_bias(xup2, conv), bn))
+        roll = blocks.get_conv3d_mode() == "roll"
+        if self.training or not roll:
+            bn_fn = batch_norm_train if self.training else affine
+            y = (roll_conv_bias(xup2, conv) if roll
+                 else decoder_conv(xup2, conv, packed))
+            x = torch.relu(bn_fn(y, bn))
             dt = x.dtype
             # 1x1x1 heads: logits rounded to the compute dtype, bias added
             # in it, sigmoid in float32 (JAX resnet3d.py:413-419)

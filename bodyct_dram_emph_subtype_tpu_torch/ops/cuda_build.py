@@ -1,9 +1,9 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 The sources under ``csrc/`` (``conv3x3x3.cu``: kernels A and B;
-``maxpool3d.cu``: C; ``conv3x3x3_wgrad.cu``: D; every ``*.cu`` there is
-compiled, and ``pyproject.toml`` ships them as package data) have a plain
-C interface.  At first use they
+``maxpool3d.cu``: C; ``conv3x3x3_wgrad.cu``: D; ``stem_pool.cu``: E;
+every ``*.cu`` there is compiled, and ``pyproject.toml`` ships them as
+package data) have a plain C interface.  At first use they
 are compiled with ``nvcc`` for ``sm_90a`` into ONE shared library under
 ``build/kernels/`` (listed in ``.gitignore``), whose file name carries a
 hash of the sources and flags, and loaded with :mod:`ctypes`.  A checkout
@@ -16,7 +16,9 @@ port on machines without ``nvcc`` or a card.
 ``LAUNCHES`` counts kernel launches by kernel name.  Each wrapper adds one
 right after its kernel was launched, and nowhere else, so a caller can
 show that a run went through the kernels (``reset_launches`` before,
-``launches`` after).
+``launches`` after).  ``OP_LAUNCHES`` counts the kernel-A launches made
+for each opt-in conv-mode op (``pallas_conv3d``, ``tap_conv3d``,
+``flat_conv3d``), which share kernel A (``op_launches``).
 """
 from __future__ import annotations
 
@@ -38,15 +40,18 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 KERNELS = ("conv3x3x3_affine", "conv3x3x3_heads_sigmoid",
-           "max_pool3d_k3s2p1", "conv3x3x3_wgrad")
+           "max_pool3d_k3s2p1", "conv3x3x3_wgrad", "stem_pool")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+MODE_OPS = ("pallas_conv3d", "tap_conv3d", "flat_conv3d")
+OP_LAUNCHES: Dict[str, int] = {k: 0 for k in MODE_OPS}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # dtype, x, w, scale, shift, residual, out, B, D, H, W, C, O, relu, stream
+    # dtype, x, w, scale, shift, residual, out, B, D, H, W, C, O, relu,
+    # dilation, stream
     "conv3x3x3_affine": [_I, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _I, _P],
+                         _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # dtype, x, w, scale, shift, head_w, head_b, out, n_heads,
     # B, D, H, W, C, O, stream
     "conv3x3x3_heads_sigmoid": [_I, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -55,6 +60,8 @@ _SIGNATURES = {
     "max_pool3d_k3s2p1": [_I, _P, _P, _I, _I, _I, _I, _I, _P],
     # dtype, x, g, workspace, out, B, D, H, W, C, O, splits, stream
     "conv3x3x3_wgrad": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # dtype, x, w, mul, add, stem, pooled, B, D, H, W, stream
+    "stem_pool": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -72,12 +79,17 @@ _info: Optional[BuildInfo] = None
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, OP_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def launches() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def op_launches() -> Dict[str, int]:
+    return dict(OP_LAUNCHES)
 
 
 def sources():
@@ -180,5 +192,9 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed: error {err} ({msg})")
 
 
-def launched(name: str) -> None:
+def launched(name: str, op: Optional[str] = None) -> None:
+    """Count one launch of kernel ``name``, and of it one for the conv-mode
+    ``op`` that made it."""
     LAUNCHES[name] += 1
+    if op is not None:
+        OP_LAUNCHES[op] += 1

@@ -13,11 +13,44 @@ bit for bit.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 import torch.nn.functional as F
 
 from . import cuda_build
 from .roll_conv import _dtype_code, _on_cuda, _require, _stream
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def supports_maxpool_pallas(shape: Tuple[int, ...], itemsize: int = 2,
+                            vmem_budget: int = 13 * 1024 * 1024) -> bool:
+    """The JAX package's (B, D, H, W, C) gate of its pool kernel: even
+    D/H, W % 4 == 0, TPU lane-tile-aligned quad lanes, even C, and its
+    plane ring within a VMEM budget.  Routing only: kernel C takes any
+    shape."""
+    if len(shape) != 5:
+        return False
+    b, d, h, w, c = shape
+    if d < 4 or d % 2 or h % 2 or w % 4 or (4 * c) % 128 or c % 2:
+        return False
+    plane = (h // 2) * 2 * (w // 4) * 4 * c
+    stage = 2 * (h // 2) * _round_up(w // 4, 8) * 2 * c
+    return (5 * plane + stage) * itemsize <= vmem_budget
+
+
+def supports_maxpool_quads(shape: Tuple[int, ...], itemsize: int = 2,
+                           vmem_budget: int = 13 * 1024 * 1024) -> bool:
+    """The JAX package's gate on a quad-lane (B, D, H, W/4, 4C) stem shape
+    (``models/experimental.py::stem_quad_supported`` reads it)."""
+    if len(shape) != 5 or shape[-1] % 4:
+        return False
+    b, d, h, wq, c4 = shape
+    return supports_maxpool_pallas((b, d, h, 4 * wq, c4 // 4), itemsize,
+                                   vmem_budget)
 
 
 def max_pool_k3s2p1_plain(x: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,11 @@ Counterpart of ``bodyct_dram_emph_subtype_tpu/ops/roll_conv.py``:
   kernel ``roll_conv_wgrad`` (roll_conv.py:682).  The JAX VJP's
   ``_pad_pair_lanes`` is a TPU lane trick: the port's us3 dgrad is an
   ordinary kernel-A launch with C=32, O=64.
+- :func:`identity_conv3d` — the conv of the opt-in conv modes ``pallas``,
+  ``tapmm`` and ``flat`` (``ops/pallas_conv.py``, ``tap_conv.py``,
+  ``flat_conv.py``): forward on kernel A with an identity epilogue at
+  dilation 1, 2 or 4, backward through cuDNN as the JAX custom VJPs run
+  theirs on the XLA conv (pallas_conv.py:127-130).
 
 All take logical NDHWC activations and (3,3,3,C,O) weights — the JAX
 kernels' W-pair packed layout and per-packed-channel vectors are a TPU
@@ -86,19 +91,24 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def conv3x3x3_f32(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """Plain stride-1 pad-1 3^3 conv, NDHWC x (3,3,3,C,O) -> f32 NDHWC,
-    computed in float32 from the (exactly widened) inputs."""
+def conv3x3x3_f32(x: torch.Tensor, kernel: torch.Tensor,
+                  dilation: int = 1) -> torch.Tensor:
+    """Plain stride-1 3^3 conv with dilation and zero padding ``dilation``,
+    NDHWC x (3,3,3,C,O) -> f32 NDHWC, computed in float32 from the
+    (exactly widened) inputs."""
     y = F.conv3d(x.float().permute(0, 4, 1, 2, 3),
-                 kernel.float().permute(4, 3, 0, 1, 2), padding=1)
+                 kernel.float().permute(4, 3, 0, 1, 2), padding=dilation,
+                 dilation=dilation)
     return y.permute(0, 2, 3, 4, 1)
 
 
 def roll_conv_affine_relu_plain(x, kernel, scale, shift, residual=None,
-                                relu: bool = True) -> torch.Tensor:
+                                relu: bool = True,
+                                dilation: int = 1) -> torch.Tensor:
     """Plain version of kernel A (weights rounded to ``x.dtype`` as the
     kernel takes them, f32 accumulate, one rounding at the end)."""
-    y = conv3x3x3_f32(x, kernel.to(x.dtype)) * scale.float() + shift.float()
+    y = (conv3x3x3_f32(x, kernel.to(x.dtype), dilation) * scale.float()
+         + shift.float())
     if residual is not None:
         y = y + residual.float()
     if relu:
@@ -109,17 +119,20 @@ def roll_conv_affine_relu_plain(x, kernel, scale, shift, residual=None,
 def roll_conv_affine_relu(x: torch.Tensor, kernel: torch.Tensor,
                           scale: torch.Tensor, shift: torch.Tensor,
                           residual: Optional[torch.Tensor] = None,
-                          relu: bool = True) -> torch.Tensor:
+                          relu: bool = True, dilation: int = 1,
+                          op: Optional[str] = None) -> torch.Tensor:
     """``relu?(conv3x3x3(x, kernel) * scale + shift [+ residual])``.
 
     ``x``: (B, D, H, W, C) float32 or bfloat16, contiguous; ``kernel``:
     (3, 3, 3, C, O); ``scale``/``shift``: (O,) — eval BatchNorm and conv
     bias folded by the caller; ``residual``: optional (B, D, H, W, O) in
     ``x.dtype``, added in float32 before the ReLU (the PackedBasicBlock
-    order).  Accumulates in float32, returns ``x.dtype``."""
+    order); ``dilation``: tap spacing and zero padding of the conv.
+    Accumulates in float32, returns ``x.dtype``.  ``op`` names the
+    conv-mode op a launch serves, for ``cuda_build.OP_LAUNCHES``."""
     if not _on_cuda(x):
         return roll_conv_affine_relu_plain(x, kernel, scale, shift,
-                                           residual, relu)
+                                           residual, relu, dilation)
     b, d, h, w, c = x.shape
     o = kernel.shape[-1]
     dev = x.device
@@ -139,9 +152,10 @@ def roll_conv_affine_relu(x: torch.Tensor, kernel: torch.Tensor,
             code, x.data_ptr(), kernel.data_ptr(), scale.data_ptr(),
             shift.data_ptr(),
             None if residual is None else residual.data_ptr(),
-            out.data_ptr(), b, d, h, w, c, o, int(relu), _stream(x))
+            out.data_ptr(), b, d, h, w, c, o, int(relu), int(dilation),
+            _stream(x))
     cuda_build.check(err, "conv3x3x3_affine")
-    cuda_build.launched("conv3x3x3_affine")
+    cuda_build.launched("conv3x3x3_affine", op)
     return out
 
 
@@ -201,17 +215,18 @@ def roll_conv_heads_sigmoid(x: torch.Tensor, kernel: torch.Tensor,
     return out
 
 
-def conv3x3x3_dgrad_plain(g: torch.Tensor, kernel: torch.Tensor
-                          ) -> torch.Tensor:
-    """Plain input gradient of the stride-1 pad-1 3^3 conv: (B,D,H,W,O)
-    ``g`` x (3,3,3,C,O) -> (B,D,H,W,C) in ``g.dtype``, computed in float32
-    from ``g`` and the weights rounded to ``g.dtype`` (as the kernel takes
-    them), one rounding at the end."""
+def conv3x3x3_dgrad_plain(g: torch.Tensor, kernel: torch.Tensor,
+                          dilation: int = 1) -> torch.Tensor:
+    """Plain input gradient of the stride-1 3^3 conv (dilation and zero
+    padding ``dilation``): (B,D,H,W,O) ``g`` x (3,3,3,C,O) -> (B,D,H,W,C)
+    in ``g.dtype``, computed in float32 from ``g`` and the weights rounded
+    to ``g.dtype`` (as the kernel takes them), one rounding at the end."""
     b, d, h, w, _ = g.shape
     c = kernel.shape[3]
     dx = torch.nn.grad.conv3d_input(
         (b, c, d, h, w), kernel.to(g.dtype).float().permute(4, 3, 0, 1, 2),
-        g.float().permute(0, 4, 1, 2, 3), padding=1)
+        g.float().permute(0, 4, 1, 2, 3), padding=dilation,
+        dilation=dilation)
     return dx.permute(0, 2, 3, 4, 1).to(g.dtype).contiguous()
 
 
@@ -226,18 +241,17 @@ def conv3x3x3_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return dw.permute(2, 3, 4, 1, 0).contiguous()
 
 
-def conv3x3x3_dgrad(g: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """Input gradient of the stride-1 pad-1 3^3 conv (B,D,H,W,O) ->
-    (B,D,H,W,C): on a CUDA tensor one launch of kernel A with an identity
-    epilogue on the flipped, I/O-transposed weights; on a CPU tensor
+def conv3x3x3_dgrad(g: torch.Tensor, kernel: torch.Tensor,
+                    dilation: int = 1) -> torch.Tensor:
+    """Input gradient of the stride-1 3^3 conv (dilation and zero padding
+    ``dilation``) (B,D,H,W,O) -> (B,D,H,W,C): on a CUDA tensor one launch
+    of kernel A with an identity epilogue on the flipped, I/O-transposed
+    weights at the same dilation; on a CPU tensor
     :func:`conv3x3x3_dgrad_plain`."""
     if not _on_cuda(g):
-        return conv3x3x3_dgrad_plain(g, kernel)
+        return conv3x3x3_dgrad_plain(g, kernel, dilation)
     kt = kernel.flip((0, 1, 2)).transpose(3, 4).contiguous()
-    c = kt.shape[-1]
-    one = torch.ones(c, dtype=torch.float32, device=g.device)
-    zero = torch.zeros(c, dtype=torch.float32, device=g.device)
-    return roll_conv_affine_relu(g, kt, one, zero, relu=False)
+    return _identity_a(g, kt, dilation)
 
 
 def wgrad_splits(m: int, c: int, o: int) -> int:
@@ -277,6 +291,16 @@ def conv3x3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _identity_a(x: torch.Tensor, kernel: torch.Tensor, dilation: int = 1,
+                op: Optional[str] = None) -> torch.Tensor:
+    """Kernel A with an identity epilogue (scale 1, shift 0, no ReLU)."""
+    o = kernel.shape[-1]
+    one = torch.ones(o, dtype=torch.float32, device=x.device)
+    zero = torch.zeros(o, dtype=torch.float32, device=x.device)
+    return roll_conv_affine_relu(x, kernel, one, zero, relu=False,
+                                 dilation=dilation, op=op)
+
+
 class _RollConvPacked(torch.autograd.Function):
     """Forward: kernel A, identity epilogue.  Backward: dgrad on kernel A,
     wgrad on kernel D rounded to the weights' dtype (roll_conv.py:821)."""
@@ -285,10 +309,7 @@ class _RollConvPacked(torch.autograd.Function):
     def forward(ctx, x, kernel):
         x = x.contiguous()
         ctx.save_for_backward(x, kernel)
-        o = kernel.shape[-1]
-        one = torch.ones(o, dtype=torch.float32, device=x.device)
-        zero = torch.zeros(o, dtype=torch.float32, device=x.device)
-        return roll_conv_affine_relu(x, kernel, one, zero, relu=False)
+        return _identity_a(x, kernel)
 
     @staticmethod
     def backward(ctx, g):
@@ -311,3 +332,50 @@ def roll_conv_packed(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"x is {x.dtype} but kernel is {kernel.dtype}: cast "
                         f"the weights to the compute dtype first")
     return _RollConvPacked.apply(x, kernel)
+
+
+class _IdentityConv3d(torch.autograd.Function):
+    """Forward: kernel A, identity epilogue, at ``dilation``.  Backward:
+    the conv's input and weight gradients through cuDNN in the dtypes of
+    ``x`` and of the kernel, as the JAX custom VJPs differentiate
+    ``_direct_conv3d`` (pallas_conv.py:127-130, tap_conv.py:181-184,
+    flat_conv.py:200-203)."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, dilation, op):
+        x = x.contiguous()
+        ctx.save_for_backward(x, kernel)
+        ctx.dilation = dilation
+        return _identity_a(x, kernel, dilation, op)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, kernel = ctx.saved_tensors
+        d = ctx.dilation
+        xt = x.permute(0, 4, 1, 2, 3)
+        kt = kernel.permute(4, 3, 0, 1, 2)
+        gt = g.permute(0, 4, 1, 2, 3)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.nn.grad.conv3d_input(xt.shape, kt, gt, padding=d,
+                                            dilation=d)
+            dx = dx.permute(0, 2, 3, 4, 1).contiguous()
+        if ctx.needs_input_grad[1]:
+            dw = torch.nn.grad.conv3d_weight(xt, kt.shape, gt, padding=d,
+                                             dilation=d)
+            dw = dw.permute(2, 3, 4, 1, 0).contiguous()
+        return dx, dw, None, None
+
+
+def identity_conv3d(x: torch.Tensor, kernel: torch.Tensor,
+                    dilation: int = 1, op: Optional[str] = None
+                    ) -> torch.Tensor:
+    """Differentiable stride-1 3^3 conv without bias or epilogue, tap
+    spacing and zero padding ``dilation``: NDHWC ``x`` (B,D,H,W,C) x
+    (3,3,3,C,O) ``kernel``, both in the compute dtype -> (B,D,H,W,O) in it
+    (float32 accumulation, one rounding).  One kernel-A launch forward
+    (counted for ``op`` too); the backward runs on cuDNN."""
+    if x.dtype != kernel.dtype:
+        raise TypeError(f"x is {x.dtype} but kernel is {kernel.dtype}: cast "
+                        f"the weights to the compute dtype first")
+    return _IdentityConv3d.apply(x, kernel, dilation, op)

@@ -10,9 +10,11 @@ flow (``train.py:123-133``): ``init_state`` -> ``setup_checkpointing`` ->
 ``try_resume`` -> ``fit`` -> ``restore_best`` -> ``evaluate("test")``.
 ``--input_pipeline device``, ``--mesh``, ``--multihost``, ``--ngpus`` > 1,
 ``--remat`` other than ``none``, ``--noise_rng rbg`` and the CLS archs
-raise ``NotImplementedError``; ``--packed_decoder`` (a TPU lane layout) is
-accepted and has no effect, ``--profile``/``--debug_nans`` are not ported
-and log so.  ``--device cpu`` runs every kernel site's plain version.
+raise ``NotImplementedError``; ``--packed_decoder`` reaches the model
+(outside conv mode ``roll`` its decoder convs then run on cuDNN, as the JAX
+packed decoder's run on XLA), ``--profile``/``--debug_nans`` are not
+ported and log so.  The conv mode comes from ``$BODYCT_CONV3D_MODE``
+(default ``roll``).  ``--device cpu`` runs every kernel site's plain version.
 """
 import logging
 from argparse import ArgumentParser
@@ -67,7 +69,8 @@ def build_parser() -> ArgumentParser:
                    choices=["threefry", "rbg"])
     p.add_argument("--grad_accum", default=1, type=int)
     p.add_argument("--packed_decoder", action="store_true",
-                   help="accepted; the W-pair packing is a TPU layout")
+                   help="the JAX packed decoder's routing: outside conv "
+                        "mode roll its convs run on cuDNN")
     p.add_argument("--device", default=None,
                    help="cuda (default when available) or cpu")
     p.add_argument("--local_rank", default=0, type=int,
@@ -91,7 +94,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         sampler_seed=args.sampler_seed, compute_dtype=args.compute_dtype,
         input_pipeline=args.input_pipeline, mesh=args.mesh,
         remat=args.remat, noise_rng=args.noise_rng,
-        grad_accum=args.grad_accum, device=args.device)
+        grad_accum=args.grad_accum, packed_decoder=args.packed_decoder,
+        device=args.device)
     trainer = SubtypeTrainer(config)
     config.exp_path.mkdir(parents=True, exist_ok=True)
     root = logging.getLogger()

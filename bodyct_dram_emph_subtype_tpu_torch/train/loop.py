@@ -79,6 +79,8 @@ class TrainerConfig:
     remat: str = "none"
     noise_rng: str = "threefry"
     grad_accum: int = 1
+    packed_decoder: bool = False         # decoder convs on cuDNN outside
+    # conv mode roll, as the JAX trainer's W-pair packed decoder is
     device: Optional[str] = None         # default: cuda when available
 
     @property
@@ -165,8 +167,8 @@ class SubtypeTrainer:
         Adam, and the train / eval steps."""
         cfg = self.config
         self.model = get_model_by_name(
-            cfg.model_arch, generator=torch.Generator().manual_seed(cfg.seed)
-        ).to(self.device)
+            cfg.model_arch, generator=torch.Generator().manual_seed(cfg.seed),
+            packed_decoder=cfg.packed_decoder).to(self.device)
         self.optimizer = make_optimizer(self.model.parameters(), cfg.lr)
         self._train_step = make_reg_train_step(
             self.model, self.optimizer, accum_steps=cfg.grad_accum,

@@ -53,7 +53,36 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    train BatchNorms' backward, whose E[x^2] - mean^2 variance cancels; the
    decoder conv biases ahead of a train BN, whose gradient is zero in
    exact arithmetic, are not compared); BN running statistics <= 1e-4
-   relative.
+   relative.  Run once in each conv mode (``roll``: 14 A + 7 D launches;
+   ``pallas``, ``tapmm`` (on a 128-wide input: its JAX gate refuses rows
+   under 24) and ``flat``: one kernel-A launch per ``mode_conv_sites``
+   site, no D, the backward on cuDNN), same bounds;
+3c. the opt-in kernels vs their plain versions at the B=2 bf16 deployment
+   shapes, float32 and bfloat16, plus one ragged shape each: kernel E
+   (stem conv + BN + ReLU + pool, ``fused_stem_pool``) at the stem, and
+   kernel A with an identity epilogue at every site of the conv modes
+   ``pallas``, ``tapmm`` and ``flat`` (layer1, layer2, and the dilated
+   layer3 (d=2) and layer4 (d=4) convs on the logical tensor); A's bounds
+   for both (the stem's and the pooled output each);
+4c. the processor in the conv modes ``pallas``, ``tapmm`` and ``flat``
+   and with the quad stem on: ``run_inference`` over one batch of 2 scans
+   each (launches per forward: A 26 / 13 / 18 and no B or C; quad: E 1,
+   A 16, B 1, C 0), and the B=2 bf16 forward's maps and lesion fractions
+   against the default path's on the same weights and scans within the
+   bf16 bounds of ``tests/test_composed_oracle.py:246-262`` (fractions
+   |d| < 5e-3, map mean |d| < 1.5e-2, flip rate (|d| > 0.5) < 5e-3); the
+   mode and the switch are restored afterwards;
+6c. two trainer steps in conv mode ``pallas`` (med3ddram, bf16, B=2, the
+   unpacked decoder, phase 6's archive): 31 kernel-A launches in every
+   step, no D, B or C, finite losses; step ms and peak device memory.
+
+Every timed site also prints the library call that computes the same
+conv or pool (cuDNN ``F.conv3d``, its ``conv3d_input`` / ``conv3d_weight``
+gradients, ``F.max_pool3d``; for E the route it replaces, cuDNN stem conv
++ BN/ReLU + kernel C), timed with TF32 allowed, and the bound: the larger
+of the bytes read and written once over 3.35 TB/s and the conv's FLOPs
+over the dtype's peak (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s float32
+CUDA cores; NVIDIA's H100 SXM data sheet).
 
 The line before the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -62,25 +91,30 @@ repository beside it, the script exits non-zero and prints no result.
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
              "False); this smoke runs only on a GPU")
 
+from bodyct_dram_emph_subtype_tpu_torch.data.loader import default_collate
 from bodyct_dram_emph_subtype_tpu_torch.data.mha import read_mha, write_mha
 from bodyct_dram_emph_subtype_tpu_torch.inference.processor import (
     _RawPredictView, build_model, run_inference)
 from bodyct_dram_emph_subtype_tpu_torch.data.datasets import \
     SubtypingInference
+from bodyct_dram_emph_subtype_tpu_torch.models import blocks, experimental
 from bodyct_dram_emph_subtype_tpu_torch.models.registry import \
     get_model_by_name
 from bodyct_dram_emph_subtype_tpu_torch.ops import cuda_build
@@ -88,13 +122,15 @@ from bodyct_dram_emph_subtype_tpu_torch.ops.maxpool_kernel import (
     max_pool_k3s2p1, max_pool_k3s2p1_plain)
 from bodyct_dram_emph_subtype_tpu_torch.ops.preprocess import \
     fused_preprocess_preselected
-from bodyct_dram_emph_subtype_tpu_torch.models.resnet3d import \
-    train_roll_site_shapes
+from bodyct_dram_emph_subtype_tpu_torch.models.resnet3d import (
+    mode_conv_sites, train_roll_site_shapes)
 from bodyct_dram_emph_subtype_tpu_torch.ops.roll_conv import (
-    conv3x3x3_dgrad, conv3x3x3_dgrad_plain, conv3x3x3_wgrad,
-    conv3x3x3_wgrad_plain, roll_conv_affine_relu,
+    conv3x3x3_dgrad, conv3x3x3_dgrad_plain, conv3x3x3_f32, conv3x3x3_wgrad,
+    conv3x3x3_wgrad_plain, identity_conv3d, roll_conv_affine_relu,
     roll_conv_affine_relu_plain, roll_conv_heads_sigmoid,
     roll_conv_heads_sigmoid_plain)
+from bodyct_dram_emph_subtype_tpu_torch.ops.stem_kernel import (
+    fused_stem_pool, fused_stem_pool_plain)
 from bodyct_dram_emph_subtype_tpu_torch.train.loop import (SubtypeTrainer,
                                                            TrainerConfig)
 from bodyct_dram_emph_subtype_tpu_torch.train.state import make_optimizer
@@ -128,6 +164,16 @@ TRAIN_SITES = train_roll_site_shapes(B, TARGET) + [
 GRAD_L2_BOUND, GRAD_PEAK_BOUND = 5e-3, 2e-2      # phase 6b
 PER_TRAIN_STEP = {"conv3x3x3_affine": 22, "conv3x3x3_wgrad": 11,
                   "conv3x3x3_heads_sigmoid": 0, "max_pool3d_k3s2p1": 0}
+E_SITES = [("stem", (B, *TARGET, 1), 1), ("ragged", (1, 20, 36, 44, 1), 0)]
+MODES = {"pallas": "pallas_conv3d", "tapmm": "tap_conv3d",
+         "flat": "flat_conv3d"}
+# kernel-A launches per B=2 bf16 forward of the processor (packed decoder)
+MODE_PER_FORWARD = {"pallas": 26, "tapmm": 13, "flat": 18}
+QUAD_PER_FORWARD = {"stem_pool": 1, "conv3x3x3_affine": 16,
+                    "conv3x3x3_heads_sigmoid": 1, "max_pool3d_k3s2p1": 0}
+PALLAS_PER_TRAIN_STEP = 31                       # phase 6c, unpacked decoder
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+HBM_BYTES_S = 3.35e12
 SOURCES = {
     "conv3x3x3_affine": (
         "bodyct_dram_emph_subtype_tpu_torch/csrc/conv3x3x3.cu",
@@ -141,6 +187,18 @@ SOURCES = {
     "conv3x3x3_wgrad": (
         "bodyct_dram_emph_subtype_tpu_torch/csrc/conv3x3x3_wgrad.cu",
         "bodyct_dram_emph_subtype_tpu/ops/roll_conv.py:682"),
+    "stem_pool": (
+        "bodyct_dram_emph_subtype_tpu_torch/csrc/stem_pool.cu",
+        "bodyct_dram_emph_subtype_tpu/ops/stem_kernel.py:241"),
+    "pallas_conv3d": (
+        "bodyct_dram_emph_subtype_tpu_torch/csrc/conv3x3x3.cu",
+        "bodyct_dram_emph_subtype_tpu/ops/pallas_conv.py:80"),
+    "tap_conv3d": (
+        "bodyct_dram_emph_subtype_tpu_torch/csrc/conv3x3x3.cu",
+        "bodyct_dram_emph_subtype_tpu/ops/tap_conv.py:118"),
+    "flat_conv3d": (
+        "bodyct_dram_emph_subtype_tpu_torch/csrc/conv3x3x3.cu",
+        "bodyct_dram_emph_subtype_tpu/ops/flat_conv.py:140"),
 }
 
 
@@ -211,6 +269,89 @@ def phase_build():
           f"{time.perf_counter() - t0:.1f} s): {info.path.name}")
 
 
+def library_ms(fn) -> float:
+    """Median ms of a PyTorch library call, TF32 allowed (PyTorch's default
+    for cuDNN; bf16 inputs do not use it)."""
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        return median_ms(fn)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def timed(kernel, plain, library, dtype, moved, flops):
+    """Times of one site (kernel, plain version, library call) and its
+    bound: the larger of ``moved`` bytes (each input read once, each
+    output written once) over the HBM rate and ``flops`` over the dtype's
+    peak."""
+    r = {"ms": median_ms(kernel), "plain_ms": median_ms(plain),
+         "library_ms": library_ms(library),
+         "bytes_ms": moved / HBM_BYTES_S * 1e3,
+         "ops_ms": flops / PEAK_OPS[dtype] * 1e3}
+    r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
+    r["rate"] = (f"{flops / r['ms'] / 1e9:.1f} TFLOP/s" if flops else
+                 f"{moved / r['ms'] / 1e6:.0f} GB/s")
+    return r
+
+
+def held(got, ref, dtype):
+    """(|got - ref|, share of the bound, bound text): float32 max|d| <=
+    2e-5*max|ref|, bf16 <= 2 bf16 ulps of each reference value (kernel
+    A's bounds, phase 3)."""
+    delta = (got.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        bound = 2e-5 * ref.float().abs().max().item()
+        return delta, delta.max().item() / bound, \
+            f"<= 2e-5*max|ref| = {bound:.3g}"
+    return delta, (delta / (2 * bf16_ulp(ref))).max().item(), \
+        "<= 2 bf16 ulp(ref)"
+
+
+def cudnn_weight(k, dtype):
+    """(kd, kh, kw, C, O) weights as cuDNN's channels-last OIDHW."""
+    return k.to(dtype).permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+
+
+def cudnn_conv(x, w, **kw):
+    """cuDNN conv of NDHWC ``x`` (a channels-last NCDHW view)."""
+    return F.conv3d(x.permute(0, 4, 1, 2, 3), w, **kw)
+
+
+def report(kernel, site, dname, shape, delta, ratio, btxt, r, extra=""):
+    ok = ratio <= 1.0
+    print(f"{kernel:24s} {site:22s} {dname:4s} {str(shape):24s}{extra} "
+          f"max|d|={delta.max().item():.3e} "
+          f"mean|d|={delta.mean().item():.3e} ({btxt}; {ratio:.3f} of "
+          f"bound) kernel {r['ms']:.3f} ms plain {r['plain_ms']:.3f} ms "
+          f"library {r['library_ms']:.3f} ms bound {r['bound_ms']:.3f} ms "
+          f"({'bytes' if r['bytes_ms'] >= r['ops_ms'] else 'operations'}) "
+          f"[{r['rate']}] {'ok' if ok else 'FAIL'}")
+    check(ok, f"{kernel} {site} {dname}: outside its bound")
+
+
+TIMES = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms")
+
+
+def new_summary():
+    return {"max_abs_err": 0.0, **{k: 0.0 for k in TIMES}}
+
+
+def accumulate(summary, delta, r, count, dtype):
+    """Fold one site into a kernel's summary: the largest error over every
+    site and dtype, and ``count`` times the site's bf16 times (the main
+    path's dtype)."""
+    summary["max_abs_err"] = max(summary["max_abs_err"], delta.max().item())
+    if dtype == torch.bfloat16:
+        for k in TIMES:
+            summary[k] += count * r[k]
+
+
 def compare_a(gen, shape, o, residual, dtype):
     c = shape[-1]
     x = rand(gen, shape, 0.5, dtype).relu_()
@@ -221,19 +362,14 @@ def compare_a(gen, shape, o, residual, dtype):
     got = roll_conv_affine_relu(x, k, sc, sh, residual=res)
     torch.cuda.synchronize()
     ref = roll_conv_affine_relu_plain(x, k, sc, sh, res)
-    delta = (got.float() - ref.float()).abs()
-    if dtype == torch.float32:
-        bound = 2e-5 * ref.abs().max().item()
-        ratio = delta.max().item() / bound
-        btxt = f"<= 2e-5*max|ref| = {bound:.3g}"
-    else:
-        ratio = (delta / (2 * bf16_ulp(ref))).max().item()
-        btxt = "<= 2 bf16 ulp(ref)"
-    t_k = median_ms(lambda: roll_conv_affine_relu(x, k, sc, sh,
-                                                  residual=res))
-    t_p = median_ms(lambda: roll_conv_affine_relu_plain(x, k, sc, sh, res))
-    flops = 2.0 * math.prod(shape[:4]) * 27 * c * o
-    return delta, ratio, btxt, t_k, t_p, f"{flops / t_k / 1e9:.1f} TFLOP/s"
+    delta, ratio, btxt = held(got, ref, dtype)
+    w = cudnn_weight(k, dtype)
+    r = timed(lambda: roll_conv_affine_relu(x, k, sc, sh, residual=res),
+              lambda: roll_conv_affine_relu_plain(x, k, sc, sh, res),
+              lambda: cudnn_conv(x, w, padding=1), dtype,
+              nbytes(x, w, sc, sh, res, got),
+              2.0 * math.prod(shape[:4]) * 27 * c * o)
+    return delta, ratio, btxt, r
 
 
 def compare_b(gen, shape, o, hn, dtype):
@@ -255,11 +391,13 @@ def compare_b(gen, shape, o, hn, dtype):
     else:
         ratio = max(delta.max().item() / 5e-3, delta.mean().item() / 1e-6)
         btxt = "max <= 5e-3, mean <= 1e-6"
-    t_k = median_ms(lambda: roll_conv_heads_sigmoid(x, k, sc, sh, hw, hb))
-    t_p = median_ms(lambda: roll_conv_heads_sigmoid_plain(x, k, sc, sh, hw,
-                                                          hb))
-    flops = 2.0 * math.prod(shape[:4]) * (27 * c * o + o * hn)
-    return delta, ratio, btxt, t_k, t_p, f"{flops / t_k / 1e9:.1f} TFLOP/s"
+    w = cudnn_weight(k, dtype)
+    r = timed(lambda: roll_conv_heads_sigmoid(x, k, sc, sh, hw, hb),
+              lambda: roll_conv_heads_sigmoid_plain(x, k, sc, sh, hw, hb),
+              lambda: cudnn_conv(x, w, padding=1), dtype,
+              nbytes(x, w, sc, sh, hw, hb, got),
+              2.0 * math.prod(shape[:4]) * (27 * c * o + o * hn))
+    return delta, ratio, btxt, r
 
 
 def compare_c(gen, shape, dtype):
@@ -269,18 +407,16 @@ def compare_c(gen, shape, dtype):
     ref = max_pool_k3s2p1_plain(x)
     delta = (got.float() - ref.float()).abs()
     ratio = 0.0 if torch.equal(got, ref) else math.inf
-    t_k = median_ms(lambda: max_pool_k3s2p1(x))
-    t_p = median_ms(lambda: max_pool_k3s2p1_plain(x))
-    nbytes = (x.numel() + got.numel()) * x.element_size()
-    return delta, ratio, "bit-equal", t_k, t_p, \
-        f"{nbytes / t_k / 1e6:.0f} GB/s"
+    r = timed(lambda: max_pool_k3s2p1(x), lambda: max_pool_k3s2p1_plain(x),
+              lambda: F.max_pool3d(x.permute(0, 4, 1, 2, 3), 3, 2, 1),
+              dtype, nbytes(x, got), 0)
+    return delta, ratio, "bit-equal", r
 
 
 def phase_kernels():
     print("== phase 3: kernels vs plain versions (B=2 deployment sites)")
     gen = torch.Generator(device=DEV).manual_seed(0)
-    summary = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-               for k in PER_FORWARD}
+    summary = {k: new_summary() for k in PER_FORWARD}
     runs = ([("conv3x3x3_affine", s[0], s[1], s[4],
               lambda dt, s=s: compare_a(gen, *s[1:4], dt)) for s in A_SITES]
             + [("conv3x3x3_heads_sigmoid", s[0], s[1], s[4],
@@ -290,20 +426,10 @@ def phase_kernels():
                for s in C_SITES])
     for kernel, site, shape, count, run in runs:
         for dtype in (torch.float32, torch.bfloat16):
-            delta, ratio, btxt, t_k, t_p, rate = run(dtype)
+            delta, ratio, btxt, r = run(dtype)
             dname = "f32" if dtype == torch.float32 else "bf16"
-            ok = ratio <= 1.0
-            print(f"{kernel:24s} {site:22s} {dname:4s} {str(shape):24s} "
-                  f"max|d|={delta.max().item():.3e} "
-                  f"mean|d|={delta.mean().item():.3e} ({btxt}; "
-                  f"{ratio:.3f} of bound) kernel {t_k:.3f} ms "
-                  f"plain {t_p:.3f} ms [{rate}] {'ok' if ok else 'FAIL'}")
-            check(ok, f"{kernel} {site} {dname}: outside its bound")
-            s = summary[kernel]
-            s["max_abs_err"] = max(s["max_abs_err"], delta.max().item())
-            if dtype == torch.bfloat16:       # the main path's dtype
-                s["ms"] += count * t_k
-                s["plain_ms"] += count * t_p
+            report(kernel, site, dname, shape, delta, ratio, btxt, r)
+            accumulate(summary[kernel], delta, r, count, dtype)
             del delta
             torch.cuda.empty_cache()
     return summary
@@ -320,11 +446,15 @@ def compare_d(gen, shape, o, dtype):
     delta = (got - ref).abs()
     bound = 5e-5 * ref.abs().max().item()
     ratio = delta.max().item() / bound
-    t_k = median_ms(lambda: conv3x3x3_wgrad(x, g))
-    t_p = median_ms(lambda: conv3x3x3_wgrad_plain(x, g))
-    flops = 2.0 * math.prod(shape[:4]) * 27 * shape[-1] * o
-    return delta, ratio, f"<= 5e-5*max|ref| = {bound:.3g}; bit-equal rerun", \
-        t_k, t_p, f"{flops / t_k / 1e9:.1f} TFLOP/s"
+    xt, gt = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
+    wshape = (o, shape[-1], 3, 3, 3)
+    r = timed(lambda: conv3x3x3_wgrad(x, g),
+              lambda: conv3x3x3_wgrad_plain(x, g),
+              lambda: torch.nn.grad.conv3d_weight(xt, wshape, gt, padding=1),
+              dtype, nbytes(x, g, got),
+              2.0 * math.prod(shape[:4]) * 27 * shape[-1] * o)
+    return delta, ratio, \
+        f"<= 5e-5*max|ref| = {bound:.3g}; bit-equal rerun", r
 
 
 def compare_dgrad(gen, shape, o, dtype):
@@ -334,51 +464,141 @@ def compare_dgrad(gen, shape, o, dtype):
     got = conv3x3x3_dgrad(g, k)
     torch.cuda.synchronize()
     ref = conv3x3x3_dgrad_plain(g, k)
-    delta = (got.float() - ref.float()).abs()
-    if dtype == torch.float32:
-        bound = 2e-5 * ref.abs().max().item()
-        ratio = delta.max().item() / bound
-        btxt = f"<= 2e-5*max|ref| = {bound:.3g}"
-    else:
-        ratio = (delta / (2 * bf16_ulp(ref))).max().item()
-        btxt = "<= 2 bf16 ulp(ref)"
-    t_k = median_ms(lambda: conv3x3x3_dgrad(g, k))
-    t_p = median_ms(lambda: conv3x3x3_dgrad_plain(g, k))
-    flops = 2.0 * math.prod(shape[:4]) * 27 * c * o
-    return delta, ratio, btxt, t_k, t_p, f"{flops / t_k / 1e9:.1f} TFLOP/s"
+    delta, ratio, btxt = held(got, ref, dtype)
+    w = cudnn_weight(k, dtype)
+    gt = g.permute(0, 4, 1, 2, 3)
+    r = timed(lambda: conv3x3x3_dgrad(g, k),
+              lambda: conv3x3x3_dgrad_plain(g, k),
+              lambda: torch.nn.grad.conv3d_input(
+                  (shape[0], c, *shape[1:4]), w, gt, padding=1),
+              dtype, nbytes(g, k, got),
+              2.0 * math.prod(shape[:4]) * 27 * c * o)
+    return delta, ratio, btxt, r
 
 
 def phase_train_kernels():
     print("== phase 3b: training kernels vs plain versions (B=2 train sites)")
     gen = torch.Generator(device=DEV).manual_seed(1)
-    wgrad = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-    dgrad = {"ms": 0.0, "plain_ms": 0.0}
+    wgrad, dgrad = new_summary(), new_summary()
     for site, shape, o in TRAIN_SITES:
+        count = 0 if site == "ragged" else 1
         for dtype in (torch.float32, torch.bfloat16):
             dname = "f32" if dtype == torch.float32 else "bf16"
-            for kernel, run in (("conv3x3x3_wgrad", compare_d),
-                                ("dgrad(conv3x3x3_affine)", compare_dgrad)):
-                delta, ratio, btxt, t_k, t_p, rate = run(gen, shape, o, dtype)
-                ok = ratio <= 1.0
-                print(f"{kernel:24s} {site:20s} {dname:4s} {str(shape):24s} "
-                      f"O={o:<3d} max|d|={delta.max().item():.3e} "
-                      f"mean|d|={delta.mean().item():.3e} ({btxt}; "
-                      f"{ratio:.3f} of bound) kernel {t_k:.3f} ms "
-                      f"plain {t_p:.3f} ms [{rate}] {'ok' if ok else 'FAIL'}")
-                check(ok, f"{kernel} {site} {dname}: outside its bound")
-                if kernel == "conv3x3x3_wgrad":
-                    wgrad["max_abs_err"] = max(wgrad["max_abs_err"],
-                                               delta.max().item())
-                if dtype == torch.bfloat16 and site != "ragged":
-                    acc = wgrad if kernel == "conv3x3x3_wgrad" else dgrad
-                    acc["ms"] += t_k
-                    acc["plain_ms"] += t_p
+            for kernel, run, acc in (
+                    ("conv3x3x3_wgrad", compare_d, wgrad),
+                    ("dgrad(conv3x3x3_affine)", compare_dgrad, dgrad)):
+                delta, ratio, btxt, r = run(gen, shape, o, dtype)
+                report(kernel, site, dname, shape, delta, ratio, btxt, r,
+                       f" O={o:<3d}")
+                accumulate(acc, delta, r, count, dtype)
                 del delta
                 torch.cuda.empty_cache()
     print(f"per B=2 bf16 train step: kernel D {wgrad['ms']:.2f} ms (plain "
-          f"{wgrad['plain_ms']:.2f}), dgrad on A {dgrad['ms']:.2f} ms (plain "
-          f"{dgrad['plain_ms']:.2f})")
+          f"{wgrad['plain_ms']:.2f}, cuDNN {wgrad['library_ms']:.2f}, bound "
+          f"{wgrad['bound_ms']:.2f}), dgrad on A {dgrad['ms']:.2f} ms (plain "
+          f"{dgrad['plain_ms']:.2f}, cuDNN {dgrad['library_ms']:.2f}, bound "
+          f"{dgrad['bound_ms']:.2f})")
     return wgrad, dgrad
+
+
+def compare_e(gen, shape, dtype):
+    """Kernel E against its plain version, both outputs held to kernel A's
+    bounds; the library yardstick is the route E replaces: the cuDNN stem
+    conv, the BN affine and ReLU, and kernel C."""
+    x = rand(gen, shape, 1.0, dtype)
+    k = rand(gen, (7, 7, 7, 1, 64), math.sqrt(2.0 / 343))
+    mul = torch.rand(64, generator=gen, device=DEV) + 0.5
+    add = rand(gen, (64,), 0.1)
+    stem, pooled = fused_stem_pool(x, k, mul, add)
+    torch.cuda.synchronize()
+    ref_stem, ref_pooled = fused_stem_pool_plain(x, k, mul, add)
+    d1, r1, btxt = held(stem, ref_stem, dtype)
+    d2, r2, _ = held(pooled, ref_pooled, dtype)
+    w = cudnn_weight(k, dtype)
+    m5, a5 = mul[:, None, None, None], add[:, None, None, None]
+
+    def route():
+        y = cudnn_conv(x, w, stride=2, padding=3)
+        y = torch.relu(y.float() * m5 + a5).to(dtype)
+        return max_pool_k3s2p1(y.permute(0, 2, 3, 4, 1))
+
+    r = timed(lambda: fused_stem_pool(x, k, mul, add),
+              lambda: fused_stem_pool_plain(x, k, mul, add), route, dtype,
+              nbytes(x, w, mul, add, stem, pooled),
+              2.0 * math.prod(stem.shape[:4]) * 343 * 64)
+    delta = torch.cat([d1.flatten(), d2.flatten()])
+    return delta, max(r1, r2), btxt + " (stem and pool)", r
+
+
+def compare_mode(gen, shape, o, dilation, dtype):
+    """The conv-mode op (kernel A, identity epilogue, at ``dilation``)
+    against the float32 conv of the same inputs rounded once."""
+    c = shape[-1]
+    x = rand(gen, shape, 0.5, dtype).relu_()
+    k = rand(gen, (3, 3, 3, c, o), math.sqrt(2.0 / (27 * c))).to(dtype)
+    got = identity_conv3d(x, k, dilation)
+    torch.cuda.synchronize()
+    ref = conv3x3x3_f32(x, k, dilation).to(dtype)
+    delta, ratio, btxt = held(got, ref, dtype)
+    w = cudnn_weight(k, dtype)
+    r = timed(lambda: identity_conv3d(x, k, dilation),
+              lambda: conv3x3x3_f32(x, k, dilation).to(dtype),
+              lambda: cudnn_conv(x, w, padding=dilation, dilation=dilation),
+              dtype, nbytes(x, k, got),
+              2.0 * math.prod(shape[:4]) * 27 * c * o)
+    return delta, ratio, btxt, r
+
+
+def mode_sites():
+    """{(x shape, O, dilation): (first module name, {mode: launches})} of
+    the processor's B=2 bf16 forward (packed decoder) in each conv mode."""
+    model = get_model_by_name("med3ddram", packed_decoder=True)
+    sites = {}
+    for mode in MODES:
+        sites_mode = mode_conv_sites(model, mode, B, TARGET, torch.bfloat16)
+        check(len(sites_mode) == MODE_PER_FORWARD[mode],
+              f"{mode}: {len(sites_mode)} sites")
+        for name, shape, kshape, d, _ in sites_mode:
+            entry = sites.setdefault((shape, kshape[-1], d), (name, Counter()))
+            entry[1][mode] += 1
+    return sites
+
+
+def phase_mode_kernels():
+    print("== phase 3c: kernel E and the conv-mode sites of kernel A vs "
+          "plain versions (B=2 deployment sites)")
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    summary = {"stem_pool": new_summary(),
+               **{op: new_summary() for op in MODES.values()}}
+    for site, shape, count in E_SITES:
+        for dtype in (torch.float32, torch.bfloat16):
+            delta, ratio, btxt, r = compare_e(gen, shape, dtype)
+            dname = "f32" if dtype == torch.float32 else "bf16"
+            report("stem_pool", site, dname, shape, delta, ratio, btxt, r)
+            accumulate(summary["stem_pool"], delta, r, count, dtype)
+            del delta
+            torch.cuda.empty_cache()
+    runs = [(name, shape, o, d, counts)
+            for (shape, o, d), (name, counts) in mode_sites().items()]
+    runs.append(("ragged", (1, 5, 7, 9, 20), 13, 2, Counter()))
+    for name, shape, o, d, counts in runs:
+        for dtype in (torch.float32, torch.bfloat16):
+            delta, ratio, btxt, r = compare_mode(gen, shape, o, d, dtype)
+            dname = "f32" if dtype == torch.float32 else "bf16"
+            where = ",".join(f"{m}x{n}" for m, n in counts.items()) or "-"
+            report("identity A", name, dname, shape, delta, ratio, btxt, r,
+                   f" O={o:<3d} d={d} [{where}]")
+            for mode, op in MODES.items():
+                accumulate(summary[op], delta, r, counts[mode], dtype)
+            del delta
+            torch.cuda.empty_cache()
+    for mode, op in MODES.items():
+        s = summary[op]
+        print(f"per B=2 bf16 forward in mode {mode} ({op}, "
+              f"{MODE_PER_FORWARD[mode]} sites): kernel A {s['ms']:.2f} ms "
+              f"(plain {s['plain_ms']:.2f}, cuDNN {s['library_ms']:.2f}, "
+              f"bound {s['bound_ms']:.2f})")
+    return summary
 
 
 def write_scans(scan_dir: Path, lobe_dir: Path, n: int = 3):
@@ -437,7 +657,8 @@ def phase_main_path(work: Path):
     shape = write_scans(scan_dir, lobe_dir)
     print(f"wrote 3 synthetic scans {shape} in "
           f"{time.perf_counter() - t0:.1f} s")
-    model = build_model("med3ddram", ckp_path=None, seed=0)
+    model = build_model("med3ddram", ckp_path=None, seed=0,
+                        compute_dtype="bfloat16")
     stats = {}
     cuda_build.reset_launches()
     t0 = time.perf_counter()
@@ -466,7 +687,7 @@ def phase_main_path(work: Path):
           f"({3 / stats['pipeline_s']:.3f} scans/s), "
           f"run_inference {wall:.2f} s")
     return model, scan_dir, lobe_dir, launches, stage, \
-        3 / stats["pipeline_s"]
+        3 / stats["pipeline_s"], results
 
 
 def phase_small_reference():
@@ -494,21 +715,27 @@ def phase_small_reference():
           f" (<= 1e-5) ok")
 
 
-def phase_bf16_vs_f32(model, scan_dir: Path, lobe_dir: Path):
-    print("== phase 5: bf16 vs float32 forward, same weights, one scan")
+def preprocessed(scan_dir: Path, lobe_dir: Path, n: int):
+    """The B=n float32 model input and lung mask of the first ``n`` scans,
+    preprocessed on the card as the processor does."""
     dataset = SubtypingInference(str(scan_dir), str(lobe_dir),
                                  keep_original=False, compute_ess=False)
     view = _RawPredictView(dataset, (TARGET[0], 288, 384), TARGET)
-    item = view[0]
+    batch = default_collate([view[i] for i in range(n)])
     with torch.inference_mode():
         pre = fused_preprocess_preselected(
-            torch.from_numpy(item["image_raw"][None]).to(DEV),
-            torch.from_numpy(item["lung_raw"][None]).to(DEV),
-            [item["in_sizes"].tolist()],
-            torch.from_numpy(item["moments"][None]).to(DEV),
+            torch.from_numpy(batch["image_raw"]).to(DEV),
+            torch.from_numpy(batch["lung_raw"]).to(DEV),
+            batch["in_sizes"].tolist(),
+            torch.from_numpy(batch["moments"]).to(DEV),
             target_size=TARGET, em_threshold=-910.0)
-        x = pre["image"][..., None]
-        lung = pre["lung_mask"][..., None]
+    return pre["image"][..., None], pre["lung_mask"][..., None]
+
+
+def phase_bf16_vs_f32(model, scan_dir: Path, lobe_dir: Path):
+    print("== phase 5: bf16 vs float32 forward, same weights, one scan")
+    x, lung = preprocessed(scan_dir, lobe_dir, 1)
+    with torch.inference_mode():
         d32, r32 = model(x, lung)
         d16, r16 = model(x.to(torch.bfloat16), lung)
     for name, i in (("cle", 0), ("pse", 1)):
@@ -522,6 +749,81 @@ def phase_bf16_vs_f32(model, scan_dir: Path, lobe_dir: Path):
               f"(printed, not asserted)")
         check(frac < 5e-3, f"{name} fraction |d| {frac}")
         check(mean < 1.5e-2, f"{name} map mean |d| {mean}")
+
+
+def phase_modes(model, scan_dir: Path, lobe_dir: Path, work: Path,
+                default_results):
+    print("== phase 4c: the processor in conv modes pallas, tapmm, flat and "
+          "with the quad stem (med3ddram, bf16, batch 2)")
+    ct, lobes = work / "ct2", work / "lobes2"
+    for src, dst in ((scan_dir, ct), (lobe_dir, lobes)):
+        dst.mkdir(parents=True)
+        for i in range(B):
+            shutil.copy(src / f"scan{i}.mha", dst / f"scan{i}.mha")
+    x, lung = preprocessed(scan_dir, lobe_dir, B)
+    x = x.to(torch.bfloat16)
+    with torch.inference_mode():
+        d_ref, r_ref = model(x, lung)
+    totals, op_totals = Counter(), Counter()
+    runs = [(mode, mode, False) for mode in MODES] + [("quad", "roll", True)]
+    for label, mode, quad in runs:
+        blocks.set_conv3d_mode(mode)
+        experimental.set_quad_stem_enable(quad)
+        try:
+            stats = {}
+            out = work / f"out_{label}"
+            cuda_build.reset_launches()
+            results = run_inference(
+                str(ct), str(lobes), str(out), target_size=TARGET,
+                compute_dtype="bfloat16", batch_size=B, workers=2,
+                model=model, device=DEV, stats=stats)
+            torch.cuda.synchronize()
+            launches, ops = cuda_build.launches(), cuda_build.op_launches()
+            with torch.inference_mode():
+                dense, regs = model(x, lung)
+        finally:
+            blocks.set_conv3d_mode("roll")
+            experimental.set_quad_stem_enable(False)
+        totals.update(launches)
+        op_totals.update(ops)
+        check(stats["batches"] == 1, f"{label}: {stats['batches']} batches")
+        uids = [f"scan{i}" for i in range(B)]
+        check_outputs(out, results, uids, read_mha(ct / "scan0.mha")
+                      .array.shape)
+        want = ({**{k: 0 for k in launches}, **QUAD_PER_FORWARD} if quad else
+                {**{k: 0 for k in launches},
+                 "conv3x3x3_affine": MODE_PER_FORWARD[mode]})
+        want_ops = {op: (0 if quad or m != mode else MODE_PER_FORWARD[m])
+                    for m, op in MODES.items()}
+        check(launches == want and ops == want_ops,
+              f"{label}: launches {launches} ops {ops}")
+        worst = {}
+        for name, i in (("cle", 0), ("pse", 1)):
+            key = f"{name}_lesion_percentage_per_lung"
+            pct = max(abs(float(a["metrics"][key]) - float(b["metrics"][key]))
+                      for a, b in zip(results, default_results))
+            frac = (regs[i].float() - r_ref[i].float()).abs().max().item()
+            delta = (dense[i].float() - d_ref[i].float()).abs()
+            mean = delta.mean().item()
+            flips = (delta > 0.5).float().mean().item()
+            check(torch.isfinite(dense[i]).all().item(), f"{label} {name}")
+            check(pct < 5e-3 and frac < 5e-3, f"{label} {name} fraction "
+                  f"|d| {pct} (results), {frac} (forward)")
+            check(mean < 1.5e-2, f"{label} {name} map mean |d| {mean}")
+            check(flips < 5e-3, f"{label} {name} flip rate {flips}")
+            worst[name] = (pct, frac, mean, flips)
+        print(f"{label}: launches per forward "
+              + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+              + (f" (all {MODES[mode]})" if not quad else "")
+              + "; vs the default path: " + "; ".join(
+                  f"{n} results |d| {w[0]:.1e}, fraction |d| {w[1]:.2e}, "
+                  f"map mean|d| {w[2]:.3e}, flips {w[3]:.2e}"
+                  for n, w in worst.items())
+              + f"; forward {stats['stage_ms']['forward']:.1f} ms, "
+              f"{stats['pipeline_s']:.2f} s pipeline ok")
+    print("bounds: fractions < 5e-3, map mean < 1.5e-2, flip rate < 5e-3; "
+          "mode and quad stem restored to roll / off")
+    return totals, op_totals
 
 
 def write_archive(root: Path, shape=(180, 320, 320)):
@@ -685,11 +987,12 @@ def phase_train(work: Path):
                    "peak_gib": peak / 2 ** 30, "split": split}
 
 
-def phase_train_small():
-    print("== phase 6b: med3ddramtiny train step on the card vs its CPU "
-          "plain path (float32, augment off)")
+def phase_train_small(mode: str = "roll"):
+    print(f"== phase 6b: med3ddramtiny train step on the card vs its CPU "
+          f"plain path (float32, augment off, conv mode {mode})")
     rng = np.random.RandomState(7)
-    size = (32, 48, 64)
+    # tapmm's JAX gate refuses rows narrower than 24: layer1 needs W >= 96
+    size = (32, 48, 128) if mode == "tapmm" else (32, 48, 64)
     batch = {"image": rng.randn(B, *size).astype(np.float32),
              "lung_mask": (rng.rand(B, *size) > 0.3).astype(np.float32),
              "em_mask": (rng.rand(B, *size) > 0.8).astype(np.float32),
@@ -704,15 +1007,26 @@ def phase_train_small():
                 fc.weight.mul_(0.05)
                 fc.bias.fill_(-1.5)
         model.to(dev)
+        if mode == "roll":
+            want = {"conv3x3x3_affine": 14, "conv3x3x3_wgrad": 7}
+        else:
+            n = len(mode_conv_sites(model, mode, B, size, torch.float32))
+            check(n > 0, f"no {mode} site at {size}")
+            want = {"conv3x3x3_affine": n, "conv3x3x3_wgrad": 0}
         step = make_reg_train_step(model, make_optimizer(model.parameters()),
                                    augment=False)
-        cuda_build.reset_launches()
-        metrics, _ = step(batch, 0.0, cw_cle, cw_pse)
+        blocks.set_conv3d_mode(mode)
+        try:
+            cuda_build.reset_launches()
+            metrics, _ = step(batch, 0.0, cw_cle, cw_pse)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                counts = cuda_build.launches()
+        finally:
+            blocks.set_conv3d_mode("roll")
         if dev == "cuda":
-            torch.cuda.synchronize()
-            counts = cuda_build.launches()
-            check(counts["conv3x3x3_affine"] == 14
-                  and counts["conv3x3x3_wgrad"] == 7, f"tiny step {counts}")
+            check(all(counts[k] == v for k, v in want.items()),
+                  f"tiny step {counts}")
         out[dev] = (float(metrics["loss"]),
                     {k: p.grad.detach().cpu() for k, p in
                      model.named_parameters()},
@@ -738,7 +1052,8 @@ def phase_train_small():
           f"of the tensor's peak at worst ({worst_peak}; <= "
           f"{GRAD_PEAK_BOUND:g}); {len(noise)} pre-BN conv biases, zero in "
           f"exact arithmetic, not compared; BN running stats rel|d| "
-          f"{stat:.2e} (<= 1e-4); 14 A + 7 D launches")
+          f"{stat:.2e} (<= 1e-4); {want['conv3x3x3_affine']} A + "
+          f"{want['conv3x3x3_wgrad']} D launches")
     for k in sorted(l2, key=l2.get, reverse=True)[:4]:
         print(f"  {k}: ||d||/||g|| {l2[k]:.2e}, max|d|/peak {peak[k]:.2e}")
     check(l2[worst_l2] <= GRAD_L2_BOUND, f"tiny step gradient L2 {l2}")
@@ -747,36 +1062,114 @@ def phase_train_small():
     check(stat <= 1e-4, f"tiny step BN stats rel|d| {stat}")
 
 
+def phase_train_pallas(work: Path):
+    print("== phase 6c: trainer in conv mode pallas (med3ddram, bf16, B=2, "
+          "unpacked decoder, augmentation on)")
+    csv = str(work / "merged.csv")
+    cfg = TrainerConfig(model_arch="med3ddram", lr=1e-4, max_epochs=1,
+                        batch_size=B, num_samples=1, target_size=TARGET,
+                        workers=4, data_path=str(work), train_csv=csv,
+                        valid_csv="", test_csv="",
+                        model_path=str(work / "models_pallas"),
+                        sampler_seed=0, compute_dtype="bfloat16",
+                        packed_decoder=False, device="cuda")
+    blocks.set_conv3d_mode("pallas")
+    try:
+        trainer = SubtypeTrainer(cfg)
+        trainer.init_state()
+        trainer.setup_checkpointing()
+        losses = []
+        step = trainer._train_step
+
+        def logged_step(*args, **kw):
+            metrics, preds = step(*args, **kw)
+            losses.append({k: float(v) for k, v in metrics.items()})
+            return metrics, preds
+
+        trainer._train_step = logged_step
+        clock = StepClock()
+        trainer.step_mark = clock
+        torch.cuda.reset_peak_memory_stats()
+        cuda_build.reset_launches()
+        trainer.fit()
+        torch.cuda.synchronize()
+        launches, ops = cuda_build.launches(), cuda_build.op_launches()
+    finally:
+        blocks.set_conv3d_mode("roll")
+    peak = torch.cuda.max_memory_allocated()
+    n = len(clock.steps)
+    check(n == 2 and len(losses) == n, f"{n} pallas-mode train steps")
+    want = {**{k: 0 for k in launches},
+            "conv3x3x3_affine": PALLAS_PER_TRAIN_STEP}
+    for i, m in enumerate(losses):
+        per = {k: clock.launches[i + 1][k] - clock.launches[i][k]
+               for k in launches}
+        check(per == want, f"pallas step {i} launches {per}")
+        check(all(math.isfinite(v) for v in m.values()), f"step {i} losses")
+        print(f"step {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in m.items()))
+    check(ops == {"pallas_conv3d": n * PALLAS_PER_TRAIN_STEP,
+                  "tap_conv3d": 0, "flat_conv3d": 0}, f"ops {ops}")
+    wall = clock.wall_ms()
+    split = clock.breakdown(n - 1)
+    print(f"launches per train step (both): conv3x3x3_affine "
+          f"{PALLAS_PER_TRAIN_STEP} (all pallas_conv3d), no D, B, C or E; "
+          f"step ms (loader to loader) " + ", ".join(f"{t:.1f}" for t in wall)
+          + "; last step split (ms): " + ", ".join(
+              f"{k} {v:.1f}" for k, v in split.items())
+          + f"; peak device memory {peak / 2 ** 30:.2f} GiB")
+    return launches, ops, {"step_ms": wall[-1], "peak_gib": peak / 2 ** 30}
+
+
 def main():
     card = phase_environment()
     phase_build()
     summary = phase_kernels()
     summary["conv3x3x3_wgrad"], _ = phase_train_kernels()
+    summary.update(phase_mode_kernels())
+    main_launches, main_ops = Counter(), Counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        model, scan_dir, lobe_dir, launches, stage, rate = \
+        model, scan_dir, lobe_dir, launches, stage, rate, results = \
             phase_main_path(Path(tmp))
+        main_launches.update(launches)
         phase_small_reference()
+        launches, ops = phase_modes(model, scan_dir, lobe_dir, Path(tmp),
+                                    results)
+        main_launches.update(launches)
+        main_ops.update(ops)
         phase_bf16_vs_f32(model, scan_dir, lobe_dir)
         del model
         torch.cuda.empty_cache()
         work = Path(tmp) / "train"
         work.mkdir()
         train_launches, train = phase_train(work)
-    phase_train_small()
+        main_launches.update(train_launches)
+        launches, ops, pallas_train = phase_train_pallas(work)
+        main_launches.update(launches)
+        main_ops.update(ops)
+    for mode in ("roll", *MODES):
+        phase_train_small(mode)
     kernels = []
     for name, s in summary.items():
         source, replaces = SOURCES[name]
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces,
-                        "launches": launches[name] + train_launches[name],
-                        "max_abs_err": s["max_abs_err"], "ms": s["ms"],
-                        "plain_ms": s["plain_ms"]})
+        count = main_ops[name] if name in MODES.values() else \
+            main_launches[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": count,
+            "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+            "bound_by": ("bytes" if s["bytes_ms"] >= s["ops_ms"]
+                         else "operations"),
+            "library_ms": s["library_ms"]})
     print(f"card: {card}; main path {rate:.3f} scans/s; training "
           f"{train['step_ms']:.1f} ms per B=2 bf16 step "
           f"({train['volumes_s']:.3f} volumes/s, peak "
-          f"{train['peak_gib']:.2f} GiB); launches are the inference (phase "
-          f"4) plus the training path (phase 6); kernel ms per B=2 bf16 "
-          f"forward (A, B, C) or train step (D), summed over the sites")
+          f"{train['peak_gib']:.2f} GiB); pallas-mode training "
+          f"{pallas_train['step_ms']:.1f} ms for its second step (peak "
+          f"{pallas_train['peak_gib']:.2f} GiB); launches are the main paths' "
+          f"(phases 4, 4c, 6, 6c); kernel ms per B=2 bf16 forward (A, B, C, "
+          f"E: default or quad path; the conv-mode ops: their mode's "
+          f"forward) or train step (D), summed over the sites")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

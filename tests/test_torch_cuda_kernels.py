@@ -24,7 +24,9 @@ from bodyct_dram_emph_subtype_tpu_torch.ops.roll_conv import (
     conv3x3x3_dgrad_plain, conv3x3x3_wgrad, conv3x3x3_wgrad_plain,
     roll_conv_affine_relu, roll_conv_affine_relu_plain,
     roll_conv_heads_sigmoid, roll_conv_heads_sigmoid_plain,
-    roll_conv_packed, wgrad_splits)
+    identity_conv3d, roll_conv_packed, wgrad_splits)
+from bodyct_dram_emph_subtype_tpu_torch.ops.stem_kernel import (
+    fused_stem_pool, fused_stem_pool_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -188,3 +190,82 @@ def test_roll_conv_packed_backward_matches_plain_autograd(dev, dtype, shape,
     assert x.grad.dtype == dtype and k.grad.dtype == dtype
     for got, ref in ((y, ref_y), (x.grad, ref_dx), (k.grad, ref_dk)):
         _assert_close(got.detach(), ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,o,dilation", [
+    ((2, 5, 7, 9, 20), 13, 2),       # ragged C, O
+    ((1, 3, 6, 11, 72), 70, 4),      # taps beyond the volume on every axis
+    ((1, 8, 10, 12, 64), 64, 3),     # 128-bit gathers
+])
+def test_conv_affine_kernel_dilated_matches_plain(dev, dtype, shape, o,
+                                                  dilation):
+    """Kernel A at dilation d: taps at d*(k-1), zero padding d."""
+    rng = np.random.RandomState(6)
+    c = shape[-1]
+    x = _t(rng, shape, dev, 0.5, dtype)
+    k = _t(rng, (3, 3, 3, c, o), dev, 0.1)
+    sc = _t(rng, (o,), dev).abs() + 0.5
+    sh = _t(rng, (o,), dev, 0.1)
+    res = _t(rng, shape[:4] + (o,), dev, 0.5, dtype)
+    got = roll_conv_affine_relu(x, k, sc, sh, residual=res, dilation=dilation)
+    torch.cuda.synchronize()
+    ref = roll_conv_affine_relu_plain(x, k, sc, sh, res, True, dilation)
+    assert got.dtype == dtype and got.shape == ref.shape
+    _assert_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,dilation", [((2, 4, 6, 10, 16), 2),
+                                            ((1, 6, 5, 8, 64), 4)])
+def test_identity_conv3d_matches_plain_autograd(dev, dtype, shape, dilation):
+    """The conv-mode op on the card (kernel A forward, cuDNN backward)
+    against the float32 plain conv and its gradients: the forward within
+    kernel A's bounds; the cuDNN gradients, rounded to the dtype, within
+    1e-5 (float32) or 1e-2 (bfloat16) of each gradient's peak."""
+    rng = np.random.RandomState(7)
+    c, o = shape[-1], 24
+    x = _t(rng, shape, dev, 0.5, dtype).requires_grad_()
+    k = _t(rng, (3, 3, 3, c, o), dev, 0.1, dtype).requires_grad_()
+    gy = _t(rng, shape[:4] + (o,), dev, 0.5, dtype)
+    before = cuda_build.op_launches()["flat_conv3d"]
+    y = identity_conv3d(x, k, dilation, "flat_conv3d")
+    y.backward(gy)
+    torch.cuda.synchronize()
+    assert cuda_build.op_launches()["flat_conv3d"] == before + 1
+    xf = x.detach().float().requires_grad_()
+    kf = k.detach().float().requires_grad_()
+    ref = torch.nn.functional.conv3d(
+        xf.permute(0, 4, 1, 2, 3), kf.permute(4, 3, 0, 1, 2),
+        padding=dilation, dilation=dilation).permute(0, 2, 3, 4, 1)
+    ref.backward(gy.float())
+    _assert_close(y.detach(), ref.detach(), dtype)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for got, want in ((x.grad, xf.grad), (k.grad, kf.grad)):
+        assert got.dtype == dtype
+        assert (got.float() - want).abs().max().item() \
+            <= tol * want.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [
+    (2, 16, 24, 32, 1),     # whole pooled tiles
+    (1, 20, 36, 44, 1),     # ragged pooled tiles on every axis
+])
+def test_stem_pool_kernel_matches_plain(dev, dtype, shape):
+    """Kernel E: the stem (one rounding after BN and ReLU) and its pool
+    against the plain version, within kernel A's bounds; the pooled
+    values are maxima of stem values, so they hold the same bounds."""
+    rng = np.random.RandomState(8)
+    x = _t(rng, shape, dev, 1.0, dtype)
+    k = _t(rng, (7, 7, 7, 1, 64), dev, 0.05)
+    mul = _t(rng, (64,), dev).abs() + 0.5
+    add = _t(rng, (64,), dev, 0.1)
+    before = cuda_build.launches()["stem_pool"]
+    stem, pooled = fused_stem_pool(x, k, mul, add)
+    torch.cuda.synchronize()
+    assert cuda_build.launches()["stem_pool"] == before + 1
+    ref_stem, ref_pooled = fused_stem_pool_plain(x, k, mul, add)
+    for got, ref in ((stem, ref_stem), (pooled, ref_pooled)):
+        assert got.dtype == dtype and got.shape == ref.shape
+        _assert_close(got, ref, dtype)
