@@ -5,9 +5,10 @@
         --lobe_path /input/images/pulmonary-lobes/ --output_path /output
 
 Same flags and defaults as the repository's root ``processor.py`` (the
-reference ``processor.py:55-74``).  The port runs on one device; the
-flags of paths it has not ported yet are accepted and refused with a
-message when set to anything but their defaults.
+reference ``processor.py:55-74``); ``--host_preprocess`` takes the host
+path for every scan.  The port runs on one CUDA device (``--device cpu``
+on request); the flags of paths it has not ported yet are accepted and
+refused with a message when set to anything but their defaults.
 """
 import logging
 import re
@@ -41,18 +42,22 @@ def main(argv=None):
                         choices=["float32", "bfloat16"])
     parser.add_argument("--device_preprocess", action="store_true",
                         default=True,
-                        help="always on: window/standardize/resize/ess run "
-                             "on the device")
+                        help="the default: window/standardize/resize/ess "
+                             "run on the device")
     parser.add_argument("--host_preprocess", action="store_true",
-                        help="not ported yet: the host-preprocess path")
+                        help="preprocess every scan on the host (the strict "
+                             "reference-parity path)")
     parser.add_argument("--pad_shape", default=(160, 288, 384), type=_size,
-                        help="in-plane upload buffer; a larger lung crop "
-                             "raises")
+                        help="in-plane upload buffer of the device path; "
+                             "larger crops fall back per scan to the host "
+                             "path")
     parser.add_argument("--gated_frac", default=0.8, type=float,
                         help="unused: the block-gated transport is not "
                              "ported (the upload is the raw int16 planes)")
     parser.add_argument("--device", default=None, type=str,
-                        help="torch device (default: cuda if available)")
+                        help="torch device (default cuda; without a card "
+                             "pass --device cpu, which runs the kernels' "
+                             "plain versions)")
     parser.add_argument("--seed", default=0, type=int,
                         help="seed of the random weights used when --ckp "
                              "does not exist")
@@ -62,9 +67,6 @@ def main(argv=None):
     if (args.nchips or 1) != 1 or args.mesh:
         parser.error("the PyTorch port runs on one device (--nchips 1, no "
                      "--mesh)")
-    if args.host_preprocess:
-        parser.error("--host_preprocess is not ported to the PyTorch "
-                     "package yet")
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s [%(levelname)s] %(message)s")
@@ -75,8 +77,9 @@ def main(argv=None):
         output_path=args.output_path, model_arch=args.model_arch,
         ckp_path=args.ckp, target_size=args.target_size,
         batch_size=args.batch_size, workers=args.workers,
-        compute_dtype=args.compute_dtype, pad_shape=args.pad_shape,
-        device=args.device, seed=args.seed)
+        compute_dtype=args.compute_dtype,
+        device_preprocess=not args.host_preprocess,
+        pad_shape=args.pad_shape, device=args.device, seed=args.seed)
     print("results:", results)
 
 

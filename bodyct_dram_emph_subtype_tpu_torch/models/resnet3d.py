@@ -23,6 +23,9 @@ port's default; always taken on a CUDA tensor, plain versions on CPU;
 - us1 and us2 conv stages -> ``roll_conv_affine_relu`` (4 x A),
 - us3 + heads + sigmoid -> ``roll_conv_heads_sigmoid`` (1 x B).
 
+In every mode, eval and training, the lesion fractions of both maps are
+one ``lung_masked_fraction`` call (1 x F, ``ops/pallas_kernels.py``).
+
 The stem conv, layer2 block 0 and the dilated layer3/4 run on cuDNN.
 With the quad stem on (``set_quad_stem_enable``, ``models/experimental.py``;
 eval, ``roll``, ``packed_decoder``) the stem conv, BN, ReLU and pool run
@@ -309,5 +312,7 @@ class ResNetSegReg(_Trunk):
         if lungs is None:
             lungs = torch.ones(x.shape[:1] + dense.shape[1:4] + (1,),
                                dtype=torch.float32, device=x.device)
-        reg_outs = [lung_masked_fraction(d, lungs)[:, 0] for d in dense_outs]
-        return dense_outs, reg_outs
+        # one masked-sums call on both maps: the per-channel sums are
+        # independent, so this is the JAX model's per-map reduction
+        regs = lung_masked_fraction(dense, lungs)
+        return dense_outs, [regs[:, i] for i in range(regs.shape[1])]

@@ -2,8 +2,9 @@
 
 The sources under ``csrc/`` (``conv3x3x3.cu``: kernels A and B;
 ``maxpool3d.cu``: C; ``conv3x3x3_wgrad.cu``: D; ``stem_pool.cu``: E;
-every ``*.cu`` there is compiled, and ``pyproject.toml`` ships them as
-package data) have a plain C interface.  At first use they
+``masked_sums.cu``: F, the lung-masked sums; every ``*.cu`` there is
+compiled, and ``pyproject.toml`` ships them as package data) have a plain
+C interface.  At first use they
 are compiled with ``nvcc`` for ``sm_90a`` into ONE shared library under
 ``build/kernels/`` (listed in ``.gitignore``), whose file name carries a
 hash of the sources and flags, and loaded with :mod:`ctypes`.  A checkout
@@ -16,9 +17,11 @@ port on machines without ``nvcc`` or a card.
 ``LAUNCHES`` counts kernel launches by kernel name.  Each wrapper adds one
 right after its kernel was launched, and nowhere else, so a caller can
 show that a run went through the kernels (``reset_launches`` before,
-``launches`` after).  ``OP_LAUNCHES`` counts the kernel-A launches made
-for each opt-in conv-mode op (``pallas_conv3d``, ``tap_conv3d``,
-``flat_conv3d``), which share kernel A (``op_launches``).
+``launches`` after).  Kernels D and F run their partials and then a
+fixed-order sum of them as a second launch; one call counts once.
+``OP_LAUNCHES`` counts the kernel-A launches made for each opt-in
+conv-mode op (``pallas_conv3d``, ``tap_conv3d``, ``flat_conv3d``), which
+share kernel A (``op_launches``).
 """
 from __future__ import annotations
 
@@ -40,7 +43,8 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 KERNELS = ("conv3x3x3_affine", "conv3x3x3_heads_sigmoid",
-           "max_pool3d_k3s2p1", "conv3x3x3_wgrad", "stem_pool")
+           "max_pool3d_k3s2p1", "conv3x3x3_wgrad", "stem_pool",
+           "masked_sums")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 MODE_OPS = ("pallas_conv3d", "tap_conv3d", "flat_conv3d")
 OP_LAUNCHES: Dict[str, int] = {k: 0 for k in MODE_OPS}
@@ -62,6 +66,8 @@ _SIGNATURES = {
     "conv3x3x3_wgrad": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # dtype, x, w, mul, add, stem, pooled, B, D, H, W, stream
     "stem_pool": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # dense, lung, workspace, num, den, B, D, H, W, C, splits, stream
+    "masked_sums": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -14,7 +14,9 @@ raise ``NotImplementedError``; ``--packed_decoder`` reaches the model
 (outside conv mode ``roll`` its decoder convs then run on cuDNN, as the JAX
 packed decoder's run on XLA), ``--profile``/``--debug_nans`` are not
 ported and log so.  The conv mode comes from ``$BODYCT_CONV3D_MODE``
-(default ``roll``).  ``--device cpu`` runs every kernel site's plain version.
+(default ``roll``).  It runs on the CUDA card and refuses to start without
+one unless given ``--device cpu``, which runs every kernel site's plain
+version.
 """
 import logging
 from argparse import ArgumentParser
@@ -72,7 +74,9 @@ def build_parser() -> ArgumentParser:
                    help="the JAX packed decoder's routing: outside conv "
                         "mode roll its convs run on cuDNN")
     p.add_argument("--device", default=None,
-                   help="cuda (default when available) or cpu")
+                   help="torch device (default cuda; without a card pass "
+                        "--device cpu, which runs the kernels' plain "
+                        "versions)")
     p.add_argument("--local_rank", default=0, type=int,
                    help="this argument is not used and should be ignored")
     return p

@@ -43,6 +43,7 @@ from ..data.samplers import SubtypingStratifiedSampler, shard_indices
 from ..models.registry import get_model_by_name
 from ..models.torch_import import (load_reference_checkpoint,
                                    load_state_dict_greedy)
+from ..utils.device import entry_device
 from ..utils.metrics_eval import classification_report
 from .checkpoint import CheckpointManager
 from .state import epoch_lr, make_optimizer
@@ -81,7 +82,7 @@ class TrainerConfig:
     grad_accum: int = 1
     packed_decoder: bool = False         # decoder convs on cuDNN outside
     # conv mode roll, as the JAX trainer's W-pair packed decoder is
-    device: Optional[str] = None         # default: cuda when available
+    device: Optional[str] = None         # default cuda; "cpu" on request
 
     @property
     def exp_name(self):
@@ -146,9 +147,7 @@ class SubtypeTrainer:
     def __init__(self, config: TrainerConfig):
         check_supported(config)
         self.config = config
-        self.device = torch.device(
-            config.device or ("cuda" if torch.cuda.is_available()
-                              else "cpu"))
+        self.device = entry_device(config.device)
         self.dtype = DTYPES[config.compute_dtype]
         self.model: Optional[torch.nn.Module] = None
         self.optimizer: Optional[torch.optim.Optimizer] = None

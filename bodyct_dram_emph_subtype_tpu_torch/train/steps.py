@@ -1,8 +1,9 @@
-"""The dRAM (regression) train step and the eval step.
+"""The dRAM (regression) train step, the eval step and the predict step.
 
 Counterpart of ``bodyct_dram_emph_subtype_tpu/train/steps.py``'s
-``make_reg_train_step`` and ``make_eval_step`` (reference
-``models.py:539-592``, the TRAIN and VAL/TEST branches of ``shared_step``):
+``make_reg_train_step``, ``make_eval_step`` and ``make_predict_step``
+(reference ``models.py:539-592``, the TRAIN and VAL/TEST branches of
+``shared_step``, and ``models.py:430-450``, ``predict_step``):
 
 - train: on-device augmentation -> train-mode forward (BatchNorm batch
   statistics) -> the four reg losses ``(cle + pse) / num_data_shards +
@@ -10,7 +11,12 @@ Counterpart of ``bodyct_dram_emph_subtype_tpu/train/steps.py``'s
 - ``accum_steps > 1``: the batch splits into microbatches run one after
   the other, gradients averaged, BatchNorm running statistics chained
   through them, one Adam update (``steps.py:196-221``);
-- eval: eval forward (kernels A, B and C) + predicted labels.
+- eval: eval forward (kernels A, B, C and F) + predicted labels;
+- predict: eval forward -> both dRAM maps linearly upsampled
+  (align_corners=True) to the input size -> masked by the -910 HU
+  emphysema-susceptible mask -> lesion percentages, normalised per sample
+  or, with ``batch_lung_norm``, by the whole batch's lung volume as the
+  reference does (``models.py:440-441``; equal at batch 1).
 
 The JAX step is one jitted program; the port runs eagerly.  Augmentation
 draws its random numbers from the ``torch.Generator`` it is handed.
@@ -25,7 +31,8 @@ import torch
 from ..data.datasets import CLE_RATIO_MAP, PSE_RATIO_MAP
 from ..losses import (generate_regression_labels, interval_regression_loss,
                       ratio_to_label_batch, segmentation_losses)
-from ..ops.resize import resize_nearest
+from ..ops.pallas_kernels import masked_sums
+from ..ops.resize import resize_linear_matmul, resize_nearest
 from ..transforms.batch_augment import augment_batch, draw_augment_params
 from .state import set_lr
 
@@ -190,5 +197,51 @@ def make_eval_step(model: torch.nn.Module, mode: str = "reg",
                 "pse_labels": _as_tensor(batch["pse_label"], device,
                                          torch.int32),
                 "dense_cle": dense[0], "dense_pse": dense[1]}
+
+    return step
+
+
+def make_predict_step(model: torch.nn.Module, batch_lung_norm: bool = False,
+                      compute_dtype: torch.dtype = torch.float32,
+                      device=None):
+    """Deployment predict step on host-preprocessed inputs
+    (``steps.py:343-377``): ``step(images, lungs, ess, mark=None)`` on
+    (B, D, H, W) arrays or tensors -> ``cle_dense_outs`` and
+    ``pse_dense_outs`` (the full-resolution maps times ``ess``, (B, D, H,
+    W) float32) and ``cle_precentages`` / ``pse_precentages`` ((B,); the
+    JAX key names, typo included).  Both numerators are one kernel-F call
+    on the two upsampled maps with ``ess`` as the mask.
+
+    ``batch_lung_norm=False``: each sample divides by its own lung volume;
+    ``True``: every sample divides by the whole batch's (the reference's
+    strict parity at batch > 1).  ``mark(name)``, if given, is called as
+    each phase begins (``forward``, ``reduction``) and with ``done`` at the
+    end — a hook for timing."""
+    device = torch.device(device) if device is not None else \
+        next(model.parameters()).device
+
+    def step(images, lungs, ess, mark: Optional[Callable[[str], None]] = None
+             ) -> Dict[str, torch.Tensor]:
+        mark = mark or (lambda name: None)
+        model.eval()
+        with torch.inference_mode():
+            x = _as_tensor(images, device, torch.float32)[..., None]
+            lungs5 = _as_tensor(lungs, device, torch.float32)[..., None]
+            ess5 = _as_tensor(ess, device, torch.float32)[..., None]
+            mark("forward")
+            dense, _ = model(x.to(compute_dtype), lungs5)
+            mark("reduction")
+            full = resize_linear_matmul(torch.cat(dense, -1), x.shape[1:4],
+                                        (1, 2, 3), align_corners=True)
+            num, _ = masked_sums(full, ess5)
+            lung_sums = (torch.sum(lungs5) if batch_lung_norm else
+                         torch.sum(lungs5, dim=(1, 2, 3, 4))[:, None])
+            pct = num / lung_sums
+            full = full * ess5
+            out = {"cle_dense_outs": full[..., 0],
+                   "pse_dense_outs": full[..., 1],
+                   "cle_precentages": pct[:, 0], "pse_precentages": pct[:, 1]}
+            mark("done")
+            return out
 
     return step

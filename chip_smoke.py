@@ -30,11 +30,25 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    us1.conv0's 258 k-voxel sums) and bit-equal on a second run; the dgrad
    (kernel A on the flipped, I/O-transposed weights) against
    ``conv3x3x3_dgrad_plain`` (A's bounds: float32 2e-5*max|ref|, measured
-   at most 0.13 of it; bf16 2 bf16 ulps, measured exactly one);
+   at most 0.13 of it; bf16 2 bf16 ulps, measured exactly one); and the
+   forward of ``roll_conv_packed`` (kernel A, identity epilogue) against
+   the float32 conv rounded once, in A's bounds;
+3d. kernel F (``masked_sums``, the lung-masked sums) against its plain
+   version at its three sites (the model's lesion fractions and the device
+   path's reduction on (2, 64, 112, 144, 2) maps, the host path's predict
+   step on (2, 128, 224, 288, 2)), a ragged C = 3 and a C = 1 shape, with
+   float32 maps and bf16 maps (which the wrapper casts): the masked sums
+   of kernel and plain version within 1e-5 relative of a float64 sum, the
+   lung sums equal to the voxel count, the kernel bit-equal on a second
+   run; times with the L2 cache flushed before each run (the inputs of the
+   smaller sites fit in its 50 MB), each call captured in a CUDA graph and
+   replayed, so the times are the device's (the time of one Python call
+   of the kernel's wrapper is printed beside them);
 4. main path — three synthetic scans through ``run_inference`` (med3ddram,
    bf16, batch 2, seeded random weights), output contract checked, kernel
-   launch counts checked per forward, scans/s and per-stage times; then
-   the tiny model on the card against its CPU plain path;
+   launch counts checked per batch (the forward's, plus one kernel-F call
+   for the reduction), scans/s and per-stage times; then the tiny model
+   on the card against its CPU plain path;
 5. bf16 vs float32 forward of the same weights on one scan;
 6. training path — a synthetic ``.npz`` archive of 4 scans (int16 CT with a
    lung ellipsoid, stored 180x320x320) through the trainer in-process
@@ -66,20 +80,37 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    for both (the stem's and the pooled output each);
 4c. the processor in the conv modes ``pallas``, ``tapmm`` and ``flat``
    and with the quad stem on: ``run_inference`` over one batch of 2 scans
-   each (launches per forward: A 26 / 13 / 18 and no B or C; quad: E 1,
-   A 16, B 1, C 0), and the B=2 bf16 forward's maps and lesion fractions
+   each (launches per batch: A 26 / 13 / 18 and no B or C; quad: E 1,
+   A 16, B 1, C 0; F 2 in each), and the B=2 bf16 forward's maps and
+   lesion fractions
    against the default path's on the same weights and scans within the
    bf16 bounds of ``tests/test_composed_oracle.py:246-262`` (fractions
    |d| < 5e-3, map mean |d| < 1.5e-2, flip rate (|d| > 0.5) < 5e-3); the
    mode and the switch are restored afterwards;
+4d. the host-preprocess path (``run_inference(device_preprocess=False)``,
+   med3ddram, bf16, batch 2) over phase 4's scans: output contract, per
+   batch A 16, B 1, C 1, F 2, every scan in ``stats["host_scans"]``, and
+   against phase 4's device path the bf16 bounds above (lesion fractions,
+   and the written uint8 heatmaps read as count / 255 over the voxels
+   either map marks); one scan in float32 on both paths: fractions |d| <=
+   2e-3 (the JAX package's bound, ``tests/test_processor.py:124-126``),
+   heatmaps within one count on under 1 % of the voxels; then the per-scan
+   fallback at the default ``pad_shape``: a fourth scan whose lung crop is
+   wider than 384 columns runs the host path alone, the other three the
+   device path, results in cohort order; peak device memory;
 6c. two trainer steps in conv mode ``pallas`` (med3ddram, bf16, B=2, the
    unpacked decoder, phase 6's archive): 31 kernel-A launches in every
    step, no D, B or C, finite losses; step ms and peak device memory.
 
+Kernel F (the lung-masked sums) runs once in every forward, eval and
+train, so each train step and each eval batch also counts one F launch.
+
 Every timed site also prints the library call that computes the same
 conv or pool (cuDNN ``F.conv3d``, its ``conv3d_input`` / ``conv3d_weight``
 gradients, ``F.max_pool3d``; for E the route it replaces, cuDNN stem conv
-+ BN/ReLU + kernel C), timed with TF32 allowed, and the bound: the larger
++ BN/ReLU + kernel C), timed with TF32 allowed; for F ``torch.bmm`` of the
+lung row and the maps, TF32 off, which gives the masked sums but not the
+lung sum; and the bound: the larger
 of the bytes read and written once over 3.35 TB/s and the conv's FLOPs
 over the dtype's peak (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s float32
 CUDA cores; NVIDIA's H100 SXM data sheet).
@@ -120,6 +151,8 @@ from bodyct_dram_emph_subtype_tpu_torch.models.registry import \
 from bodyct_dram_emph_subtype_tpu_torch.ops import cuda_build
 from bodyct_dram_emph_subtype_tpu_torch.ops.maxpool_kernel import (
     max_pool_k3s2p1, max_pool_k3s2p1_plain)
+from bodyct_dram_emph_subtype_tpu_torch.ops.pallas_kernels import (
+    masked_sums, masked_sums_plain)
 from bodyct_dram_emph_subtype_tpu_torch.ops.preprocess import \
     fused_preprocess_preselected
 from bodyct_dram_emph_subtype_tpu_torch.models.resnet3d import (
@@ -128,7 +161,7 @@ from bodyct_dram_emph_subtype_tpu_torch.ops.roll_conv import (
     conv3x3x3_dgrad, conv3x3x3_dgrad_plain, conv3x3x3_f32, conv3x3x3_wgrad,
     conv3x3x3_wgrad_plain, identity_conv3d, roll_conv_affine_relu,
     roll_conv_affine_relu_plain, roll_conv_heads_sigmoid,
-    roll_conv_heads_sigmoid_plain)
+    roll_conv_heads_sigmoid_plain, roll_conv_packed)
 from bodyct_dram_emph_subtype_tpu_torch.ops.stem_kernel import (
     fused_stem_pool, fused_stem_pool_plain)
 from bodyct_dram_emph_subtype_tpu_torch.train.loop import (SubtypeTrainer,
@@ -157,20 +190,32 @@ B_SITES = [("us3+heads", (B, 64, 112, 144, 64), 32, 2, 1),
 C_SITES = [("stem.pool", (B, 64, 112, 144, 64), 1),
            ("ragged", (1, 5, 7, 9, 3), 0)]
 PER_FORWARD = {"conv3x3x3_affine": 16, "conv3x3x3_heads_sigmoid": 1,
-               "max_pool3d_k3s2p1": 1}
+               "max_pool3d_k3s2p1": 1, "masked_sums": 1}
+# a processor batch: the forward, and one more kernel-F call for the
+# device path's reduction or the host path's predict-step numerators
+PER_BATCH = {**PER_FORWARD, "masked_sums": 2}
+# (site, dense shape, kernel-F calls per device-path batch)
+F_SITES = [("model regs", (B, 64, 112, 144, 2), 1),
+           ("reduction", (B, 64, 112, 144, 2), 1),
+           ("host predict", (B, *TARGET, 2), 0),
+           ("ragged", (3, 5, 7, 9, 3), 0),
+           ("C=1", (B, 64, 112, 144, 1), 0)]
+F_REL_BOUND = 1e-5
 # (site, x shape, O) of the training convs, plus a ragged shape
 TRAIN_SITES = train_roll_site_shapes(B, TARGET) + [
     ("ragged", (1, 5, 7, 9, 20), 13)]
 GRAD_L2_BOUND, GRAD_PEAK_BOUND = 5e-3, 2e-2      # phase 6b
 PER_TRAIN_STEP = {"conv3x3x3_affine": 22, "conv3x3x3_wgrad": 11,
-                  "conv3x3x3_heads_sigmoid": 0, "max_pool3d_k3s2p1": 0}
+                  "conv3x3x3_heads_sigmoid": 0, "max_pool3d_k3s2p1": 0,
+                  "masked_sums": 1}
 E_SITES = [("stem", (B, *TARGET, 1), 1), ("ragged", (1, 20, 36, 44, 1), 0)]
 MODES = {"pallas": "pallas_conv3d", "tapmm": "tap_conv3d",
          "flat": "flat_conv3d"}
 # kernel-A launches per B=2 bf16 forward of the processor (packed decoder)
 MODE_PER_FORWARD = {"pallas": 26, "tapmm": 13, "flat": 18}
-QUAD_PER_FORWARD = {"stem_pool": 1, "conv3x3x3_affine": 16,
-                    "conv3x3x3_heads_sigmoid": 1, "max_pool3d_k3s2p1": 0}
+QUAD_PER_BATCH = {"stem_pool": 1, "conv3x3x3_affine": 16,
+                  "conv3x3x3_heads_sigmoid": 1, "max_pool3d_k3s2p1": 0,
+                  "masked_sums": 2}
 PALLAS_PER_TRAIN_STEP = 31                       # phase 6c, unpacked decoder
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HBM_BYTES_S = 3.35e12
@@ -190,6 +235,9 @@ SOURCES = {
     "stem_pool": (
         "bodyct_dram_emph_subtype_tpu_torch/csrc/stem_pool.cu",
         "bodyct_dram_emph_subtype_tpu/ops/stem_kernel.py:241"),
+    "masked_sums": (
+        "bodyct_dram_emph_subtype_tpu_torch/csrc/masked_sums.cu",
+        "bodyct_dram_emph_subtype_tpu/ops/pallas_kernels.py:46"),
     "pallas_conv3d": (
         "bodyct_dram_emph_subtype_tpu_torch/csrc/conv3x3x3.cu",
         "bodyct_dram_emph_subtype_tpu/ops/pallas_conv.py:80"),
@@ -211,11 +259,15 @@ def check(ok: bool, msg: str) -> None:
         raise SmokeError(msg)
 
 
-def median_ms(fn, reps: int = 5) -> float:
+def median_ms(fn, reps: int = 5, flush=None) -> float:
+    """Median CUDA-event ms of ``fn``; ``flush()``, if given, runs before
+    each timed call, outside the events."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -269,12 +321,13 @@ def phase_build():
           f"{time.perf_counter() - t0:.1f} s): {info.path.name}")
 
 
-def library_ms(fn) -> float:
-    """Median ms of a PyTorch library call, TF32 allowed (PyTorch's default
-    for cuDNN; bf16 inputs do not use it)."""
+def library_ms(fn, flush=None) -> float:
+    """Median ms of a PyTorch library call, TF32 allowed for cuDNN
+    (PyTorch's default there; bf16 inputs do not use it); matmuls keep
+    TF32 off."""
     torch.backends.cudnn.allow_tf32 = True
     try:
-        return median_ms(fn)
+        return median_ms(fn, flush=flush)
     finally:
         torch.backends.cudnn.allow_tf32 = False
 
@@ -284,13 +337,14 @@ def nbytes(*tensors) -> int:
                if t is not None)
 
 
-def timed(kernel, plain, library, dtype, moved, flops):
+def timed(kernel, plain, library, dtype, moved, flops, flush=None):
     """Times of one site (kernel, plain version, library call) and its
     bound: the larger of ``moved`` bytes (each input read once, each
     output written once) over the HBM rate and ``flops`` over the dtype's
     peak."""
-    r = {"ms": median_ms(kernel), "plain_ms": median_ms(plain),
-         "library_ms": library_ms(library),
+    r = {"ms": median_ms(kernel, flush=flush),
+         "plain_ms": median_ms(plain, flush=flush),
+         "library_ms": library_ms(library, flush=flush),
          "bytes_ms": moved / HBM_BYTES_S * 1e3,
          "ops_ms": flops / PEAK_OPS[dtype] * 1e3}
     r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
@@ -342,12 +396,12 @@ def new_summary():
     return {"max_abs_err": 0.0, **{k: 0.0 for k in TIMES}}
 
 
-def accumulate(summary, delta, r, count, dtype):
+def accumulate(summary, delta, r, count, dtype, main=torch.bfloat16):
     """Fold one site into a kernel's summary: the largest error over every
-    site and dtype, and ``count`` times the site's bf16 times (the main
-    path's dtype)."""
+    site and dtype, and ``count`` times the site's times in ``main`` (the
+    main path's dtype)."""
     summary["max_abs_err"] = max(summary["max_abs_err"], delta.max().item())
-    if dtype == torch.bfloat16:
+    if dtype == main:
         for k in TIMES:
             summary[k] += count * r[k]
 
@@ -416,7 +470,9 @@ def compare_c(gen, shape, dtype):
 def phase_kernels():
     print("== phase 3: kernels vs plain versions (B=2 deployment sites)")
     gen = torch.Generator(device=DEV).manual_seed(0)
-    summary = {k: new_summary() for k in PER_FORWARD}
+    summary = {k: new_summary() for k in ("conv3x3x3_affine",
+                                          "conv3x3x3_heads_sigmoid",
+                                          "max_pool3d_k3s2p1")}
     runs = ([("conv3x3x3_affine", s[0], s[1], s[4],
               lambda dt, s=s: compare_a(gen, *s[1:4], dt)) for s in A_SITES]
             + [("conv3x3x3_heads_sigmoid", s[0], s[1], s[4],
@@ -476,17 +532,25 @@ def compare_dgrad(gen, shape, o, dtype):
     return delta, ratio, btxt, r
 
 
+def compare_packed_forward(gen, shape, o, dtype):
+    """The forward of ``roll_conv_packed`` (kernel A, identity epilogue)."""
+    return compare_mode(gen, shape, o, 1, dtype,
+                        conv=lambda x, k, d: roll_conv_packed(x, k))
+
+
 def phase_train_kernels():
     print("== phase 3b: training kernels vs plain versions (B=2 train sites)")
     gen = torch.Generator(device=DEV).manual_seed(1)
-    wgrad, dgrad = new_summary(), new_summary()
+    wgrad, dgrad, fwd = new_summary(), new_summary(), new_summary()
     for site, shape, o in TRAIN_SITES:
         count = 0 if site == "ragged" else 1
         for dtype in (torch.float32, torch.bfloat16):
             dname = "f32" if dtype == torch.float32 else "bf16"
             for kernel, run, acc in (
                     ("conv3x3x3_wgrad", compare_d, wgrad),
-                    ("dgrad(conv3x3x3_affine)", compare_dgrad, dgrad)):
+                    ("dgrad(conv3x3x3_affine)", compare_dgrad, dgrad),
+                    ("fwd(roll_conv_packed)", compare_packed_forward,
+                     fwd)):
                 delta, ratio, btxt, r = run(gen, shape, o, dtype)
                 report(kernel, site, dname, shape, delta, ratio, btxt, r,
                        f" O={o:<3d}")
@@ -497,7 +561,9 @@ def phase_train_kernels():
           f"{wgrad['plain_ms']:.2f}, cuDNN {wgrad['library_ms']:.2f}, bound "
           f"{wgrad['bound_ms']:.2f}), dgrad on A {dgrad['ms']:.2f} ms (plain "
           f"{dgrad['plain_ms']:.2f}, cuDNN {dgrad['library_ms']:.2f}, bound "
-          f"{dgrad['bound_ms']:.2f})")
+          f"{dgrad['bound_ms']:.2f}), forward on A {fwd['ms']:.2f} ms (plain "
+          f"{fwd['plain_ms']:.2f}, cuDNN {fwd['library_ms']:.2f}, bound "
+          f"{fwd['bound_ms']:.2f})")
     return wgrad, dgrad
 
 
@@ -530,18 +596,19 @@ def compare_e(gen, shape, dtype):
     return delta, max(r1, r2), btxt + " (stem and pool)", r
 
 
-def compare_mode(gen, shape, o, dilation, dtype):
-    """The conv-mode op (kernel A, identity epilogue, at ``dilation``)
+def compare_mode(gen, shape, o, dilation, dtype, conv=identity_conv3d):
+    """A conv-mode op (kernel A, identity epilogue, at ``dilation``)
     against the float32 conv of the same inputs rounded once."""
     c = shape[-1]
     x = rand(gen, shape, 0.5, dtype).relu_()
     k = rand(gen, (3, 3, 3, c, o), math.sqrt(2.0 / (27 * c))).to(dtype)
-    got = identity_conv3d(x, k, dilation)
+    with torch.no_grad():
+        got = conv(x, k, dilation)
     torch.cuda.synchronize()
     ref = conv3x3x3_f32(x, k, dilation).to(dtype)
     delta, ratio, btxt = held(got, ref, dtype)
     w = cudnn_weight(k, dtype)
-    r = timed(lambda: identity_conv3d(x, k, dilation),
+    r = timed(lambda: conv(x, k, dilation),
               lambda: conv3x3x3_f32(x, k, dilation).to(dtype),
               lambda: cudnn_conv(x, w, padding=dilation, dilation=dilation),
               dtype, nbytes(x, k, got),
@@ -601,26 +668,102 @@ def phase_mode_kernels():
     return summary
 
 
+def graphed(fn):
+    """``fn`` captured once into a CUDA graph; returns the replay.  A
+    replay's time is the device's, without the Python wrapper and the
+    launch overhead that dominate a call of tens of microseconds."""
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return g.replay
+
+
+def compare_f(gen, shape, dtype, flush):
+    """Kernel F against its plain version and a float64 sum; the times of
+    kernel, plain version and library call are CUDA-graph replays, and the
+    kernel's time per Python call is printed beside them."""
+    b, c = shape[0], shape[-1]
+    dense = torch.rand(shape, generator=gen, device=DEV).to(dtype)
+    lung = (torch.rand(shape[:4] + (1,), generator=gen, device=DEV)
+            > 0.4).float()
+    num, den = masked_sums(dense, lung)
+    num2, den2 = masked_sums(dense, lung)
+    torch.cuda.synchronize()
+    check(torch.equal(num, num2) and torch.equal(den, den2),
+          f"kernel F not bit-reproducible {shape}")
+    ref = (dense.double() * lung.double()).sum((1, 2, 3))
+    count = lung.double().sum((1, 2, 3, 4))
+    check(torch.equal(den.double(), count), f"kernel F lung sums {shape}")
+    plain_num, plain_den = masked_sums_plain(dense, lung)
+    check(torch.equal(plain_den.double(), count), f"plain lung sums {shape}")
+    rel = {name: ((got.double() - ref).abs() / ref.abs()).max().item()
+           for name, got in (("kernel", num), ("plain", plain_num))}
+    ratio = max(rel.values()) / F_REL_BOUND
+    lung_row = lung.to(dtype).reshape(b, 1, -1)
+    dense3 = dense.reshape(b, -1, c)
+    calls = (lambda: masked_sums(dense, lung),
+             lambda: masked_sums_plain(dense, lung),
+             lambda: torch.bmm(lung_row, dense3))
+    r = timed(*(graphed(fn) for fn in calls), dtype,
+              nbytes(dense, lung, num, den), 0, flush=flush)
+    call_ms = median_ms(calls[0], flush=flush)
+    delta = (num.double() - ref).abs().float()
+    return delta, ratio, (f"num rel|d| kernel {rel['kernel']:.2e} plain "
+                          f"{rel['plain']:.2e} <= {F_REL_BOUND:g} of float64; "
+                          f"den == count; bit-equal rerun"), r, call_ms
+
+
+def phase_masked_sums():
+    print("== phase 3d: kernel F (masked_sums) vs its plain version and "
+          "float64 (its three sites, ragged, C=1)")
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    summary = new_summary()
+    l2 = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    flush = l2.zero_                 # 64 MB > the H100's 50 MB L2
+    for site, shape, count in F_SITES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = "f32" if dtype == torch.float32 else "bf16"
+            delta, ratio, btxt, r, call_ms = compare_f(gen, shape, dtype,
+                                                       flush)
+            report("masked_sums", site, dname, shape, delta, ratio, btxt, r,
+                   f" per call {call_ms:.4f} ms; graph replays:")
+            accumulate(summary, delta, r, count, dtype, main=torch.float32)
+            torch.cuda.empty_cache()
+    print(f"per B=2 device-path batch (model regs + reduction, float32 "
+          f"maps; CUDA-graph replays): kernel F {summary['ms']:.4f} ms (plain "
+          f"{summary['plain_ms']:.4f}, torch.bmm {summary['library_ms']:.4f} "
+          f"without the lung sum, bound {summary['bound_ms']:.4f})")
+    return summary
+
+
+def write_scan(scan_dir: Path, lobe_dir: Path, uid: str, shape, radii,
+               seed: int):
+    """A synthetic int16 CT with a lobe ellipsoid of ``radii`` (fractions
+    of ``shape``) and its lobe mask."""
+    spacing = (0.7, 0.7, 1.5)                      # ITK (x, y, z)
+    rng = np.random.RandomState(seed)
+    zz, yy, xx = np.ogrid[:shape[0], :shape[1], :shape[2]]
+    lobe = ((((zz - shape[0] / 2) / (shape[0] * radii[0])) ** 2
+             + ((yy - shape[1] / 2) / (shape[1] * radii[1])) ** 2
+             + ((xx - shape[2] / 2) / (shape[2] * radii[2])) ** 2) < 1)
+    ct = np.full(shape, -1000, np.int16)
+    ct[lobe] = (-870 + 70 * rng.randn(int(lobe.sum()))).astype(np.int16)
+    write_mha(scan_dir / f"{uid}.mha", ct, spacing)
+    write_mha(lobe_dir / f"{uid}.mha", lobe.astype(np.uint8), spacing)
+
+
 def write_scans(scan_dir: Path, lobe_dir: Path, n: int = 3):
     """Synthetic int16 CTs of about (180, 320, 320) with a lobe ellipsoid
     whose lung crop fits the default pad_shape (160, 288, 384)."""
     shape = (180, 320, 320)
-    spacing = (0.7, 0.7, 1.5)                      # ITK (x, y, z)
     for i in range(n):
-        rng = np.random.RandomState(100 + i)
-        zz, yy, xx = np.ogrid[:shape[0], :shape[1], :shape[2]]
-        r = (0.38 + 0.02 * i, 0.30, 0.38)
-        lobe = ((((zz - shape[0] / 2) / (shape[0] * r[0])) ** 2
-                 + ((yy - shape[1] / 2) / (shape[1] * r[1])) ** 2
-                 + ((xx - shape[2] / 2) / (shape[2] * r[2])) ** 2) < 1)
-        ct = np.full(shape, -1000, np.int16)
-        ct[lobe] = (-870 + 70 * rng.randn(int(lobe.sum()))).astype(np.int16)
-        write_mha(scan_dir / f"scan{i}.mha", ct, spacing)
-        write_mha(lobe_dir / f"scan{i}.mha", lobe.astype(np.uint8), spacing)
+        write_scan(scan_dir, lobe_dir, f"scan{i}", shape,
+                   (0.38 + 0.02 * i, 0.30, 0.38), 100 + i)
     return shape
 
 
 def check_outputs(out_dir: Path, results, uids, shape):
+    """The output contract; ``shape``: every scan's, or {uid: shape}."""
     check([r["entity"] for r in results] == uids, f"results order {results}")
     for r in results:
         m = r["metrics"]
@@ -644,7 +787,8 @@ def check_outputs(out_dir: Path, results, uids, shape):
                 "paraseptal-emphysema-heatmap"):
         for uid in uids:
             img = read_mha(out_dir / "images" / sub / f"{uid}.mha")
-            check(img.array.shape == shape and img.array.dtype == np.uint8,
+            want = shape[uid] if isinstance(shape, dict) else shape
+            check(img.array.shape == want and img.array.dtype == np.uint8,
                   f"{sub}/{uid}: {img.array.shape} {img.array.dtype}")
 
 
@@ -672,9 +816,9 @@ def phase_main_path(work: Path):
     uids = [f"scan{i}" for i in range(3)]
     check_outputs(out_dir, results, uids, shape)
     nb = stats["batches"]
-    for kernel, per in PER_FORWARD.items():
-        print(f"launches {kernel}: {launches[kernel]} over {nb} forward "
-              f"batches (expected {per} per forward)")
+    for kernel, per in PER_BATCH.items():
+        print(f"launches {kernel}: {launches[kernel]} over {nb} batches "
+              f"(expected {per} per batch)")
         check(launches[kernel] == per * nb and nb > 0,
               f"{kernel}: {launches[kernel]} launches for {nb} batches")
     for r in results:
@@ -687,7 +831,7 @@ def phase_main_path(work: Path):
           f"({3 / stats['pipeline_s']:.3f} scans/s), "
           f"run_inference {wall:.2f} s")
     return model, scan_dir, lobe_dir, launches, stage, \
-        3 / stats["pipeline_s"], results
+        3 / stats["pipeline_s"], results, stats["fractions"]
 
 
 def phase_small_reference():
@@ -790,9 +934,10 @@ def phase_modes(model, scan_dir: Path, lobe_dir: Path, work: Path,
         uids = [f"scan{i}" for i in range(B)]
         check_outputs(out, results, uids, read_mha(ct / "scan0.mha")
                       .array.shape)
-        want = ({**{k: 0 for k in launches}, **QUAD_PER_FORWARD} if quad else
+        want = ({**{k: 0 for k in launches}, **QUAD_PER_BATCH} if quad else
                 {**{k: 0 for k in launches},
-                 "conv3x3x3_affine": MODE_PER_FORWARD[mode]})
+                 "conv3x3x3_affine": MODE_PER_FORWARD[mode],
+                 "masked_sums": PER_BATCH["masked_sums"]})
         want_ops = {op: (0 if quad or m != mode else MODE_PER_FORWARD[m])
                     for m, op in MODES.items()}
         check(launches == want and ops == want_ops,
@@ -824,6 +969,137 @@ def phase_modes(model, scan_dir: Path, lobe_dir: Path, work: Path,
     print("bounds: fractions < 5e-3, map mean < 1.5e-2, flip rate < 5e-3; "
           "mode and quad stem restored to roll / off")
     return totals, op_totals
+
+
+def heatmap_delta(out_a: Path, out_b: Path, uid: str):
+    """Both written uint8 heatmaps of ``uid`` read as maps in [0, 1]
+    (count / 255): per map (mean |d| over the voxels either marks, flip
+    rate |d| > 0.5 there, max |d| in counts, share of voxels that
+    differ)."""
+    out = {}
+    for name, sub in (("cle", "centrilobular-emphysema-heatmap"),
+                      ("pse", "paraseptal-emphysema-heatmap")):
+        a, b = (read_mha(o / "images" / sub / f"{uid}.mha").array
+                .astype(np.int16) for o in (out_a, out_b))
+        counts = np.abs(a - b)
+        marked = (a > 0) | (b > 0)
+        d = counts[marked] / 255.0
+        out[name] = (float(d.mean()) if d.size else 0.0,
+                     float((d > 0.5).mean()) if d.size else 0.0,
+                     int(counts.max()), float((counts > 0).mean()))
+    return out
+
+
+def phase_host_path(model, scan_dir: Path, lobe_dir: Path, work: Path,
+                    default_fractions):
+    print("== phase 4d: the host-preprocess path and the per-scan fallback "
+          "(run_inference, med3ddram, batch 2)")
+    torch.cuda.reset_peak_memory_stats()
+    uids = [f"scan{i}" for i in range(3)]
+    shape = read_mha(scan_dir / "scan0.mha").array.shape
+    # (a) every scan on the host path, bf16, against phase 4's device path
+    stats = {}
+    out = work / "out_host"
+    cuda_build.reset_launches()
+    results = run_inference(
+        str(scan_dir), str(lobe_dir), str(out), target_size=TARGET,
+        compute_dtype="bfloat16", batch_size=B, workers=2, model=model,
+        device=DEV, device_preprocess=False, stats=stats)
+    torch.cuda.synchronize()
+    launches = cuda_build.launches()
+    check_outputs(out, results, uids, shape)
+    nb = stats["batches"]
+    check(nb == 2 and stats["host_scans"] == uids,
+          f"host path: {nb} batches, host scans {stats['host_scans']}")
+    check(launches == {k: PER_BATCH.get(k, 0) * nb for k in launches},
+          f"host path launches {launches} for {nb} batches")
+    total = Counter(launches)
+    for uid in uids:
+        frac = [abs(a - b) for a, b in zip(stats["fractions"][uid],
+                                           default_fractions[uid])]
+        heat = heatmap_delta(out, work / "out", uid)
+        print(f"{uid}: host vs device path bf16: fractions |d| cle "
+              f"{frac[0]:.2e} pse {frac[1]:.2e} (< 5e-3); heatmaps " +
+              "; ".join(f"{n} mean|d| {h[0]:.3e} (< 1.5e-2), flips "
+                        f"{h[1]:.2e} (< 5e-3), max {h[2]} counts"
+                        for n, h in heat.items()))
+        check(max(frac) < 5e-3, f"{uid} host vs device fractions {frac}")
+        check(all(h[0] < 1.5e-2 and h[1] < 5e-3 for h in heat.values()),
+              f"{uid} host vs device heatmaps {heat}")
+    stage = {k: v / nb for k, v in stats["stage_ms"].items()}
+    print(f"launches per batch " + ", ".join(
+        f"{k} {v // nb}" for k, v in launches.items() if v)
+        + "; per batch of 2 (ms): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in stage.items())
+        + f"; host path: 3 scans in {stats['pipeline_s']:.2f} s pipeline "
+        f"({3 / stats['pipeline_s']:.3f} scans/s)")
+    host_rate = 3 / stats["pipeline_s"]
+    # (b) one scan in float32 on both paths
+    ct1, lobes1 = work / "ct1", work / "lobes1"
+    for src, dst in ((scan_dir, ct1), (lobe_dir, lobes1)):
+        dst.mkdir(parents=True)
+        shutil.copy(src / "scan0.mha", dst / "scan0.mha")
+    f32 = {}
+    for path, host in (("device", False), ("host", True)):
+        st = {}
+        run_inference(str(ct1), str(lobes1), str(work / f"out_f32_{path}"),
+                      target_size=TARGET, compute_dtype="float32",
+                      batch_size=B, workers=2, model=model, device=DEV,
+                      device_preprocess=not host, stats=st)
+        check(st["host_scans"] == (["scan0"] if host else []),
+              f"float32 {path} path host scans {st['host_scans']}")
+        f32[path] = st["fractions"]["scan0"]
+    frac = [abs(a - b) for a, b in zip(f32["host"], f32["device"])]
+    heat = heatmap_delta(work / "out_f32_host", work / "out_f32_device",
+                         "scan0")
+    print(f"scan0 float32, host vs device path: fractions cle "
+          f"{f32['host'][0]:.7f} / {f32['device'][0]:.7f} |d| {frac[0]:.2e}, "
+          f"pse |d| {frac[1]:.2e} (<= 2e-3); heatmaps " + "; ".join(
+              f"{n} max {h[2]} counts, {h[3]:.2e} of voxels differ"
+              for n, h in heat.items()) + " (<= 1 count on < 1 %)")
+    check(max(frac) <= 2e-3, f"float32 host vs device fractions {frac}")
+    check(all(h[2] <= 1 and h[3] < 0.01 for h in heat.values()),
+          f"float32 host vs device heatmaps {heat}")
+    # (c) the per-scan fallback at the default pad_shape (160, 288, 384)
+    ct4, lobes4 = work / "ct4", work / "lobes4"
+    for src, dst in ((scan_dir, ct4), (lobe_dir, lobes4)):
+        dst.mkdir(parents=True)
+        for uid in uids:
+            shutil.copy(src / f"{uid}.mha", dst / f"{uid}.mha")
+    wide = (180, 320, 448)
+    write_scan(ct4, lobes4, "scan1_wide", wide, (0.38, 0.30, 0.47), 103)
+    cohort = ["scan0", "scan1", "scan1_wide", "scan2"]
+    stats = {}
+    out = work / "out_fallback"
+    cuda_build.reset_launches()
+    results = run_inference(
+        str(ct4), str(lobes4), str(out), target_size=TARGET,
+        compute_dtype="bfloat16", batch_size=B, workers=2, model=model,
+        device=DEV, stats=stats)
+    torch.cuda.synchronize()
+    launches = cuda_build.launches()
+    check_outputs(out, results, cohort,
+                  {u: (wide if u == "scan1_wide" else shape) for u in cohort})
+    check(stats["host_scans"] == ["scan1_wide"],
+          f"fallback host scans {stats['host_scans']}")
+    nb = stats["batches"]      # 2 device-path batches (one with the dummy)
+    check(nb == 3, f"fallback: {nb} batches, expected 2 device + 1 host")
+    check(launches == {k: PER_BATCH.get(k, 0) * nb for k in launches},
+          f"fallback launches {launches} for {nb} batches")
+    total.update(launches)
+    frac = max(abs(a - b) for uid in uids for a, b in
+               zip(stats["fractions"][uid], default_fractions[uid]))
+    check(frac < 5e-3, f"fallback device-path fractions |d| {frac}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"fallback at pad_shape (160, 288, 384): host scans "
+          f"{stats['host_scans']} (crop wider than 384 columns), the other "
+          f"3 on the device path (fractions |d| {frac:.2e} vs phase 4); "
+          f"results in cohort order {[r['entity'] for r in results]}; "
+          f"launches " + ", ".join(f"{k} {v}" for k, v in launches.items()
+                                   if v)
+          + f" over {nb} batches; peak device memory of phase 4d "
+          f"{peak / 2 ** 30:.2f} GiB")
+    return total, host_rate
 
 
 def write_archive(root: Path, shape=(180, 320, 320)):
@@ -1008,11 +1284,13 @@ def phase_train_small(mode: str = "roll"):
                 fc.bias.fill_(-1.5)
         model.to(dev)
         if mode == "roll":
-            want = {"conv3x3x3_affine": 14, "conv3x3x3_wgrad": 7}
+            want = {"conv3x3x3_affine": 14, "conv3x3x3_wgrad": 7,
+                    "masked_sums": 1}
         else:
             n = len(mode_conv_sites(model, mode, B, size, torch.float32))
             check(n > 0, f"no {mode} site at {size}")
-            want = {"conv3x3x3_affine": n, "conv3x3x3_wgrad": 0}
+            want = {"conv3x3x3_affine": n, "conv3x3x3_wgrad": 0,
+                    "masked_sums": 1}
         step = make_reg_train_step(model, make_optimizer(model.parameters()),
                                    augment=False)
         blocks.set_conv3d_mode(mode)
@@ -1100,7 +1378,8 @@ def phase_train_pallas(work: Path):
     n = len(clock.steps)
     check(n == 2 and len(losses) == n, f"{n} pallas-mode train steps")
     want = {**{k: 0 for k in launches},
-            "conv3x3x3_affine": PALLAS_PER_TRAIN_STEP}
+            "conv3x3x3_affine": PALLAS_PER_TRAIN_STEP,
+            "masked_sums": PER_TRAIN_STEP["masked_sums"]}
     for i, m in enumerate(losses):
         per = {k: clock.launches[i + 1][k] - clock.launches[i][k]
                for k in launches}
@@ -1112,7 +1391,8 @@ def phase_train_pallas(work: Path):
     wall = clock.wall_ms()
     split = clock.breakdown(n - 1)
     print(f"launches per train step (both): conv3x3x3_affine "
-          f"{PALLAS_PER_TRAIN_STEP} (all pallas_conv3d), no D, B, C or E; "
+          f"{PALLAS_PER_TRAIN_STEP} (all pallas_conv3d), masked_sums 1, no "
+          f"D, B, C or E; "
           f"step ms (loader to loader) " + ", ".join(f"{t:.1f}" for t in wall)
           + "; last step split (ms): " + ", ".join(
               f"{k} {v:.1f}" for k, v in split.items())
@@ -1126,10 +1406,11 @@ def main():
     summary = phase_kernels()
     summary["conv3x3x3_wgrad"], _ = phase_train_kernels()
     summary.update(phase_mode_kernels())
+    summary["masked_sums"] = phase_masked_sums()
     main_launches, main_ops = Counter(), Counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        model, scan_dir, lobe_dir, launches, stage, rate, results = \
-            phase_main_path(Path(tmp))
+        model, scan_dir, lobe_dir, launches, stage, rate, results, \
+            fractions = phase_main_path(Path(tmp))
         main_launches.update(launches)
         phase_small_reference()
         launches, ops = phase_modes(model, scan_dir, lobe_dir, Path(tmp),
@@ -1137,6 +1418,9 @@ def main():
         main_launches.update(launches)
         main_ops.update(ops)
         phase_bf16_vs_f32(model, scan_dir, lobe_dir)
+        launches, host_rate = phase_host_path(model, scan_dir, lobe_dir,
+                                              Path(tmp), fractions)
+        main_launches.update(launches)
         del model
         torch.cuda.empty_cache()
         work = Path(tmp) / "train"
@@ -1161,15 +1445,17 @@ def main():
             "bound_by": ("bytes" if s["bytes_ms"] >= s["ops_ms"]
                          else "operations"),
             "library_ms": s["library_ms"]})
-    print(f"card: {card}; main path {rate:.3f} scans/s; training "
+    print(f"card: {card}; main path {rate:.3f} scans/s, host path "
+          f"{host_rate:.3f} scans/s; training "
           f"{train['step_ms']:.1f} ms per B=2 bf16 step "
           f"({train['volumes_s']:.3f} volumes/s, peak "
           f"{train['peak_gib']:.2f} GiB); pallas-mode training "
           f"{pallas_train['step_ms']:.1f} ms for its second step (peak "
           f"{pallas_train['peak_gib']:.2f} GiB); launches are the main paths' "
-          f"(phases 4, 4c, 6, 6c); kernel ms per B=2 bf16 forward (A, B, C, "
-          f"E: default or quad path; the conv-mode ops: their mode's "
-          f"forward) or train step (D), summed over the sites")
+          f"(phases 4, 4c, 4d, 6, 6c); kernel ms per B=2 bf16 forward (A, B, "
+          f"C, E: default or quad path; the conv-mode ops: their mode's "
+          f"forward), train step (D) or device-path batch (F, float32 "
+          f"maps), summed over the sites")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

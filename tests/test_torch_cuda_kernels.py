@@ -18,8 +18,12 @@ import torch
 from bodyct_dram_emph_subtype_tpu_torch.ops import cuda_build
 from bodyct_dram_emph_subtype_tpu_torch.ops.layer1_kernel import (
     fused_layer1, fused_pool_layer1)
+from bodyct_dram_emph_subtype_tpu_torch.ops.masked_pool import \
+    lung_masked_fraction
 from bodyct_dram_emph_subtype_tpu_torch.ops.maxpool_kernel import (
     max_pool_k3s2p1, max_pool_k3s2p1_plain)
+from bodyct_dram_emph_subtype_tpu_torch.ops.pallas_kernels import (
+    masked_sums, masked_sums_plain, masked_sums_splits)
 from bodyct_dram_emph_subtype_tpu_torch.ops.roll_conv import (
     conv3x3x3_dgrad_plain, conv3x3x3_wgrad, conv3x3x3_wgrad_plain,
     roll_conv_affine_relu, roll_conv_affine_relu_plain,
@@ -269,3 +273,56 @@ def test_stem_pool_kernel_matches_plain(dev, dtype, shape):
     for got, ref in ((stem, ref_stem), (pooled, ref_pooled)):
         assert got.dtype == dtype and got.shape == ref.shape
         _assert_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((3, 5, 7, 9, 3), torch.float32),       # ragged, C = 3: the generic loop
+    ((2, 5, 7, 9, 2), torch.float32),       # odd voxel count: generic loop
+    ((1, 4, 6, 8, 1), torch.float32),       # C = 1, 16-byte loads
+    ((2, 4, 6, 8, 4), torch.bfloat16),      # C = 4, cast to float32 first
+    ((2, 32, 56, 72, 2), torch.float32),    # C = 2, many voxel ranges
+    ((1, 16, 28, 36, 5), torch.float32),    # many ranges, generic loop
+])
+def test_masked_sums_kernel_matches_plain(dev, shape, dtype):
+    """Kernel F against its plain version: the masked sums within 1e-5
+    relative of a float64 sum (both are float32 sums, in other orders), the
+    lung sums equal to the count of lung voxels, and the same bits on a
+    second run."""
+    rng = np.random.RandomState(9)
+    dense = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(
+        dev, dtype)
+    lung = torch.from_numpy(
+        (rng.rand(*shape[:4], 1) > 0.4).astype(np.float32)).to(dev)
+    before = cuda_build.launches()["masked_sums"]
+    num, den = masked_sums(dense, lung)
+    num2, den2 = masked_sums(dense, lung)
+    torch.cuda.synchronize()
+    assert cuda_build.launches()["masked_sums"] == before + 2
+    assert torch.equal(num, num2) and torch.equal(den, den2)
+    ref = (dense.double() * lung.double()).sum((1, 2, 3))
+    for got in (num, masked_sums_plain(dense, lung)[0]):
+        assert got.dtype == torch.float32 and got.shape == ref.shape
+        assert ((got.double() - ref).abs() / ref.abs()).max().item() <= 1e-5
+    assert torch.equal(den.double(), lung.double().sum((1, 2, 3, 4)))
+    if shape[1] >= 16:
+        assert masked_sums_splits(shape[0], int(np.prod(shape[1:4]))) > 1
+
+
+@pytest.mark.parametrize("lung_shape", [(2, 8, 12, 16, 1), (2, 16, 24, 32, 1)])
+def test_lung_masked_fraction_backward_on_the_card(dev, lung_shape):
+    """The fraction and its gradient with respect to ``dense`` on the card
+    (kernel F forward, PyTorch backward) against the CPU, at the dense
+    resolution and through the nearest resize."""
+    rng = np.random.RandomState(10)
+    dense = rng.rand(2, 8, 12, 16, 2).astype(np.float32)
+    lung = (rng.rand(*lung_shape) > 0.3).astype(np.float32)
+    cot = rng.randn(2, 2).astype(np.float32)
+    out = {}
+    for d in ("cpu", dev):
+        x = torch.from_numpy(dense).to(d).requires_grad_()
+        y = lung_masked_fraction(x, torch.from_numpy(lung).to(d), eps=1e-3)
+        (y * torch.from_numpy(cot).to(d)).sum().backward()
+        out[str(d)] = (y.detach().cpu(), x.grad.cpu())
+    (y_cpu, g_cpu), (y_gpu, g_gpu) = out["cpu"], out[str(dev)]
+    torch.testing.assert_close(y_gpu, y_cpu, rtol=1e-5, atol=0)
+    torch.testing.assert_close(g_gpu, g_cpu, rtol=1e-6, atol=0)
