@@ -2,9 +2,10 @@
 
 The sources under ``csrc/`` (``conv3x3x3.cu``: kernels A and B;
 ``maxpool3d.cu``: C; ``conv3x3x3_wgrad.cu``: D; ``stem_pool.cu``: E;
-``masked_sums.cu``: F, the lung-masked sums; every ``*.cu`` there is
-compiled, and ``pyproject.toml`` ships them as package data) have a plain
-C interface.  At first use they
+``masked_sums.cu``: F, the lung-masked sums; the headers ``common.cuh``
+and ``mma_bf16.cuh``, the bf16 tensor-core loop of A, B and D; every
+``*.cu`` there is compiled, and ``pyproject.toml`` ships them as package
+data) have a plain C interface.  At first use they
 are compiled with ``nvcc`` for ``sm_90a`` into ONE shared library under
 ``build/kernels/`` (listed in ``.gitignore``), whose file name carries a
 hash of the sources and flags, and loaded with :mod:`ctypes`.  A checkout

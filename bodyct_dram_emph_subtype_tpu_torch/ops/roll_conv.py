@@ -32,8 +32,17 @@ Counterpart of ``bodyct_dram_emph_subtype_tpu/ops/roll_conv.py``:
 All take logical NDHWC activations and (3,3,3,C,O) weights — the JAX
 kernels' W-pair packed layout and per-packed-channel vectors are a TPU
 lane layout; ``pack_w``/``unpack_w`` and ``jnp.tile(v, 2)`` map one onto
-the other.  What bounds the kernels on the H100 and how they are built is
-in the CUDA source's header.
+the other.
+
+Kernels A, B and D are bound by arithmetic.  In bfloat16 they run on the
+tensor cores: one main loop (``csrc/mma_bf16.cuh``) of ``mma.sync``
+m16n8k16 with float32 accumulators, fed by a 4-stage ``cp.async`` ring
+in K steps of :data:`MMA_BK` elements; A and B tile the output in 128
+voxels by :func:`conv_tile_n` channels, D tiles 27*C rows by O columns in
+:data:`WGRAD_ROWS` x :data:`WGRAD_COLS` over :func:`wgrad_splits` voxel
+ranges.  In float32 they run an FMA loop on the CUDA cores (the tensor
+cores would round float32 operands to TF32).  The CUDA sources' headers
+say more.
 
 A wrapper given a CPU tensor runs the plain PyTorch version beside it
 (``*_plain``, built on ``F.conv3d``); given a CUDA tensor it launches the
@@ -49,10 +58,15 @@ import torch.nn.functional as F
 
 from . import cuda_build
 
-HEADS_MAX_OUT = 64      # kernel B keeps one block's O channels: O <= BN
-HEADS_MAX = 8           # kernel B's kMaxHeads
-WGRAD_ROWS, WGRAD_COLS, WGRAD_K = 128, 64, 16   # kernel D's block tile
-WGRAD_TARGET_BLOCKS = 4 * 132                   # 4 blocks per H100 SM
+# The CUDA sources' tile constants (tests/test_torch_conv_tile_plan.py
+# holds these against the constexpr values there).
+MMA_BK, MMA_STAGES = 32, 4       # mma_bf16.cuh: K step, cp.async ring depth
+CONV_TILE_M = 128                # kernels A, B: output voxels per block
+CONV_TILE_N_SMALL, CONV_TILE_N_LARGE = 64, 128   # output channels per block
+HEADS_MAX_OUT = CONV_TILE_N_SMALL  # kernel B keeps O in one column tile
+HEADS_MAX = 8                    # kernel B's kMaxHeads
+WGRAD_ROWS, WGRAD_COLS, WGRAD_K = 128, 64, 32   # kernel D's block tile
+WGRAD_TARGET_BLOCKS = 2 * 132    # one wave at 2 blocks per H100 SM
 
 
 def _dtype_code(t: torch.Tensor) -> int:
@@ -254,12 +268,31 @@ def conv3x3x3_dgrad(g: torch.Tensor, kernel: torch.Tensor,
     return _identity_a(g, kt, dilation)
 
 
+def conv_tile_n(o: int) -> int:
+    """Kernel A's output channels per block in bfloat16 (``tile_n`` in
+    ``csrc/conv3x3x3.cu``): 128 where that pads ``o`` to no more columns
+    than 64 would (O = 70, 128, 256, 512), else 64."""
+    small, large = CONV_TILE_N_SMALL, CONV_TILE_N_LARGE
+    fits = -(-o // large) * large == -(-o // small) * small
+    return large if o > small and fits else small
+
+
 def wgrad_splits(m: int, c: int, o: int) -> int:
-    """Kernel D's number S of voxel ranges for ``m`` voxels: enough blocks
-    for about four per SM, at least 4 K steps per range."""
+    """Kernel D's number S of voxel ranges for ``m`` voxels: as many as
+    fill one wave of :data:`WGRAD_TARGET_BLOCKS` blocks without starting a
+    second, at least 4 K steps per range."""
     tiles = -(-27 * c // WGRAD_ROWS) * -(-o // WGRAD_COLS)
-    return max(1, min(-(-WGRAD_TARGET_BLOCKS // tiles),
+    return max(1, min(WGRAD_TARGET_BLOCKS // tiles,
                       -(-m // (4 * WGRAD_K)), 65535))
+
+
+def wgrad_chunk(m: int, splits: int) -> int:
+    """Voxels per range of kernel D's ``splits`` ranges over ``m`` voxels,
+    a multiple of the K step (``launch_wgrad`` in
+    ``csrc/conv3x3x3_wgrad.cu``); the last ranges may be short or
+    empty."""
+    per = -(-m // splits)
+    return -(-per // WGRAD_K) * WGRAD_K
 
 
 def conv3x3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

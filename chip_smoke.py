@@ -8,7 +8,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 1. environment — torch/CUDA versions, the card's name and power limit;
    TF32 off for cuDNN convs and matmuls (float32 references stay float32);
 2. build — ``nvcc`` compiles ``bodyct_dram_emph_subtype_tpu_torch/csrc``
-   for sm_90a (cached under ``build/kernels`` by source hash);
+   for sm_90a (cached under ``build/kernels`` by source hash) and prints,
+   from ``ptxas -v``, each kernel's registers, spill bytes and static
+   shared memory, with the dynamic shared memory of the bf16 tensor-core
+   instantiations (``*_mma_kernel``: the cp.async ring and the float32
+   sums);
 3. kernels vs their plain PyTorch versions at every deployment site shape
    of the med3ddram forward (B=2, 128x224x288 input), float32 and
    bfloat16, plus one small ragged shape each: max/mean |delta| against the
@@ -110,10 +114,13 @@ conv or pool (cuDNN ``F.conv3d``, its ``conv3d_input`` / ``conv3d_weight``
 gradients, ``F.max_pool3d``; for E the route it replaces, cuDNN stem conv
 + BN/ReLU + kernel C), timed with TF32 allowed; for F ``torch.bmm`` of the
 lung row and the maps, TF32 off, which gives the masked sums but not the
-lung sum; and the bound: the larger
+lung sum; the bound: the larger
 of the bytes read and written once over 3.35 TB/s and the conv's FLOPs
 over the dtype's peak (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s float32
-CUDA cores; NVIDIA's H100 SXM data sheet).
+CUDA cores; NVIDIA's H100 SXM data sheet); the achieved TFLOP/s (GB/s
+where there are no FLOPs) and the share of the bound that the kernel's
+time reaches; and for kernel A in bf16 its block tile (128 voxels by
+``conv_tile_n(O)`` channels).
 
 The line before the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -158,10 +165,11 @@ from bodyct_dram_emph_subtype_tpu_torch.ops.preprocess import \
 from bodyct_dram_emph_subtype_tpu_torch.models.resnet3d import (
     mode_conv_sites, train_roll_site_shapes)
 from bodyct_dram_emph_subtype_tpu_torch.ops.roll_conv import (
-    conv3x3x3_dgrad, conv3x3x3_dgrad_plain, conv3x3x3_f32, conv3x3x3_wgrad,
-    conv3x3x3_wgrad_plain, identity_conv3d, roll_conv_affine_relu,
-    roll_conv_affine_relu_plain, roll_conv_heads_sigmoid,
-    roll_conv_heads_sigmoid_plain, roll_conv_packed)
+    CONV_TILE_M, CONV_TILE_N_LARGE, CONV_TILE_N_SMALL, MMA_BK, MMA_STAGES,
+    WGRAD_COLS, WGRAD_ROWS, conv3x3x3_dgrad, conv3x3x3_dgrad_plain,
+    conv3x3x3_f32, conv3x3x3_wgrad, conv3x3x3_wgrad_plain, conv_tile_n,
+    identity_conv3d, roll_conv_affine_relu, roll_conv_affine_relu_plain,
+    roll_conv_heads_sigmoid, roll_conv_heads_sigmoid_plain, roll_conv_packed)
 from bodyct_dram_emph_subtype_tpu_torch.ops.stem_kernel import (
     fused_stem_pool, fused_stem_pool_plain)
 from bodyct_dram_emph_subtype_tpu_torch.train.loop import (SubtypeTrainer,
@@ -308,14 +316,75 @@ def phase_environment():
     return card
 
 
+def ptxas_kernels(log: str):
+    """[(entry name, registers, spill store bytes, spill load bytes, static
+    shared bytes)] from ``nvcc -Xptxas -v`` output."""
+    out, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append((name, int(m.group(1)), *spills,
+                        int(smem.group(1)) if smem else 0))
+            name = None
+    return out
+
+
+def demangled(names):
+    """``names`` through the toolkit's cu++filt, where there is one."""
+    tool = Path(cuda_build._nvcc()).with_name("cu++filt")
+    if not tool.exists():
+        return list(names)
+    res = subprocess.run([str(tool)], input="\n".join(names),
+                         capture_output=True, text=True, timeout=60)
+    got = res.stdout.splitlines()
+    return got if res.returncode == 0 and len(got) == len(names) \
+        else list(names)
+
+
+def dynamic_smem(name: str):
+    """Dynamic shared memory of a tensor-core instantiation (the mirror in
+    ``ops/roll_conv.py``): the cp.async ring of ``csrc/mma_bf16.cuh`` and,
+    except in kernel A's 128-column tile, one float32 sum per accumulator
+    (``WarpTile::promote``)."""
+    if "wgrad_mma_kernel" in name:
+        cols, rows, sums = WGRAD_COLS, WGRAD_ROWS, True
+    elif "conv3x3x3_mma_kernel" in name:
+        wide = "<128" in name or "ILi128E" in name      # demangled or not
+        cols = CONV_TILE_N_LARGE if wide else CONV_TILE_N_SMALL
+        rows, sums = CONV_TILE_M, not wide
+    else:
+        return 0
+    return MMA_STAGES * (rows + cols) * MMA_BK * 2 + \
+        (rows * cols * 4 if sums else 0)
+
+
 def phase_build():
     print("== phase 2: build")
     t0 = time.perf_counter()
     cuda_build.library()
     info = cuda_build.build_info()
-    for line in info.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    kernels = ptxas_kernels(info.log)
+    for (_, regs, st, ld, smem), name in zip(
+            kernels, demangled([k[0] for k in kernels])):
+        dyn = dynamic_smem(name)
+        print(f"  ptxas: {name}: {regs} registers, spill stores {st} B, "
+              f"spill loads {ld} B, static smem {smem} B"
+              + (f", dynamic smem {dyn} B" if dyn else ""))
+    new = [k for k in kernels if "mma_kernel" in k[0]]
+    print(f"  {len(new)} tensor-core instantiations (mma_kernel), "
+          f"{sum(1 for k in new if k[2] or k[3])} of them spill; "
+          f"{len(kernels)} kernels in all")
+    check(len(new) > 0 or info.cached, "no tensor-core kernel in the build")
     print(f"kernels built with nvcc for sm_90a in {info.seconds:.1f} s "
           f"({'cached' if info.cached else 'compiled'}; load "
           f"{time.perf_counter() - t0:.1f} s): {info.path.name}")
@@ -349,7 +418,8 @@ def timed(kernel, plain, library, dtype, moved, flops, flush=None):
          "ops_ms": flops / PEAK_OPS[dtype] * 1e3}
     r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
     r["rate"] = (f"{flops / r['ms'] / 1e9:.1f} TFLOP/s" if flops else
-                 f"{moved / r['ms'] / 1e6:.0f} GB/s")
+                 f"{moved / r['ms'] / 1e6:.0f} GB/s") \
+        + f", {100 * r['bound_ms'] / r['ms']:.1f}% of bound"
     return r
 
 
@@ -375,6 +445,13 @@ def cudnn_weight(k, dtype):
 def cudnn_conv(x, w, **kw):
     """cuDNN conv of NDHWC ``x`` (a channels-last NCDHW view)."""
     return F.conv3d(x.permute(0, 4, 1, 2, 3), w, **kw)
+
+
+def tile(o, dtype):
+    """Kernel A's block tile at ``o`` output channels, in bf16 (float32
+    runs the CUDA-core loop's 128 x 64)."""
+    return (f" tile {CONV_TILE_M}x{conv_tile_n(o)}" if dtype == torch.bfloat16
+            else "")
 
 
 def report(kernel, site, dname, shape, delta, ratio, btxt, r, extra=""):
@@ -473,18 +550,19 @@ def phase_kernels():
     summary = {k: new_summary() for k in ("conv3x3x3_affine",
                                           "conv3x3x3_heads_sigmoid",
                                           "max_pool3d_k3s2p1")}
-    runs = ([("conv3x3x3_affine", s[0], s[1], s[4],
+    runs = ([("conv3x3x3_affine", s[0], s[1], s[4], s[2],
               lambda dt, s=s: compare_a(gen, *s[1:4], dt)) for s in A_SITES]
-            + [("conv3x3x3_heads_sigmoid", s[0], s[1], s[4],
+            + [("conv3x3x3_heads_sigmoid", s[0], s[1], s[4], s[2],
                 lambda dt, s=s: compare_b(gen, *s[1:4], dt)) for s in B_SITES]
-            + [("max_pool3d_k3s2p1", s[0], s[1], s[2],
+            + [("max_pool3d_k3s2p1", s[0], s[1], s[2], None,
                 lambda dt, s=s: compare_c(gen, s[1], dt))
                for s in C_SITES])
-    for kernel, site, shape, count, run in runs:
+    for kernel, site, shape, count, o, run in runs:
         for dtype in (torch.float32, torch.bfloat16):
             delta, ratio, btxt, r = run(dtype)
             dname = "f32" if dtype == torch.float32 else "bf16"
-            report(kernel, site, dname, shape, delta, ratio, btxt, r)
+            report(kernel, site, dname, shape, delta, ratio, btxt, r,
+                   tile(o, dtype) if o else "")
             accumulate(summary[kernel], delta, r, count, dtype)
             del delta
             torch.cuda.empty_cache()
@@ -546,14 +624,15 @@ def phase_train_kernels():
         count = 0 if site == "ragged" else 1
         for dtype in (torch.float32, torch.bfloat16):
             dname = "f32" if dtype == torch.float32 else "bf16"
-            for kernel, run, acc in (
-                    ("conv3x3x3_wgrad", compare_d, wgrad),
-                    ("dgrad(conv3x3x3_affine)", compare_dgrad, dgrad),
+            for kernel, run, acc, cols in (
+                    ("conv3x3x3_wgrad", compare_d, wgrad, None),
+                    ("dgrad(conv3x3x3_affine)", compare_dgrad, dgrad,
+                     shape[-1]),
                     ("fwd(roll_conv_packed)", compare_packed_forward,
-                     fwd)):
+                     fwd, o)):
                 delta, ratio, btxt, r = run(gen, shape, o, dtype)
                 report(kernel, site, dname, shape, delta, ratio, btxt, r,
-                       f" O={o:<3d}")
+                       f" O={o:<3d}" + (tile(cols, dtype) if cols else ""))
                 accumulate(acc, delta, r, count, dtype)
                 del delta
                 torch.cuda.empty_cache()
@@ -654,7 +733,7 @@ def phase_mode_kernels():
             dname = "f32" if dtype == torch.float32 else "bf16"
             where = ",".join(f"{m}x{n}" for m, n in counts.items()) or "-"
             report("identity A", name, dname, shape, delta, ratio, btxt, r,
-                   f" O={o:<3d} d={d} [{where}]")
+                   f" O={o:<3d} d={d} [{where}]" + tile(o, dtype))
             for mode, op in MODES.items():
                 accumulate(summary[op], delta, r, counts[mode], dtype)
             del delta

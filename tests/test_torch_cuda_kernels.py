@@ -28,7 +28,8 @@ from bodyct_dram_emph_subtype_tpu_torch.ops.roll_conv import (
     conv3x3x3_dgrad_plain, conv3x3x3_wgrad, conv3x3x3_wgrad_plain,
     roll_conv_affine_relu, roll_conv_affine_relu_plain,
     roll_conv_heads_sigmoid, roll_conv_heads_sigmoid_plain,
-    identity_conv3d, roll_conv_packed, wgrad_splits)
+    identity_conv3d, roll_conv_packed, wgrad_chunk, wgrad_splits, MMA_BK,
+    MMA_STAGES, WGRAD_K)
 from bodyct_dram_emph_subtype_tpu_torch.ops.stem_kernel import (
     fused_stem_pool, fused_stem_pool_plain)
 
@@ -326,3 +327,102 @@ def test_lung_masked_fraction_backward_on_the_card(dev, lung_shape):
     (y_cpu, g_cpu), (y_gpu, g_gpu) = out["cpu"], out[str(dev)]
     torch.testing.assert_close(y_gpu, y_cpu, rtol=1e-5, atol=0)
     torch.testing.assert_close(g_gpu, g_cpu, rtol=1e-6, atol=0)
+
+
+# The bf16 tensor-core loop (csrc/mma_bf16.cuh) and the float32 FMA loop
+# at the edges of their tiles: a K step of MMA_BK channels, 128 output
+# voxels by 64 or 128 channels per block, a ring of MMA_STAGES steps.
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,o,residual,relu,dilation", [
+    ((1, 5, 6, 7, 24), 40, False, True, 1),    # C = 24, 40: multiples of 8,
+    ((1, 4, 7, 9, 40), 24, True, True, 1),     # not of the K step
+    ((1, 3, 5, 9, 16), 136, True, False, 1),   # O = 136: 3 column tiles
+    ((2, 3, 5, 7, 32), 13, False, False, 1),   # O = 13, M = 210
+    ((1, 5, 7, 9, 24), 70, True, True, 2),     # ragged, dilated, 128 columns
+    ((1, 6, 5, 11, 20), 16, False, True, 4),   # scalar gathers, dilation 4
+    ((1, 4, 6, 8, 64), 128, True, True, 1),    # the 128-column tile
+    ((1, 2, 9, 13, 576), 64, True, True, 1),   # 18 K steps per tap: 486 in
+])                                             # all wrap the ring 121 times
+def test_conv_affine_kernel_tile_edges(dev, dtype, shape, o, residual, relu,
+                                       dilation):
+    """Kernel A against its plain version at every masked edge of its
+    tiles, in kernel A's bounds: f32 2e-5 of the peak, bf16 2 ulps."""
+    rng = np.random.RandomState(11)
+    c = shape[-1]
+    x = _t(rng, shape, dev, 0.5, dtype)
+    k = _t(rng, (3, 3, 3, c, o), dev, 0.1)
+    sc = _t(rng, (o,), dev).abs() + 0.5
+    sh = _t(rng, (o,), dev, 0.1)
+    res = _t(rng, shape[:4] + (o,), dev, 0.5, dtype) if residual else None
+    assert 27 * -(-c // MMA_BK) > MMA_STAGES
+    before = cuda_build.launches()["conv3x3x3_affine"]
+    got = roll_conv_affine_relu(x, k, sc, sh, residual=res, relu=relu,
+                                dilation=dilation)
+    torch.cuda.synchronize()
+    assert cuda_build.launches()["conv3x3x3_affine"] == before + 1
+    ref = roll_conv_affine_relu_plain(x, k, sc, sh, res, relu, dilation)
+    assert got.dtype == dtype and got.shape == ref.shape
+    _assert_close(got, ref, dtype)
+
+
+def _wgrad_splits_of(x, g, splits):
+    """Kernel D through its C entry point with ``splits`` voxel ranges of
+    ``wgrad_chunk`` voxels each (the wrapper picks its own)."""
+    b, d, h, w, c = x.shape
+    o = g.shape[-1]
+    out = torch.empty((3, 3, 3, c, o), dtype=torch.float32, device=x.device)
+    ws = torch.empty((splits, 27 * c, o), dtype=torch.float32,
+                     device=x.device)
+    code = 0 if x.dtype == torch.float32 else 1
+    err = cuda_build.library().conv3x3x3_wgrad(
+        code, x.data_ptr(), g.data_ptr(), ws.data_ptr(), out.data_ptr(),
+        b, d, h, w, c, o, splits,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check(err, "conv3x3x3_wgrad")
+    return out
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,o,splits", [
+    ((2, 5, 7, 9, 20), 13, 30),    # 20 ranges of one step (the last 22
+                                   # voxels), 10 empty; ragged C and O
+    ((1, 4, 6, 10, 64), 32, 7),    # ranges of 2 steps, shorter than the
+                                   # ring; the last 3 empty
+    ((1, 3, 5, 7, 40), 24, 200),   # more ranges than voxels
+])
+def test_wgrad_kernel_short_and_empty_ranges(dev, dtype, shape, o, splits):
+    """Kernel D with voxel ranges shorter than its ring, some of them empty
+    (the first and last cases: more ranges than K steps): short ranges stop
+    at their end, empty ones write zero partials; within 5e-5 of the peak
+    of its plain version and bit-equal on a second run."""
+    rng = np.random.RandomState(12)
+    m = int(np.prod(shape[:4]))
+    chunk = wgrad_chunk(m, splits)
+    assert chunk < MMA_STAGES * WGRAD_K and chunk * (splits - 1) >= m
+    x = _t(rng, shape, dev, 0.5, dtype)
+    g = _t(rng, shape[:4] + (o,), dev, 0.5, dtype)
+    got = _wgrad_splits_of(x, g, splits)
+    again = _wgrad_splits_of(x, g, splits)
+    torch.cuda.synchronize()
+    ref = conv3x3x3_wgrad_plain(x, g)
+    assert (got - ref).abs().max().item() <= 5e-5 * ref.abs().max().item()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_wgrad_kernel_wraps_the_ring(dev, dtype):
+    """Kernel D through its wrapper with voxel ranges of 9 K steps, which
+    wrap the 4-stage ring twice; bound and bit-equal rerun as above."""
+    rng = np.random.RandomState(13)
+    shape, o = (2, 8, 16, 20, 64), 64
+    m = int(np.prod(shape[:4]))
+    splits = wgrad_splits(m, shape[-1], o)
+    assert wgrad_chunk(m, splits) > 2 * MMA_STAGES * WGRAD_K
+    x = _t(rng, shape, dev, 0.5, dtype)
+    g = _t(rng, shape[:4] + (o,), dev, 0.5, dtype)
+    got = conv3x3x3_wgrad(x, g)
+    again = conv3x3x3_wgrad(x, g)
+    torch.cuda.synchronize()
+    ref = conv3x3x3_wgrad_plain(x, g)
+    assert (got - ref).abs().max().item() <= 5e-5 * ref.abs().max().item()
+    assert torch.equal(got, again)
