@@ -16,9 +16,10 @@ The 3-D conv lowering mode (:func:`set_conv3d_mode`, read from
 JAX package's ``direct``) picks the kernels, as ``conv3d_apply`` does in
 the JAX package (blocks.py:150-234):
 
-- ``roll``: the kernel sites are chosen per module (fused layer1 stacks,
-  decoder stages and heads on kernels A/B/C, ``roll_conv_packed`` in
-  training); :func:`conv3d_apply` sends every other conv to cuDNN.
+- ``roll``: the kernel sites are chosen per module (fused layer1 stacks
+  on kernels A/C, ``roll_conv_packed`` for layer1 in training, and for the
+  packed decoder its stages and heads on kernels A/B, ``roll_conv_packed``
+  in training); :func:`conv3d_apply` sends every other conv to cuDNN.
 - ``pallas``, ``tapmm``, ``flat``: :func:`conv3d_apply` sends each
   stride-1 3^3 conv whose JAX gate passes (``ops/pallas_conv.py``,
   ``tap_conv.py``, ``flat_conv.py``) to kernel A, every other conv to
@@ -183,9 +184,9 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm3d) -> torch.Tensor:
 
 def decoder_conv(x: torch.Tensor, conv: nn.Conv3d,
                  packed: bool) -> torch.Tensor:
-    """A decoder conv outside conv mode ``roll``: the packed decoder's
-    convs go to cuDNN whatever the mode, the unpacked decoder's through
-    :func:`conv3d_apply`."""
+    """A decoder conv off the kernels (:func:`decoder_kernels` false): the
+    packed decoder's convs go to cuDNN, the unpacked decoder's through
+    :func:`conv3d_apply` (cuDNN too under ``roll``)."""
     return conv3d_ndhwc(x, conv) if packed else conv3d_apply(x, conv)
 
 
@@ -330,16 +331,28 @@ def crop_concat(t1: torch.Tensor, t2: torch.Tensor) -> torch.Tensor:
     return torch.cat([t1, t2[tuple(slices)]], dim=-1)
 
 
+def decoder_kernels(packed: bool) -> bool:
+    """True where a decoder stage runs on the kernels: the packed decoder
+    under conv mode ``roll``, as the JAX package takes its roll kernels
+    only in the packed decoder (``packed.py::PackedConv3``,
+    ``packed_stage``); its unpacked decoder runs ``conv3d_apply``, which
+    under ``roll`` is the XLA conv (blocks.py:159-166)."""
+    return packed and _CONV3D_MODE == "roll"
+
+
 class UpsampleConvBlock(nn.Module):
     """x2 trilinear (align_corners=True) upsample as interpolation-matrix
     products + crop-concat + conv-BN-ReLU stages (``med3d.py:50-89``).
-    Under conv mode ``roll`` each eval stage is one launch of kernel A with
-    the conv bias and eval BN folded into its epilogue
+    For the packed decoder under conv mode ``roll``
+    (:func:`decoder_kernels`) each eval stage is one launch of kernel A
+    with the conv bias and eval BN folded into its epilogue
     (``packed.py::packed_stage``), and each training stage is
-    ``roll_conv_packed`` + bias, train BN, ReLU.  In the other modes a
-    stage is conv, BN, ReLU with the conv through :func:`conv3d_apply`,
-    or, for the packed decoder (``packed``: ``PackedConv3`` calls XLA's
-    conv outside ``roll``, packed.py:318-328), on cuDNN."""
+    ``roll_conv_packed`` + bias, train BN, ReLU.  Otherwise a stage is
+    conv, BN, ReLU with the JAX unpacked rounding chain, the conv through
+    :func:`conv3d_apply` (cuDNN under ``roll``; kernel A where a conv
+    mode's gate passes) or, for the packed decoder outside ``roll``
+    (``PackedConv3`` calls XLA's conv there, packed.py:318-328), on
+    cuDNN."""
 
     def __init__(self, in_chs: int, base_chs: Sequence[int] = (64, 64),
                  scale_factor: int = 2):
@@ -360,11 +373,11 @@ class UpsampleConvBlock(nn.Module):
         up = resize_linear_matmul(inputs, (d * s, h * s, w * s), (1, 2, 3),
                                   align_corners=True).to(inputs.dtype)
         x = crop_concat(up, cats.to(inputs.dtype)).contiguous()
-        roll = _CONV3D_MODE == "roll"
-        if self.training or not roll:
+        kernels = decoder_kernels(packed)
+        if self.training or not kernels:
             bn_fn = batch_norm_train if self.training else affine
             for conv, bn, _ in self.conv_blocks:
-                y = (roll_conv_bias(x, conv) if roll
+                y = (roll_conv_bias(x, conv) if kernels
                      else decoder_conv(x, conv, packed))
                 x = torch.relu(bn_fn(y, bn))
             return x

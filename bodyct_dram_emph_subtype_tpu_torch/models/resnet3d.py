@@ -13,15 +13,22 @@ Module names equal the reference checkpoint's keys (``conv1``, ``bn1``,
 ``fcs.i``), so a reference ``best.ckpt`` state dict (``model.`` prefix
 stripped) loads with ``load_state_dict`` (``models/torch_import.py``).
 
-``forward`` dispatches on ``self.training`` and on the conv mode
-(``blocks.set_conv3d_mode``).  The eval kernel sites under ``roll`` (the
-port's default; always taken on a CUDA tensor, plain versions on CPU;
-:func:`roll_eval_sites`):
+``forward`` dispatches on ``self.training``, on the conv mode
+(``blocks.set_conv3d_mode``) and on ``packed_decoder``, as the JAX model
+routes (``resnet3d.py:96-118, 160-245, 399-402``, ``packed.py``).  The
+eval kernel sites under ``roll`` (the port's default; taken on a CUDA
+tensor, plain versions on CPU; :func:`roll_eval_sites`):
 
-- stem max-pool + layer1 -> ``fused_pool_layer1`` (kernel C + 6 x A),
-- layer2 blocks 1..n-1 -> ``fused_layer1`` (6 x A),
-- us1 and us2 conv stages -> ``roll_conv_affine_relu`` (4 x A),
-- us3 + heads + sigmoid -> ``roll_conv_heads_sigmoid`` (1 x B).
+- BasicBlock archs: stem max-pool + layer1 -> ``fused_pool_layer1``
+  (kernel C + 2 x A per block), and layer2 blocks 1..n-1 ->
+  ``fused_layer1`` (2 x A per block); Bottleneck archs: the pool alone on
+  kernel C.  These trunk sites do not depend on the decoder.
+- The packed decoder only (``packed_decoder=True``, which the bf16
+  processor builds): us1 and us2 conv stages -> ``roll_conv_affine_relu``
+  (4 x A), and us3 + heads + sigmoid -> ``roll_conv_heads_sigmoid``
+  (1 x B).  The unpacked decoder (the trainers' default, the float32
+  processor) runs each stage as conv (cuDNN), eval BN and ReLU with the
+  JAX unpacked rounding chain, and unfused heads.
 
 In every mode, eval and training, the lesion fractions of both maps are
 one ``lung_masked_fraction`` call (1 x F, ``ops/pallas_kernels.py``).
@@ -31,15 +38,33 @@ With the quad stem on (``set_quad_stem_enable``, ``models/experimental.py``;
 eval, ``roll``, ``packed_decoder``) the stem conv, BN, ReLU and pool run
 as one launch of kernel E and layer1 as ``fused_layer1``.
 
-The training forward under ``roll`` follows the JAX package's train-mode
-routing (``packed_decoder=True``): every 3x3x3 conv of the layer1
-identity blocks and of us1/us2/us3 goes through ``roll_conv_packed``
-(kernel A forward and dgrad, kernel D wgrad) — :data:`TRAIN_ROLL_SITES`
-lists them — while the stem conv, layer2-4 (layer2 has stride 2, so the
-JAX package never packs it in training) and the heads run on cuDNN / ATen,
-the pool is ``F.max_pool3d`` (JAX: ``nn.max_pool``), BatchNorm uses batch
-statistics (``blocks.batch_norm_train``) and the heads are
+The training forward under ``roll`` sends through ``roll_conv_packed``
+(kernel A forward and dgrad, kernel D wgrad) the convs that the JAX train
+step sends through its kernels 6/7 (:func:`train_roll_sites`): every
+3x3x3 conv of the layer1 identity BasicBlocks, whatever the decoder, and
+the five us1/us2/us3 convs for the packed decoder only
+(:data:`TRAIN_ROLL_SITES`: med3ddram's 11).  The stem conv, layer2-4
+(layer2 has stride 2, so the JAX package never packs it in training), the
+unpacked decoder and the heads run on cuDNN / ATen, the pool is
+``F.max_pool3d`` (JAX: ``nn.max_pool``), BatchNorm uses batch statistics
+(``blocks.batch_norm_train``) and the heads are
 ``sigmoid(conv1x1(x).float())``.
+
+The JAX package gates its kernels further on TPU budgets: VMEM plans
+(``supports_fused_pool_layer1``, ``supports_fused_layer1``,
+``supports_roll_conv``, ``supports_roll_heads``,
+``supports_maxpool_pallas``) and a size floor, ``_ROLL_MIN_ELEMS``
+(``packed.py:259-295``, measured on the v5e: its roll kernels lost to XLA
+on small stages).  The port deliberately does not copy them: its kernels
+have no VMEM plan and take every shape, so where such a gate fails the
+port takes its kernels and the JAX package XLA: off the deployment shape,
+and at it for med3ddram50's us1.conv0, whose C = 2048 + 256 = 2304 input
+outgrows the roll kernel's VMEM plan.  The numbers agree within the
+calibrated bf16 bounds (``tests/test_torch_routing.py``); every other
+route is the same at the deployment shape (``tests/test_torch_routing.py``,
+``test_torch_train_sites.py``, ``test_torch_conv_mode_sites.py``).  Only
+the quad stem copies its JAX gates (``supports_fused_stem``,
+``experimental.stem_quad_supported``), as an opt-in switch.
 
 Under the conv modes ``pallas``, ``tapmm`` and ``flat`` (eval and
 training) no module-level kernel site is taken, as in the JAX package,
@@ -47,8 +72,8 @@ where every packed and fused route needs ``roll`` (``packed.py:481, 496,
 512, 527``): the pool is ``F.max_pool3d``, every block runs unpacked, the
 heads are unfused, and each 3^3 conv that the mode's JAX gate accepts runs
 on kernel A through ``blocks.conv3d_apply`` — :func:`mode_conv_sites`
-lists them.  ``packed_decoder`` matters only there: the packed decoder's
-convs go to cuDNN (``packed.py:318-328``).
+lists them.  There the packed decoder's convs go to cuDNN
+(``packed.py:318-328``).
 
 The JAX package's W-pair packing, space-to-depth stem, pair stem and
 ``remat_scopes`` are TPU layouts and knobs and are not ported.
@@ -68,50 +93,98 @@ from ..ops.roll_conv import roll_conv_heads_sigmoid
 from ..ops.stem_kernel import fused_stem_pool, supports_fused_stem
 from . import blocks
 from .blocks import (BasicBlock, UpsampleConvBlock, affine, batch_norm_train,
-                     bn_affine, conv3d_ndhwc, decoder_conv, init_weights,
-                     kernel_dhwio, max_pool3d_ndhwc, mode_conv_op,
-                     roll_conv_bias)
+                     bn_affine, conv3d_ndhwc, decoder_conv, decoder_kernels,
+                     init_weights, kernel_dhwio, max_pool3d_ndhwc,
+                     mode_conv_op, roll_conv_bias)
 from .experimental import (set_quad_stem_enable,  # noqa: F401 (re-export)
                            use_quad_stem)
 
-# The training sites of ``roll_conv_packed`` in med3ddram (resnet34segreg):
-# (module name of the conv, spatial divisor of its input against the model
-# input, C, O).  The JAX package routes exactly these through its kernels 6
-# (forward + dgrad) and 7 (wgrad, all but us3, whose 2*32 packed gradient
-# lanes go to XLA) at the deployment shape; the port sends all 11 through
-# kernels A and D.
-TRAIN_ROLL_SITES: Tuple[Tuple[str, int, int, int], ...] = tuple(
-    (f"layer1.{i}.conv{j}", 4, 64, 64) for i in range(3) for j in (1, 2)
-) + (("us1.conv_blocks.0.0", 4, 576, 64), ("us1.conv_blocks.1.0", 4, 64, 64),
-     ("us2.conv_blocks.0.0", 2, 128, 64), ("us2.conv_blocks.1.0", 2, 64, 64),
-     ("us3.0", 2, 64, 32))
+def train_roll_sites(layers: Sequence[int] = (3, 4, 6, 3),
+                     block: Type[nn.Module] = BasicBlock,
+                     packed_decoder: bool = True
+                     ) -> Tuple[Tuple[str, int, int, int], ...]:
+    """The training sites of ``roll_conv_packed`` under conv mode ``roll``:
+    (module name of the conv, spatial divisor of its input against the
+    model input, C, O).  As in the JAX train step: every 3x3x3 conv of the
+    layer1 identity BasicBlocks (``supports_packed_layer``, whatever the
+    decoder), and the five decoder convs only for the packed decoder
+    (``PackedConv3``).  The JAX package runs kernels 6 (forward + dgrad)
+    at each and kernel 7 (wgrad) at all but us3, whose 2*32 packed
+    gradient lanes go to XLA; the port sends every wgrad to kernel D."""
+    sites: Tuple[Tuple[str, int, int, int], ...] = ()
+    if block is BasicBlock:
+        sites += tuple((f"layer1.{i}.conv{j}", 4, 64, 64)
+                       for i in range(layers[0]) for j in (1, 2))
+    if packed_decoder:
+        cat = (512 + 64) * block.expansion      # layer4 + layer1 channels
+        sites += (("us1.conv_blocks.0.0", 4, cat, 64),
+                  ("us1.conv_blocks.1.0", 4, 64, 64),
+                  ("us2.conv_blocks.0.0", 2, 128, 64),
+                  ("us2.conv_blocks.1.0", 2, 64, 64), ("us3.0", 2, 64, 32))
+    return sites
 
 
-def train_roll_site_shapes(batch: int, size: Sequence[int]):
-    """``[(name, input shape (B, D, H, W, C), O)]`` of
-    :data:`TRAIN_ROLL_SITES` for a (batch, *size) model input."""
+# med3ddram (resnet34segreg) with the packed decoder: the 11 sites
+TRAIN_ROLL_SITES = train_roll_sites()
+
+
+def train_roll_site_shapes(batch: int, size: Sequence[int],
+                           sites: Sequence[Tuple[str, int, int, int]]
+                           = TRAIN_ROLL_SITES):
+    """``[(name, input shape (B, D, H, W, C), O)]`` of ``sites`` (default
+    :data:`TRAIN_ROLL_SITES`) for a (batch, *size) model input."""
     return [(name, (batch, *(s // div for s in size), c), o)
-            for name, div, c, o in TRAIN_ROLL_SITES]
+            for name, div, c, o in sites]
 
 
-def roll_eval_sites(layers: Sequence[int], quad: bool = False
+def train_roll_launches(sites: Sequence[Tuple[str, int, int, int]]
+                        ) -> Dict[str, int]:
+    """Kernel launches of one train step's ``roll_conv_packed`` sites: A
+    forward + A dgrad and one D each."""
+    return {"conv3x3x3_affine": 2 * len(sites),
+            "conv3x3x3_wgrad": len(sites)}
+
+
+def roll_eval_sites(layers: Sequence[int], quad: bool = False,
+                    packed_decoder: bool = True,
+                    block: Type[nn.Module] = BasicBlock
                     ) -> List[Tuple[str, str, Dict[str, int]]]:
-    """The kernel sites of a BasicBlock ``ResNetSegReg`` eval forward
-    under conv mode ``roll`` where every JAX gate passes (the deployment
-    shape): ``[(site, JAX kernel module, {port kernel: launches})]``, one
-    entry per JAX ``pallas_call`` site.  ``quad``: the quad stem on and
-    ``supports_fused_stem`` holding (kernel E)."""
+    """The kernel sites of a ``ResNetSegReg`` eval forward under conv mode
+    ``roll`` where every JAX shape gate passes (the deployment shape):
+    ``[(site, JAX kernel module, {port kernel: launches})]``, one entry per
+    JAX ``pallas_call`` site.  ``quad``: the quad stem on and
+    ``supports_fused_stem`` holding (kernel E).  The trunk's sites do not
+    depend on the decoder; the decoder's stages and the fused heads are
+    taken only for the packed decoder (JAX ``resnet3d.py:399-402``)."""
     a = "conv3x3x3_affine"
+    basic = block is BasicBlock
     if quad:
-        head = [("conv1+bn1+pool", "stem_kernel", {"stem_pool": 1}),
-                ("layer1", "layer1_kernel", {a: 2 * layers[0]})]
-    else:
+        head = [("conv1+bn1+pool", "stem_kernel", {"stem_pool": 1})]
+        if basic:
+            head.append(("layer1", "layer1_kernel", {a: 2 * layers[0]}))
+    elif basic:
         head = [("pool+layer1", "layer1_kernel",
                  {"max_pool3d_k3s2p1": 1, a: 2 * layers[0]})]
-    return head + [("layer2.tail", "layer1_kernel", {a: 2 * (layers[1] - 1)})] \
-        + [(f"us{i}.conv_blocks.{j}.0", "roll_conv", {a: 1})
-           for i in (1, 2) for j in (0, 1)] \
+    else:
+        head = [("stem.pool", "maxpool_kernel", {"max_pool3d_k3s2p1": 1})]
+    if basic and layers[1] > 1:
+        head.append(("layer2.tail", "layer1_kernel",
+                     {a: 2 * (layers[1] - 1)}))
+    if not packed_decoder:
+        return head
+    return head + [(f"us{i}.conv_blocks.{j}.0", "roll_conv", {a: 1})
+                   for i in (1, 2) for j in (0, 1)] \
         + [("us3+heads", "roll_conv", {"conv3x3x3_heads_sigmoid": 1})]
+
+
+def site_launches(sites: Sequence[Tuple[str, str, Dict[str, int]]]
+                  ) -> Dict[str, int]:
+    """The port's kernel launches over :func:`roll_eval_sites` ``sites``."""
+    total: Dict[str, int] = {}
+    for _, _, counts in sites:
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+    return total
 
 
 def _ceil_div(shape: Sequence[int], s: int) -> Tuple[int, ...]:
@@ -225,7 +298,7 @@ class _Trunk(nn.Module):
             stem = affine(conv3d_ndhwc(x, self.conv1), self.bn1, relu=True)
             x1 = self.layer1(max_pool_k3s2p1(stem))
         x2 = self.layer2[0](x1)
-        if self.block is BasicBlock:
+        if self.block is BasicBlock and len(self.layer2) > 1:
             x2 = fused_layer1(x2, *_stack_params(self.layer2[1:]))
         else:
             for blk in self.layer2[1:]:
@@ -256,7 +329,8 @@ class ResNetSegReg(_Trunk):
     and updates the BatchNorm batch statistics and is differentiable.
     ``packed_decoder`` is the JAX model's attribute (the bf16 processor
     sets it): outside conv mode ``roll`` it sends the decoder convs to
-    cuDNN, and under ``roll`` it is a gate of the quad stem; it adds no
+    cuDNN, and under ``roll`` it gates the decoder's and the heads'
+    kernels (``blocks.decoder_kernels``) and the quad stem; it adds no
     parameter.
     """
 
@@ -283,10 +357,10 @@ class ResNetSegReg(_Trunk):
         xup1 = self.us1(x4, x1, packed)
         xup2 = self.us2(xup1, stem, packed)
         conv, bn, _ = self.us3
-        roll = blocks.get_conv3d_mode() == "roll"
-        if self.training or not roll:
+        kernels = decoder_kernels(packed)
+        if self.training or not kernels:
             bn_fn = batch_norm_train if self.training else affine
-            y = (roll_conv_bias(xup2, conv) if roll
+            y = (roll_conv_bias(xup2, conv) if kernels
                  else decoder_conv(xup2, conv, packed))
             x = torch.relu(bn_fn(y, bn))
             dt = x.dtype

@@ -65,8 +65,8 @@ _SIGNATURES = {
     "max_pool3d_k3s2p1": [_I, _P, _P, _I, _I, _I, _I, _I, _P],
     # dtype, x, g, workspace, out, B, D, H, W, C, O, splits, stream
     "conv3x3x3_wgrad": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # dtype, x, w, mul, add, stem, pooled, B, D, H, W, stream
-    "stem_pool": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # dtype, x, w, mul, add, stem, pooled, B, D, H, W, chunks, stream
+    "stem_pool": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # dense, lung, workspace, num, den, B, D, H, W, C, splits, stream
     "masked_sums": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }

@@ -11,8 +11,10 @@ flow (``train.py:123-133``): ``init_state`` -> ``setup_checkpointing`` ->
 ``--input_pipeline device``, ``--mesh``, ``--multihost``, ``--ngpus`` > 1,
 ``--remat`` other than ``none``, ``--noise_rng rbg`` and the CLS archs
 raise ``NotImplementedError``; ``--packed_decoder`` reaches the model
-(outside conv mode ``roll`` its decoder convs then run on cuDNN, as the JAX
-packed decoder's run on XLA), ``--profile``/``--debug_nans`` are not
+(under conv mode ``roll`` its decoder convs then run on kernels A/D, as
+the JAX packed decoder's run on its roll kernels; outside ``roll`` on
+cuDNN, as JAX's run on XLA; without the flag the decoder runs on cuDNN),
+``--profile``/``--debug_nans`` are not
 ported and log so.  The conv mode comes from ``$BODYCT_CONV3D_MODE``
 (default ``roll``).  It runs on the CUDA card and refuses to start without
 one unless given ``--device cpu``, which runs every kernel site's plain
@@ -71,8 +73,9 @@ def build_parser() -> ArgumentParser:
                    choices=["threefry", "rbg"])
     p.add_argument("--grad_accum", default=1, type=int)
     p.add_argument("--packed_decoder", action="store_true",
-                   help="the JAX packed decoder's routing: outside conv "
-                        "mode roll its convs run on cuDNN")
+                   help="the JAX packed decoder's routing: its convs on "
+                        "kernels A/D under conv mode roll, on cuDNN "
+                        "outside it")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; without a card pass "
                         "--device cpu, which runs the kernels' plain "

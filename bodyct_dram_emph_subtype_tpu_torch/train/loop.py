@@ -80,8 +80,9 @@ class TrainerConfig:
     remat: str = "none"
     noise_rng: str = "threefry"
     grad_accum: int = 1
-    packed_decoder: bool = False         # decoder convs on cuDNN outside
-    # conv mode roll, as the JAX trainer's W-pair packed decoder is
+    packed_decoder: bool = False         # decoder convs on kernels A/D
+    # under conv mode roll, on cuDNN outside it, as the JAX trainer's W-pair
+    # packed decoder; the unpacked default runs them on cuDNN
     device: Optional[str] = None         # default cuda; "cpu" on request
 
     @property

@@ -12,7 +12,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    from ``ptxas -v``, each kernel's registers, spill bytes and static
    shared memory, with the dynamic shared memory of the bf16 tensor-core
    instantiations (``*_mma_kernel``: the cp.async ring and the float32
-   sums);
+   sums; for E its weights, plane ring and stem tile);
 3. kernels vs their plain PyTorch versions at every deployment site shape
    of the med3ddram forward (B=2, 128x224x288 input), float32 and
    bfloat16, plus one small ragged shape each: max/mean |delta| against the
@@ -56,7 +56,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 5. bf16 vs float32 forward of the same weights on one scan;
 6. training path — a synthetic ``.npz`` archive of 4 scans (int16 CT with a
    lung ellipsoid, stored 180x320x320) through the trainer in-process
-   (med3ddram, bf16, B=2, one epoch of 4 steps, augmentation on), then
+   (med3ddram, bf16, B=2, the packed decoder, one epoch of 4 steps,
+   augmentation on), then
    ``restore_best`` and a test evaluation over the archive: finite losses,
    params and BN running statistics moved, 22 kernel-A and 11 kernel-D
    launches (no B or C) in every train step, the eval launch counts, a
@@ -96,7 +97,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    batch A 16, B 1, C 1, F 2, every scan in ``stats["host_scans"]``, and
    against phase 4's device path the bf16 bounds above (lesion fractions,
    and the written uint8 heatmaps read as count / 255 over the voxels
-   either map marks); one scan in float32 on both paths: fractions |d| <=
+   either map marks); one scan in float32 on both paths (the float32
+   processor builds the unpacked decoder: per batch A 12, C 1, F 2, no
+   B): fractions |d| <=
    2e-3 (the JAX package's bound, ``tests/test_processor.py:124-126``),
    heatmaps within one count on under 1 % of the voxels; then the per-scan
    fallback at the default ``pad_shape``: a fourth scan whose lung crop is
@@ -104,7 +107,20 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    device path, results in cohort order; peak device memory;
 6c. two trainer steps in conv mode ``pallas`` (med3ddram, bf16, B=2, the
    unpacked decoder, phase 6's archive): 31 kernel-A launches in every
-   step, no D, B or C, finite losses; step ms and peak device memory.
+   step, no D, B or C, finite losses; step ms and peak device memory;
+6d. the trainers' default routing: two trainer steps of med3ddram with
+   ``packed_decoder`` left at its default, False (bf16, B=2, conv mode
+   roll): per step A 12, D 6 (layer1's six convs, as in the JAX train
+   step), F 1, no B or C; a test evaluation with A 12, C 1, F 1 and no B
+   per forward; step ms and peak device memory;
+6e. med3ddram50, the training CLI's default arch: kernel D, the dgrad and
+   the forward on A at its five train sites (bf16; us1.conv0 takes C =
+   2048 + 256 = 2304: D one split of 8064 K steps, A's forward 1944 K
+   steps in the 64-column tile) against their plain versions in phase 3b's
+   bounds, and A with the BN epilogue at that conv's eval site; then two
+   trainer steps (bf16, B=2, packed decoder): per step A 10, D 5, F 1; a
+   test evaluation with C 1, A 4, B 1, F 1 per forward; step ms and peak
+   device memory.
 
 Kernel F (the lung-masked sums) runs once in every forward, eval and
 train, so each train step and each eval batch also counts one F launch.
@@ -162,8 +178,11 @@ from bodyct_dram_emph_subtype_tpu_torch.ops.pallas_kernels import (
     masked_sums, masked_sums_plain)
 from bodyct_dram_emph_subtype_tpu_torch.ops.preprocess import \
     fused_preprocess_preselected
+from bodyct_dram_emph_subtype_tpu_torch.models.blocks import (BasicBlock,
+                                                              Bottleneck)
 from bodyct_dram_emph_subtype_tpu_torch.models.resnet3d import (
-    mode_conv_sites, train_roll_site_shapes)
+    TRAIN_ROLL_SITES, mode_conv_sites, roll_eval_sites, site_launches,
+    train_roll_launches, train_roll_site_shapes, train_roll_sites)
 from bodyct_dram_emph_subtype_tpu_torch.ops.roll_conv import (
     CONV_TILE_M, CONV_TILE_N_LARGE, CONV_TILE_N_SMALL, MMA_BK, MMA_STAGES,
     WGRAD_COLS, WGRAD_ROWS, conv3x3x3_dgrad, conv3x3x3_dgrad_plain,
@@ -171,7 +190,7 @@ from bodyct_dram_emph_subtype_tpu_torch.ops.roll_conv import (
     identity_conv3d, roll_conv_affine_relu, roll_conv_affine_relu_plain,
     roll_conv_heads_sigmoid, roll_conv_heads_sigmoid_plain, roll_conv_packed)
 from bodyct_dram_emph_subtype_tpu_torch.ops.stem_kernel import (
-    fused_stem_pool, fused_stem_pool_plain)
+    fused_stem_pool, fused_stem_pool_plain, stem_smem_bytes)
 from bodyct_dram_emph_subtype_tpu_torch.train.loop import (SubtypeTrainer,
                                                            TrainerConfig)
 from bodyct_dram_emph_subtype_tpu_torch.train.state import make_optimizer
@@ -197,8 +216,25 @@ B_SITES = [("us3+heads", (B, 64, 112, 144, 64), 32, 2, 1),
            ("ragged", (1, 5, 7, 9, 20), 13, 2, 0)]
 C_SITES = [("stem.pool", (B, 64, 112, 144, 64), 1),
            ("ragged", (1, 5, 7, 9, 3), 0)]
-PER_FORWARD = {"conv3x3x3_affine": 16, "conv3x3x3_heads_sigmoid": 1,
-               "max_pool3d_k3s2p1": 1, "masked_sums": 1}
+LAYERS = (3, 4, 6, 3)
+
+
+def per_forward(packed_decoder=True, quad=False, block=BasicBlock):
+    """Launches per eval forward of a med3ddram-family model under conv
+    mode roll (``roll_eval_sites``), every kernel named, F's one call."""
+    sites = roll_eval_sites(LAYERS, quad, packed_decoder, block)
+    return {**{k: 0 for k in cuda_build.KERNELS}, **site_launches(sites),
+            "masked_sums": 1}
+
+
+def per_train_step(sites):
+    """Launches per train step with ``sites`` of ``roll_conv_packed``."""
+    return {**{k: 0 for k in cuda_build.KERNELS},
+            **train_roll_launches(sites), "masked_sums": 1}
+
+
+# the bf16 processor's forward (packed decoder): A 16, B 1, C 1, F 1
+PER_FORWARD = per_forward()
 # a processor batch: the forward, and one more kernel-F call for the
 # device path's reduction or the host path's predict-step numerators
 PER_BATCH = {**PER_FORWARD, "masked_sums": 2}
@@ -213,17 +249,19 @@ F_REL_BOUND = 1e-5
 TRAIN_SITES = train_roll_site_shapes(B, TARGET) + [
     ("ragged", (1, 5, 7, 9, 20), 13)]
 GRAD_L2_BOUND, GRAD_PEAK_BOUND = 5e-3, 2e-2      # phase 6b
-PER_TRAIN_STEP = {"conv3x3x3_affine": 22, "conv3x3x3_wgrad": 11,
-                  "conv3x3x3_heads_sigmoid": 0, "max_pool3d_k3s2p1": 0,
-                  "masked_sums": 1}
+# phase 6 (packed decoder): A 22, D 11, F 1
+PER_TRAIN_STEP = per_train_step(TRAIN_ROLL_SITES)
+# the trainers' default (unpacked decoder; phase 6d): layer1's 6 sites
+# in training (A 12, D 6), and A 12, C 1, no B in an eval forward
+DEFAULT_TRAIN_SITES = train_roll_sites(LAYERS, packed_decoder=False)
+# med3ddram50 with the packed decoder (phase 6e): the 5 decoder convs
+SITES50 = train_roll_sites(LAYERS, Bottleneck, True)
 E_SITES = [("stem", (B, *TARGET, 1), 1), ("ragged", (1, 20, 36, 44, 1), 0)]
 MODES = {"pallas": "pallas_conv3d", "tapmm": "tap_conv3d",
          "flat": "flat_conv3d"}
 # kernel-A launches per B=2 bf16 forward of the processor (packed decoder)
 MODE_PER_FORWARD = {"pallas": 26, "tapmm": 13, "flat": 18}
-QUAD_PER_BATCH = {"stem_pool": 1, "conv3x3x3_affine": 16,
-                  "conv3x3x3_heads_sigmoid": 1, "max_pool3d_k3s2p1": 0,
-                  "masked_sums": 2}
+QUAD_PER_BATCH = {**per_forward(quad=True), "masked_sums": 2}
 PALLAS_PER_TRAIN_STEP = 31                       # phase 6c, unpacked decoder
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HBM_BYTES_S = 3.35e12
@@ -352,10 +390,14 @@ def demangled(names):
 
 
 def dynamic_smem(name: str):
-    """Dynamic shared memory of a tensor-core instantiation (the mirror in
-    ``ops/roll_conv.py``): the cp.async ring of ``csrc/mma_bf16.cuh`` and,
-    except in kernel A's 128-column tile, one float32 sum per accumulator
-    (``WarpTile::promote``)."""
+    """Dynamic shared memory of a tensor-core instantiation (the mirrors in
+    ``ops/roll_conv.py`` and ``ops/stem_kernel.py``): for A, B and D the
+    cp.async ring of ``csrc/mma_bf16.cuh`` and, except in kernel A's
+    128-column tile, one float32 sum per accumulator
+    (``WarpTile::promote``); for E the weights, its space-to-depth plane
+    ring and the stem tile."""
+    if "stem_mma_kernel" in name:
+        return stem_smem_bytes()
     if "wgrad_mma_kernel" in name:
         cols, rows, sums = WGRAD_COLS, WGRAD_ROWS, True
     elif "conv3x3x3_mma_kernel" in name:
@@ -616,13 +658,15 @@ def compare_packed_forward(gen, shape, o, dtype):
                         conv=lambda x, k, d: roll_conv_packed(x, k))
 
 
-def phase_train_kernels():
-    print("== phase 3b: training kernels vs plain versions (B=2 train sites)")
-    gen = torch.Generator(device=DEV).manual_seed(1)
+def train_site_kernels(gen, sites, dtypes):
+    """Kernel D, the dgrad on A and the forward of ``roll_conv_packed``
+    against their plain versions at each (site, x shape, O) of ``sites``;
+    the per-kernel summaries (bf16 times summed over the sites but
+    "ragged")."""
     wgrad, dgrad, fwd = new_summary(), new_summary(), new_summary()
-    for site, shape, o in TRAIN_SITES:
+    for site, shape, o in sites:
         count = 0 if site == "ragged" else 1
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             dname = "f32" if dtype == torch.float32 else "bf16"
             for kernel, run, acc, cols in (
                     ("conv3x3x3_wgrad", compare_d, wgrad, None),
@@ -636,6 +680,14 @@ def phase_train_kernels():
                 accumulate(acc, delta, r, count, dtype)
                 del delta
                 torch.cuda.empty_cache()
+    return wgrad, dgrad, fwd
+
+
+def phase_train_kernels():
+    print("== phase 3b: training kernels vs plain versions (B=2 train sites)")
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    wgrad, dgrad, fwd = train_site_kernels(
+        gen, TRAIN_SITES, (torch.float32, torch.bfloat16))
     print(f"per B=2 bf16 train step: kernel D {wgrad['ms']:.2f} ms (plain "
           f"{wgrad['plain_ms']:.2f}, cuDNN {wgrad['library_ms']:.2f}, bound "
           f"{wgrad['bound_ms']:.2f}), dgrad on A {dgrad['ms']:.2f} ms (plain "
@@ -1119,15 +1171,28 @@ def phase_host_path(model, scan_dir: Path, lobe_dir: Path, work: Path,
         dst.mkdir(parents=True)
         shutil.copy(src / "scan0.mha", dst / "scan0.mha")
     f32 = {}
+    # the float32 processor builds the unpacked decoder (same seeded
+    # weights): A 12, C 1, no B per forward
+    model32 = build_model("med3ddram", ckp_path=None, seed=0,
+                          compute_dtype="float32")
+    check(not model32.packed_decoder, "float32 processor decoder")
+    f32_batch = {**per_forward(packed_decoder=False), "masked_sums": 2}
     for path, host in (("device", False), ("host", True)):
         st = {}
+        cuda_build.reset_launches()
         run_inference(str(ct1), str(lobes1), str(work / f"out_f32_{path}"),
                       target_size=TARGET, compute_dtype="float32",
-                      batch_size=B, workers=2, model=model, device=DEV,
+                      batch_size=B, workers=2, model=model32, device=DEV,
                       device_preprocess=not host, stats=st)
+        torch.cuda.synchronize()
+        got = cuda_build.launches()
         check(st["host_scans"] == (["scan0"] if host else []),
               f"float32 {path} path host scans {st['host_scans']}")
+        check(got == {k: v * st["batches"] for k, v in f32_batch.items()},
+              f"float32 {path} path launches {got}")
         f32[path] = st["fractions"]["scan0"]
+    print("float32 processor (unpacked decoder), launches per batch: "
+          + ", ".join(f"{k} {v}" for k, v in f32_batch.items() if v))
     frac = [abs(a - b) for a, b in zip(f32["host"], f32["device"])]
     heat = heatmap_delta(work / "out_f32_host", work / "out_f32_device",
                          "scan0")
@@ -1236,26 +1301,22 @@ class StepClock:
         return [1e3 * (b - a) for a, b in zip(starts, starts[1:])]
 
 
-def phase_train(work: Path):
-    print("== phase 6: training path (trainer, med3ddram, bf16, B=2, "
-          "augmentation on)")
-    t0 = time.perf_counter()
-    shape = write_archive(work)
-    print(f"wrote 4 synthetic scans {shape} as .npz in "
-          f"{time.perf_counter() - t0:.1f} s")
+def trainer_config(work: Path, **kw):
+    """Phase 6's trainer setup over the archive in ``work`` (bf16, B=2,
+    one epoch), with ``kw`` overriding it."""
     csv = str(work / "merged.csv")
-    cfg = TrainerConfig(model_arch="med3ddram", lr=1e-4, max_epochs=1,
-                        batch_size=B, num_samples=2, target_size=TARGET,
-                        workers=4, data_path=str(work), train_csv=csv,
-                        valid_csv="", test_csv=csv,
-                        model_path=str(work / "models"), sampler_seed=0,
-                        compute_dtype="bfloat16", device="cuda")
-    trainer = SubtypeTrainer(cfg)
-    trainer.init_state()
-    trainer.setup_checkpointing()
-    check(not trainer.try_resume(), "resumed from an empty directory")
-    before = {k: v.detach().clone()
-              for k, v in trainer.model.state_dict().items()}
+    return TrainerConfig(**{
+        "model_arch": "med3ddram", "lr": 1e-4, "max_epochs": 1,
+        "batch_size": B, "num_samples": 1, "target_size": TARGET,
+        "workers": 4, "data_path": str(work), "train_csv": csv,
+        "valid_csv": "", "test_csv": csv, "sampler_seed": 0,
+        "compute_dtype": "bfloat16", "device": "cuda", **kw})
+
+
+def fit_logged(trainer):
+    """``trainer.fit()`` with each step's losses logged and the step clock
+    on; the counts are set to 0 just before it.  Returns (losses, clock,
+    launches, fit seconds, peak device bytes)."""
     losses = []
     step = trainer._train_step
 
@@ -1273,19 +1334,57 @@ def phase_train(work: Path):
     trainer.fit()
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    train_launches = cuda_build.launches()
+    return (losses, clock, cuda_build.launches(), fit_s,
+            torch.cuda.max_memory_allocated())
+
+
+def check_steps(losses, clock, want, label):
+    """Every step's losses finite and its launches equal to ``want``."""
     n = len(clock.steps)
-    check(n >= 4 and len(losses) == n, f"{n} train steps")
+    check(n >= 1 and len(losses) == n, f"{label}: {n} train steps")
     for i, m in enumerate(losses):
         print(f"step {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in m.items()))
         check(all(math.isfinite(v) for v in m.values()), f"step {i} losses")
-    for i in range(n):
         per = {k: clock.launches[i + 1][k] - clock.launches[i][k]
-               for k in PER_TRAIN_STEP}
-        check(per == PER_TRAIN_STEP, f"step {i} launches {per}")
+               for k in want}
+        check(per == want, f"{label} step {i} launches {per}")
     print(f"launches per train step (every one of {n}): "
-          + ", ".join(f"{k} {v}" for k, v in PER_TRAIN_STEP.items()))
+          + ", ".join(f"{k} {v}" for k, v in want.items() if v))
+    return n
+
+
+def check_eval(trainer, per_fwd, label):
+    """A test evaluation over the 4-scan archive; its launches equal
+    ``per_fwd`` per forward.  Returns (metrics, launches)."""
+    cuda_build.reset_launches()
+    metrics = trainer.evaluate("test", epoch=0)
+    torch.cuda.synchronize()
+    launches = cuda_build.launches()
+    forwards = -(-4 // B)
+    check(launches == {k: v * forwards for k, v in per_fwd.items()},
+          f"{label} test eval launches {launches} for {forwards} forwards")
+    check(0.0 <= metrics["epoch_test_acc_cle"] <= 1.0, f"{metrics}")
+    return metrics, launches
+
+
+def phase_train(work: Path):
+    print("== phase 6: training path (trainer, med3ddram, bf16, B=2, "
+          "packed decoder, augmentation on)")
+    t0 = time.perf_counter()
+    shape = write_archive(work)
+    print(f"wrote 4 synthetic scans {shape} as .npz in "
+          f"{time.perf_counter() - t0:.1f} s")
+    cfg = trainer_config(work, num_samples=2, packed_decoder=True,
+                         model_path=str(work / "models"))
+    trainer = SubtypeTrainer(cfg)
+    trainer.init_state()
+    trainer.setup_checkpointing()
+    check(not trainer.try_resume(), "resumed from an empty directory")
+    before = {k: v.detach().clone()
+              for k, v in trainer.model.state_dict().items()}
+    losses, clock, train_launches, fit_s, peak = fit_logged(trainer)
+    n = check_steps(losses, clock, PER_TRAIN_STEP, "packed decoder")
+    check(n >= 4, f"{n} train steps")
     after = trainer.model.state_dict()
     moved = {k: (after[k].float() - before[k].float()).abs().max().item()
              for k in before if not k.endswith("num_batches_tracked")}
@@ -1311,16 +1410,9 @@ def phase_train(work: Path):
     print(f"peak device memory {peak / 2 ** 30:.2f} GiB "
           f"(torch.cuda.max_memory_allocated)")
     best = trainer.restore_best()
-    cuda_build.reset_launches()
-    metrics = trainer.evaluate("test", epoch=best)
-    torch.cuda.synchronize()
-    eval_launches = cuda_build.launches()
-    forwards = -(-4 // B)
-    for k, per in PER_FORWARD.items():
-        check(eval_launches[k] == per * forwards,
-              f"test eval {k}: {eval_launches[k]} for {forwards} forwards")
-    check(eval_launches["conv3x3x3_wgrad"] == 0, "wgrad launched in eval")
-    check(0.0 <= metrics["epoch_test_acc_cle"] <= 1.0, f"{metrics}")
+    check(best == 0, f"best epoch {best}")
+    metrics, eval_launches = check_eval(trainer, PER_FORWARD,
+                                        "packed decoder")
     print(f"test evaluation over the archive (best epoch {best}): "
           f"acc_cle {metrics['epoch_test_acc_cle']:.3f} acc_pse "
           f"{metrics['epoch_test_acc_pse']:.3f}; launches "
@@ -1355,16 +1447,17 @@ def phase_train_small(mode: str = "roll"):
     cw_cle, cw_pse = np.full(6, 1 / 6), np.full(3, 1 / 3)
     out = {}
     for dev in ("cpu", "cuda"):
+        # roll: the packed decoder, so the decoder convs take A and D too
         model = get_model_by_name(
-            "med3ddramtiny", generator=torch.Generator().manual_seed(3))
+            "med3ddramtiny", generator=torch.Generator().manual_seed(3),
+            packed_decoder=mode == "roll")
         with torch.no_grad():           # keep the maps off the clip edge
             for fc in model.fcs:
                 fc.weight.mul_(0.05)
                 fc.bias.fill_(-1.5)
         model.to(dev)
         if mode == "roll":
-            want = {"conv3x3x3_affine": 14, "conv3x3x3_wgrad": 7,
-                    "masked_sums": 1}
+            want = per_train_step(train_roll_sites((1, 1, 1, 1)))
         else:
             n = len(mode_conv_sites(model, mode, B, size, torch.float32))
             check(n > 0, f"no {mode} site at {size}")
@@ -1422,61 +1515,100 @@ def phase_train_small(mode: str = "roll"):
 def phase_train_pallas(work: Path):
     print("== phase 6c: trainer in conv mode pallas (med3ddram, bf16, B=2, "
           "unpacked decoder, augmentation on)")
-    csv = str(work / "merged.csv")
-    cfg = TrainerConfig(model_arch="med3ddram", lr=1e-4, max_epochs=1,
-                        batch_size=B, num_samples=1, target_size=TARGET,
-                        workers=4, data_path=str(work), train_csv=csv,
-                        valid_csv="", test_csv="",
-                        model_path=str(work / "models_pallas"),
-                        sampler_seed=0, compute_dtype="bfloat16",
-                        packed_decoder=False, device="cuda")
+    cfg = trainer_config(work, test_csv="", packed_decoder=False,
+                         model_path=str(work / "models_pallas"))
     blocks.set_conv3d_mode("pallas")
     try:
         trainer = SubtypeTrainer(cfg)
         trainer.init_state()
         trainer.setup_checkpointing()
-        losses = []
-        step = trainer._train_step
-
-        def logged_step(*args, **kw):
-            metrics, preds = step(*args, **kw)
-            losses.append({k: float(v) for k, v in metrics.items()})
-            return metrics, preds
-
-        trainer._train_step = logged_step
-        clock = StepClock()
-        trainer.step_mark = clock
-        torch.cuda.reset_peak_memory_stats()
-        cuda_build.reset_launches()
-        trainer.fit()
-        torch.cuda.synchronize()
-        launches, ops = cuda_build.launches(), cuda_build.op_launches()
+        losses, clock, launches, _, peak = fit_logged(trainer)
+        ops = cuda_build.op_launches()
     finally:
         blocks.set_conv3d_mode("roll")
-    peak = torch.cuda.max_memory_allocated()
-    n = len(clock.steps)
-    check(n == 2 and len(losses) == n, f"{n} pallas-mode train steps")
     want = {**{k: 0 for k in launches},
             "conv3x3x3_affine": PALLAS_PER_TRAIN_STEP,
             "masked_sums": PER_TRAIN_STEP["masked_sums"]}
-    for i, m in enumerate(losses):
-        per = {k: clock.launches[i + 1][k] - clock.launches[i][k]
-               for k in launches}
-        check(per == want, f"pallas step {i} launches {per}")
-        check(all(math.isfinite(v) for v in m.values()), f"step {i} losses")
-        print(f"step {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in m.items()))
+    n = check_steps(losses, clock, want, "pallas")
+    check(n == 2, f"{n} pallas-mode train steps")
     check(ops == {"pallas_conv3d": n * PALLAS_PER_TRAIN_STEP,
                   "tap_conv3d": 0, "flat_conv3d": 0}, f"ops {ops}")
     wall = clock.wall_ms()
     split = clock.breakdown(n - 1)
-    print(f"launches per train step (both): conv3x3x3_affine "
-          f"{PALLAS_PER_TRAIN_STEP} (all pallas_conv3d), masked_sums 1, no "
-          f"D, B, C or E; "
+    print(f"(all pallas_conv3d; no D, B, C or E) "
           f"step ms (loader to loader) " + ", ".join(f"{t:.1f}" for t in wall)
           + "; last step split (ms): " + ", ".join(
               f"{k} {v:.1f}" for k, v in split.items())
           + f"; peak device memory {peak / 2 ** 30:.2f} GiB")
     return launches, ops, {"step_ms": wall[-1], "peak_gib": peak / 2 ** 30}
+
+
+def phase_train_default(work: Path):
+    print("== phase 6d: the trainers' default routing (trainer, med3ddram, "
+          "bf16, B=2, unpacked decoder, conv mode roll)")
+    cfg = trainer_config(work, model_path=str(work / "models_default"))
+    check(not cfg.packed_decoder, "the trainer's default decoder is packed")
+    trainer = SubtypeTrainer(cfg)
+    trainer.init_state()
+    trainer.setup_checkpointing()
+    losses, clock, launches, _, peak = fit_logged(trainer)
+    want = per_train_step(DEFAULT_TRAIN_SITES)
+    n = check_steps(losses, clock, want, "default routing")
+    check(n == 2, f"{n} default-routing train steps")
+    metrics, eval_launches = check_eval(
+        trainer, per_forward(packed_decoder=False), "default routing")
+    wall = clock.wall_ms()
+    print(f"as the JAX train step: layer1's {len(DEFAULT_TRAIN_SITES)} convs "
+          f"on A and D, the unpacked decoder and unfused heads on cuDNN; "
+          f"test eval launches " + ", ".join(
+              f"{k} {v}" for k, v in eval_launches.items() if v)
+          + f" over {-(-4 // B)} forwards (A 12, C 1, F 1 each; no B); step "
+          f"ms (loader to loader) " + ", ".join(f"{t:.1f}" for t in wall)
+          + f"; peak device memory {peak / 2 ** 30:.2f} GiB")
+    return Counter(launches) + Counter(eval_launches), \
+        {"step_ms": wall[-1], "peak_gib": peak / 2 ** 30}
+
+
+def phase_train50(work: Path):
+    print("== phase 6e: med3ddram50 (the training CLI's default arch) on the "
+          "card: trainer, bf16, B=2, packed decoder")
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    shapes = train_roll_site_shapes(B, TARGET, SITES50)
+    name, shape, o = shapes[0]
+    check(shape[-1] == 2304, f"{name} C = {shape[-1]}")
+    # the sites of its train step (D, dgrad and forward on A) and the eval
+    # site of the C = 2304 conv (A with the BN epilogue, 64-column tile)
+    wgrad, dgrad, fwd = train_site_kernels(gen, shapes, (torch.bfloat16,))
+    delta, ratio, btxt, r = compare_a(gen, shape, o, False, torch.bfloat16)
+    report("conv3x3x3_affine", name, "bf16", shape, delta, ratio, btxt, r,
+           tile(o, torch.bfloat16))
+    del delta
+    torch.cuda.empty_cache()
+    print(f"per B=2 bf16 med3ddram50 train step: kernel D {wgrad['ms']:.2f} "
+          f"ms (bound {wgrad['bound_ms']:.2f}), dgrad on A {dgrad['ms']:.2f} "
+          f"(bound {dgrad['bound_ms']:.2f}), forward on A {fwd['ms']:.2f} "
+          f"(bound {fwd['bound_ms']:.2f})")
+    cfg = trainer_config(work, model_arch="med3ddram50", packed_decoder=True,
+                         model_path=str(work / "models50"))
+    trainer = SubtypeTrainer(cfg)
+    trainer.init_state()
+    trainer.setup_checkpointing()
+    losses, clock, launches, _, peak = fit_logged(trainer)
+    n = check_steps(losses, clock, per_train_step(SITES50), "med3ddram50")
+    check(n == 2, f"{n} med3ddram50 train steps")
+    metrics, eval_launches = check_eval(
+        trainer, per_forward(block=Bottleneck), "med3ddram50")
+    wall = clock.wall_ms()
+    split = clock.breakdown(n - 1)
+    print(f"test eval launches " + ", ".join(
+        f"{k} {v}" for k, v in eval_launches.items() if v)
+        + f" over {-(-4 // B)} forwards; step ms (loader to loader) "
+        + ", ".join(f"{t:.1f}" for t in wall) + "; last step split (ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+        + f"; peak device memory {peak / 2 ** 30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
+    return Counter(launches) + Counter(eval_launches), \
+        {"step_ms": wall[-1], "peak_gib": peak / 2 ** 30}
 
 
 def main():
@@ -1509,6 +1641,10 @@ def main():
         launches, ops, pallas_train = phase_train_pallas(work)
         main_launches.update(launches)
         main_ops.update(ops)
+        launches, default_train = phase_train_default(work)
+        main_launches.update(launches)
+        launches, train50 = phase_train50(work)
+        main_launches.update(launches)
     for mode in ("roll", *MODES):
         phase_train_small(mode)
     kernels = []
@@ -1530,8 +1666,12 @@ def main():
           f"({train['volumes_s']:.3f} volumes/s, peak "
           f"{train['peak_gib']:.2f} GiB); pallas-mode training "
           f"{pallas_train['step_ms']:.1f} ms for its second step (peak "
-          f"{pallas_train['peak_gib']:.2f} GiB); launches are the main paths' "
-          f"(phases 4, 4c, 4d, 6, 6c); kernel ms per B=2 bf16 forward (A, B, "
+          f"{pallas_train['peak_gib']:.2f} GiB); the trainers' default "
+          f"routing {default_train['step_ms']:.1f} ms (peak "
+          f"{default_train['peak_gib']:.2f} GiB); med3ddram50 "
+          f"{train50['step_ms']:.1f} ms (peak {train50['peak_gib']:.2f} GiB); "
+          f"launches are the main paths' "
+          f"(phases 4, 4c, 4d, 6, 6c, 6d, 6e); kernel ms per B=2 bf16 forward (A, B, "
           f"C, E: default or quad path; the conv-mode ops: their mode's "
           f"forward), train step (D) or device-path batch (F, float32 "
           f"maps), summed over the sites")

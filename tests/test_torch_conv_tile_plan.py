@@ -14,9 +14,11 @@ from pathlib import Path
 
 import pytest
 
-from bodyct_dram_emph_subtype_tpu_torch.models.resnet3d import \
-    train_roll_site_shapes
+from bodyct_dram_emph_subtype_tpu_torch.models.blocks import Bottleneck
+from bodyct_dram_emph_subtype_tpu_torch.models.resnet3d import (
+    train_roll_site_shapes, train_roll_sites)
 from bodyct_dram_emph_subtype_tpu_torch.ops import roll_conv as rc
+from bodyct_dram_emph_subtype_tpu_torch.ops import stem_kernel as sk
 
 CSRC = Path(rc.__file__).resolve().parents[1] / "csrc"
 H100_SMS = 132
@@ -33,6 +35,7 @@ def constants(name: str) -> dict:
 MMA = constants("mma_bf16.cuh")
 CONV = constants("conv3x3x3.cu")
 WGRAD = constants("conv3x3x3_wgrad.cu")
+STEM = constants("stem_pool.cu")
 
 
 @pytest.mark.parametrize("mirror,source", [
@@ -45,9 +48,25 @@ WGRAD = constants("conv3x3x3_wgrad.cu")
     (rc.HEADS_MAX, CONV["kMaxHeads"]),
     (rc.WGRAD_ROWS, WGRAD["WM"]), (rc.WGRAD_COLS, WGRAD["WN"]),
     (rc.WGRAD_K, WGRAD["WK"]), (rc.WGRAD_K, MMA["BK"]),
+    (sk.STEM_POOL_TILE, STEM["kPoolTile"]), (sk.STEM_RING, STEM["kRing"]),
+    (sk.STEM_K, 8 * STEM["kTaps"]), (sk.FEATURES, STEM["F"]),
 ])
 def test_mirror_equals_cuda_constexpr(mirror, source):
     assert mirror == source
+
+
+def test_stem_tile_plan():
+    """Kernel E's bf16 plan: its shared memory leaves room for the block
+    on an SM, the 19 m16 fragments of the 17 x 17 stem tile are covered by
+    the warps, and the recomputed (H, W) halo stays under 15% of the stem
+    voxels the block owns."""
+    assert sk.stem_smem_bytes() <= SMEM_PER_BLOCK
+    assert STEM["kWarpsM"] * STEM["kWarpFrags"] * 16 \
+        >= (2 * sk.STEM_POOL_TILE + 1) ** 2
+    halo = (2 * sk.STEM_POOL_TILE + 1) ** 2 / (2 * sk.STEM_POOL_TILE) ** 2
+    assert halo - 1 <= 0.15
+    # 32 k16 steps per output: no promotion of the sums needed
+    assert sk.STEM_K // 16 <= MMA["PROMOTE_STEPS"]
 
 
 @pytest.mark.parametrize("o,cols", [
@@ -87,12 +106,15 @@ def test_shared_memory_fits_two_blocks_per_sm(rows, cols, promotes):
 
 
 SITES = train_roll_site_shapes(2, (128, 224, 288))
+# med3ddram50 with the packed decoder: its us1.conv0 takes C = 2304
+SITES50 = train_roll_site_shapes(2, (128, 224, 288),
+                                 train_roll_sites(block=Bottleneck))
 
 
 @pytest.mark.parametrize("m,c,o", [
     (2 * 5 * 7 * 9, 20, 13), (1 * 4 * 6 * 10, 64, 32), (1 * 6 * 8 * 12, 72, 70),
     (1, 8, 8), (31, 64, 64), (33, 64, 64), (10 ** 6 + 7, 16, 8),
-] + [(s[0] * s[1] * s[2] * s[3], s[4], o) for _, s, o in SITES])
+] + [(s[0] * s[1] * s[2] * s[3], s[4], o) for _, s, o in SITES + SITES50])
 def test_wgrad_splits_give_whole_k_steps(m, c, o):
     s = rc.wgrad_splits(m, c, o)
     chunk = rc.wgrad_chunk(m, s)
@@ -109,3 +131,16 @@ def test_wgrad_splits_fill_one_wave_at_train_sites(name, shape, o):
     tiles = -(-27 * c // rc.WGRAD_ROWS) * -(-o // rc.WGRAD_COLS)
     blocks = tiles * rc.wgrad_splits(m, c, o)
     assert H100_SMS <= blocks <= rc.WGRAD_TARGET_BLOCKS
+
+
+def test_wgrad_c2304_is_one_split():
+    """med3ddram50's us1.conv0 (C = 2304): 486 row tiles already exceed
+    the one-wave target, so kernel D runs one split: each block sums all
+    258048 voxels, 8064 K steps."""
+    name, shape, o = SITES50[0]
+    assert name == "us1.conv_blocks.0.0" and shape[-1] == 2304
+    m = shape[0] * shape[1] * shape[2] * shape[3]
+    tiles = -(-27 * shape[-1] // rc.WGRAD_ROWS) * -(-o // rc.WGRAD_COLS)
+    assert tiles == 486 > rc.WGRAD_TARGET_BLOCKS
+    assert rc.wgrad_splits(m, shape[-1], o) == 1
+    assert rc.wgrad_chunk(m, 1) // rc.WGRAD_K == 8064

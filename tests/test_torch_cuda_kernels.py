@@ -31,7 +31,7 @@ from bodyct_dram_emph_subtype_tpu_torch.ops.roll_conv import (
     identity_conv3d, roll_conv_packed, wgrad_chunk, wgrad_splits, MMA_BK,
     MMA_STAGES, WGRAD_K)
 from bodyct_dram_emph_subtype_tpu_torch.ops.stem_kernel import (
-    fused_stem_pool, fused_stem_pool_plain)
+    fused_stem_pool, fused_stem_pool_plain, stem_weights_s2d)
 
 pytestmark = pytest.mark.cuda
 
@@ -119,8 +119,19 @@ def test_heads_kernel_matches_plain(dev, dtype, shape, o, hn):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", [(2, 5, 7, 9, 3), (1, 8, 6, 12, 64)])
+@pytest.mark.parametrize("shape", [
+    (2, 5, 7, 9, 3),          # C = 3: the scalar path
+    (1, 8, 6, 12, 64),
+    (2, 7, 9, 11, 8),         # C = 8: one bf16 vector, odd D/H/W
+    (1, 37, 5, 7, 64),        # 19 output planes: several D walks of a thread
+    (3, 35, 13, 15, 64),      # odd extents, a short last walk
+    (1, 6, 4, 6, 12),         # C = 12: float32 vectors, bf16 scalar path
+])
 def test_maxpool_kernel_matches_plain_bitwise(dev, dtype, shape):
+    """Kernel C bit-equal to ``F.max_pool3d``: the vector path (C a multiple
+    of 8 bf16 or 4 float32 values) with walks along D that span several
+    output planes and end short, odd extents (clamped windows), and the
+    scalar path."""
     rng = np.random.RandomState(2)
     x = _t(rng, shape, dev, 1.0, dtype)
     got = max_pool_k3s2p1(x)
@@ -252,20 +263,27 @@ def test_identity_conv3d_matches_plain_autograd(dev, dtype, shape, dilation):
             <= tol * want.abs().max().item()
 
 
+def _stem_inputs(rng, shape, dev, dtype):
+    x = _t(rng, shape, dev, 1.0, dtype)
+    k = _t(rng, (7, 7, 7, 1, 64), dev, 0.05)
+    mul = _t(rng, (64,), dev).abs() + 0.5
+    add = _t(rng, (64,), dev, 0.1)
+    return x, k, mul, add
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [
     (2, 16, 24, 32, 1),     # whole pooled tiles
     (1, 20, 36, 44, 1),     # ragged pooled tiles on every axis
+    (3, 28, 36, 76, 1),     # B = 3; 14 stem planes wrap the 5-slot ring
+    (1, 48, 64, 64, 1),     # whole 8 x 8 bf16 tiles, 24 stem planes
 ])
 def test_stem_pool_kernel_matches_plain(dev, dtype, shape):
     """Kernel E: the stem (one rounding after BN and ReLU) and its pool
     against the plain version, within kernel A's bounds; the pooled
     values are maxima of stem values, so they hold the same bounds."""
     rng = np.random.RandomState(8)
-    x = _t(rng, shape, dev, 1.0, dtype)
-    k = _t(rng, (7, 7, 7, 1, 64), dev, 0.05)
-    mul = _t(rng, (64,), dev).abs() + 0.5
-    add = _t(rng, (64,), dev, 0.1)
+    x, k, mul, add = _stem_inputs(rng, shape, dev, dtype)
     before = cuda_build.launches()["stem_pool"]
     stem, pooled = fused_stem_pool(x, k, mul, add)
     torch.cuda.synchronize()
@@ -274,6 +292,34 @@ def test_stem_pool_kernel_matches_plain(dev, dtype, shape):
     for got, ref in ((stem, ref_stem), (pooled, ref_pooled)):
         assert got.dtype == dtype and got.shape == ref.shape
         _assert_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("shape,chunks", [
+    ((1, 28, 36, 44, 1), 3),     # 7 pooled planes in ranges of 3, 3, 1
+    ((2, 20, 20, 28, 1), 2),     # ranges of 3 and 2
+    ((1, 20, 20, 20, 1), 4),     # ranges of 2, 2, 1 and one empty
+])
+def test_stem_pool_bf16_d_ranges(dev, shape, chunks):
+    """The bf16 kernel with pooled D-ranges that do not divide D/4 (the
+    first stem plane of a range recomputed below it, an empty range),
+    through its C entry point; kernel A's bf16 bound."""
+    rng = np.random.RandomState(14)
+    x, k, mul, add = _stem_inputs(rng, shape, dev, torch.bfloat16)
+    b, d, h, w, _ = shape
+    stem = torch.empty((b, d // 2, h // 2, w // 2, 64), dtype=x.dtype,
+                       device=dev)
+    pooled = torch.empty((b, d // 4, h // 4, w // 4, 64), dtype=x.dtype,
+                         device=dev)
+    ws = stem_weights_s2d(k.to(torch.bfloat16))
+    err = cuda_build.library().stem_pool(
+        1, x.data_ptr(), ws.data_ptr(), mul.data_ptr(), add.data_ptr(),
+        stem.data_ptr(), pooled.data_ptr(), b, d, h, w, chunks,
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, "stem_pool")
+    torch.cuda.synchronize()
+    ref_stem, ref_pooled = fused_stem_pool_plain(x, k, mul, add)
+    for got, ref in ((stem, ref_stem), (pooled, ref_pooled)):
+        _assert_close(got, ref, torch.bfloat16)
 
 
 @pytest.mark.parametrize("shape,dtype", [
@@ -403,6 +449,24 @@ def test_wgrad_kernel_short_and_empty_ranges(dev, dtype, shape, o, splits):
     g = _t(rng, shape[:4] + (o,), dev, 0.5, dtype)
     got = _wgrad_splits_of(x, g, splits)
     again = _wgrad_splits_of(x, g, splits)
+    torch.cuda.synchronize()
+    ref = conv3x3x3_wgrad_plain(x, g)
+    assert (got - ref).abs().max().item() <= 5e-5 * ref.abs().max().item()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_wgrad_kernel_one_split_at_c2304(dev, dtype):
+    """Kernel D at med3ddram50's us1.conv0 width (C = 2048 + 256): 486 row
+    tiles exceed the block target, so the whole voxel range is one split;
+    bound and bit-equal rerun as above."""
+    rng = np.random.RandomState(15)
+    shape, o = (1, 4, 6, 8, 2304), 64
+    assert wgrad_splits(int(np.prod(shape[:4])), shape[-1], o) == 1
+    x = _t(rng, shape, dev, 0.5, dtype)
+    g = _t(rng, shape[:4] + (o,), dev, 0.5, dtype)
+    got = conv3x3x3_wgrad(x, g)
+    again = conv3x3x3_wgrad(x, g)
     torch.cuda.synchronize()
     ref = conv3x3x3_wgrad_plain(x, g)
     assert (got - ref).abs().max().item() <= 5e-5 * ref.abs().max().item()

@@ -36,7 +36,8 @@ from bodyct_dram_emph_subtype_tpu_torch.models.blocks import BasicBlock
 from bodyct_dram_emph_subtype_tpu_torch.models.torch_import import \
     state_dict_from_jax
 from bodyct_dram_emph_subtype_tpu_torch.ops.stem_kernel import (
-    fused_stem_pool, supports_fused_stem)
+    fused_stem_pool, space_to_depth2, stem_conv_s2d_plain, stem_weights_s2d,
+    supports_fused_stem)
 
 
 def _bf16_ulp(ref: np.ndarray) -> np.ndarray:
@@ -116,3 +117,57 @@ def test_quad_stem_model_matches_jax(monkeypatch, depth, fused):
     for got, want in zip(list(tdense) + list(tregs), list(dense) + list(regs)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                    atol=1e-5)
+
+
+def test_stem_weights_s2d_layout():
+    """Row ((td*4 + th)*4 + tw)*8 + (qd*2 + qh)*2 + qw of the bf16 kernel's
+    weight operand is tap (2td + qd - 1, 2th + qh - 1, 2tw + qw - 1) of the
+    7^3 stem weights, or zero where a tap index is -1; and channel
+    (qd*2 + qh)*2 + qw of the space-to-depth voxel (i, j, k) is
+    x[2i + qd, 2j + qh, 2k + qw]."""
+    k = torch.arange(7 ** 3 * 3, dtype=torch.float32).reshape(7, 7, 7, 1, 3)
+    ws = stem_weights_s2d(k)
+    assert ws.shape == (512, 3)
+    for td in range(4):
+        for th in range(4):
+            for tw in range(4):
+                for q in range(8):
+                    qd, qh, qw = q >> 2, (q >> 1) & 1, q & 1
+                    i, j, l = 2 * td + qd - 1, 2 * th + qh - 1, 2 * tw + qw - 1
+                    want = (k[i, j, l, 0] if min(i, j, l) >= 0
+                            else torch.zeros(3))
+                    assert torch.equal(
+                        ws[((td * 4 + th) * 4 + tw) * 8 + q], want)
+    x = torch.arange(2 * 4 * 6 * 8, dtype=torch.float32).reshape(2, 4, 6, 8, 1)
+    xs = space_to_depth2(x)
+    assert xs.shape == (2, 2, 3, 4, 8)
+    for q in range(8):
+        qd, qh, qw = q >> 2, (q >> 1) & 1, q & 1
+        assert torch.equal(xs[..., q], x[:, qd::2, qh::2, qw::2, 0])
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 24, 32, 1), (1, 12, 20, 8, 1)])
+def test_stem_conv_s2d_equals_k7_s2_conv(shape):
+    """The bf16 kernel's form of the stem conv -- the stride-1 4^3 conv of
+    the space-to-depth input with :func:`stem_weights_s2d` -- equals
+    ``F.conv3d(k7, s2, p3)`` in float32: exactly on small integers (every
+    sum exact), and within rtol 1e-6 (atol 1e-6 of the peak, for the
+    summation order) on random normals."""
+    import torch.nn.functional as F
+    rng = np.random.RandomState(3)
+
+    def conv(x, k):
+        return F.conv3d(x.permute(0, 4, 1, 2, 3), k.permute(4, 3, 0, 1, 2),
+                        stride=2, padding=3).permute(0, 2, 3, 4, 1)
+
+    x = torch.from_numpy(rng.randint(-2, 3, shape).astype(np.float32))
+    k = torch.from_numpy(rng.randint(-3, 4, (7, 7, 7, 1, 64))
+                         .astype(np.float32))
+    assert torch.equal(stem_conv_s2d_plain(x, k), conv(x, k))
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+    k = torch.from_numpy((rng.randn(7, 7, 7, 1, 64) * 0.05)
+                         .astype(np.float32))
+    want = conv(x, k)
+    np.testing.assert_allclose(stem_conv_s2d_plain(x, k).numpy(),
+                               want.numpy(), rtol=1e-6,
+                               atol=1e-6 * want.abs().max().item())
