@@ -18,8 +18,9 @@ port on machines without ``nvcc`` or a card.
 ``LAUNCHES`` counts kernel launches by kernel name.  Each wrapper adds one
 right after its kernel was launched, and nowhere else, so a caller can
 show that a run went through the kernels (``reset_launches`` before,
-``launches`` after).  Kernels D and F run their partials and then a
-fixed-order sum of them as a second launch; one call counts once.
+``launches`` after).  Kernel D runs its partials and then a fixed-order
+sum of them as a second launch; one call counts once.  Kernel F is one
+launch per call.
 ``OP_LAUNCHES`` counts the kernel-A launches made for each opt-in
 conv-mode op (``pallas_conv3d``, ``tap_conv3d``, ``flat_conv3d``), which
 share kernel A (``op_launches``).
@@ -67,8 +68,9 @@ _SIGNATURES = {
     "conv3x3x3_wgrad": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # dtype, x, w, mul, add, stem, pooled, B, D, H, W, chunks, stream
     "stem_pool": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # dense, lung, workspace, num, den, B, D, H, W, C, splits, stream
-    "masked_sums": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # dtype, dense, lung, workspace, tickets, num, den, B, D, H, W, C,
+    # splits, stream
+    "masked_sums": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -41,13 +41,20 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    version at its three sites (the model's lesion fractions and the device
    path's reduction on (2, 64, 112, 144, 2) maps, the host path's predict
    step on (2, 128, 224, 288, 2)), a ragged C = 3 and a C = 1 shape, with
-   float32 maps and bf16 maps (which the wrapper casts): the masked sums
-   of kernel and plain version within 1e-5 relative of a float64 sum, the
-   lung sums equal to the voxel count, the kernel bit-equal on a second
-   run; times with the L2 cache flushed before each run (the inputs of the
-   smaller sites fit in its 50 MB), each call captured in a CUDA graph and
-   replayed, so the times are the device's (the time of one Python call
-   of the kernel's wrapper is printed beside them);
+   float32 maps and bf16 maps (which the kernel reads as bf16): the masked
+   sums of kernel and plain version within 1e-5 relative of a float64
+   sum, the lung sums equal to the voxel count, the kernel bit-equal on a
+   second run; times per call from one CUDA graph of 20 calls that cycle
+   through copies of the inputs holding at least twice the 50 MB L2
+   cache, so each call reads from device memory and the times are the
+   device's, without the launch overhead that a single replay of a
+   graph holds (the time of one Python call of the kernel's wrapper, L2
+   flushed, is printed beside them); the share of the byte bound per
+   site and per device-path batch; and ``torch.profiler``'s count and
+   device time of the kernels of 10 calls, which must be 10 kernel-F
+   kernels (one launch per call).  ``--masked-sums-only`` runs phases 1,
+   2 and 3d alone: a copy of this script in another checkout times that
+   checkout's kernel F the same way, so two versions compare in one run;
 4. main path — three synthetic scans through ``run_inference`` (med3ddram,
    bf16, batch 2, seeded random weights), output contract checked, kernel
    launch counts checked per batch (the forward's, plus one kernel-F call
@@ -142,6 +149,7 @@ The line before the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
 """
+import argparse
 import json
 import math
 import re
@@ -245,6 +253,8 @@ F_SITES = [("model regs", (B, 64, 112, 144, 2), 1),
            ("ragged", (3, 5, 7, 9, 3), 0),
            ("C=1", (B, 64, 112, 144, 1), 0)]
 F_REL_BOUND = 1e-5
+F_CALLS = 20                     # kernel-F calls per timed CUDA graph
+L2_BYTES = 50 * 2 ** 20          # the H100's L2 cache
 # (site, x shape, O) of the training convs, plus a ragged shape
 TRAIN_SITES = train_roll_site_shapes(B, TARGET) + [
     ("ragged", (1, 5, 7, 9, 20), 13)]
@@ -448,14 +458,15 @@ def nbytes(*tensors) -> int:
                if t is not None)
 
 
-def timed(kernel, plain, library, dtype, moved, flops, flush=None):
-    """Times of one site (kernel, plain version, library call) and its
-    bound: the larger of ``moved`` bytes (each input read once, each
-    output written once) over the HBM rate and ``flops`` over the dtype's
-    peak."""
-    r = {"ms": median_ms(kernel, flush=flush),
-         "plain_ms": median_ms(plain, flush=flush),
-         "library_ms": library_ms(library, flush=flush),
+def timed(kernel, plain, library, dtype, moved, flops, flush=None,
+          calls=1):
+    """Times of one site (kernel, plain version, library call; each of
+    them ``calls`` calls of it) and its bound: the larger of ``moved``
+    bytes (each input read once, each output written once) over the HBM
+    rate and ``flops`` over the dtype's peak."""
+    r = {"ms": median_ms(kernel, flush=flush) / calls,
+         "plain_ms": median_ms(plain, flush=flush) / calls,
+         "library_ms": library_ms(library, flush=flush) / calls,
          "bytes_ms": moved / HBM_BYTES_S * 1e3,
          "ops_ms": flops / PEAK_OPS[dtype] * 1e3}
     r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
@@ -799,24 +810,74 @@ def phase_mode_kernels():
     return summary
 
 
-def graphed(fn):
-    """``fn`` captured once into a CUDA graph; returns the replay.  A
-    replay's time is the device's, without the Python wrapper and the
-    launch overhead that dominate a call of tens of microseconds."""
+def graphed(fns):
+    """The calls ``fns`` captured in order into one CUDA graph; returns its
+    replay.  A replay's time is the device's, without the Python wrapper
+    and the launch overhead that dominate a call of tens of microseconds.
+    One eager round on the capture stream comes first, so what a call sets
+    up once per stream (kernel F's ticket array) is not in the graph."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for fn in fns:
+            fn()
+    torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        fn()
+    with torch.cuda.graph(g, stream=stream):
+        for fn in fns:
+            fn()
     return g.replay
 
 
+def device_kernels(fn):
+    """[(name, device us)] of the device kernels that ``fn`` runs, as
+    ``torch.profiler`` traces them."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.device_time_total) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def f_device_kernels(shape, flush, calls=10):
+    """{name: (count, mean device us)} of the device kernels that
+    ``calls`` eager kernel-F calls at ``shape`` launch, the L2 flushed
+    before each (the flush's own kernels left out)."""
+    dense = torch.rand(shape, device=DEV)
+    lung = (torch.rand(shape[:4] + (1,), device=DEV) > 0.4).float()
+    masked_sums(dense, lung)
+    skip = {name for name, _ in device_kernels(flush)}
+
+    def run():
+        for _ in range(calls):
+            flush()
+            masked_sums(dense, lung)
+
+    found = {}
+    for name, us in device_kernels(run):
+        if name not in skip:
+            n, total = found.get(name, (0, 0.0))
+            found[name] = (n + 1, total + us)
+    return {name: (n, total / n) for name, (n, total) in found.items()}
+
+
 def compare_f(gen, shape, dtype, flush):
-    """Kernel F against its plain version and a float64 sum; the times of
-    kernel, plain version and library call are CUDA-graph replays, and the
-    kernel's time per Python call is printed beside them."""
+    """Kernel F against its plain version and a float64 sum.  The times of
+    kernel, plain version and library call are per call, from one CUDA
+    graph of ``F_CALLS`` calls that cycle through copies of the inputs
+    holding together at least twice the L2 cache, so each call reads its
+    inputs from device memory; the kernel's time per Python call (L2
+    flushed before it) is printed beside them."""
     b, c = shape[0], shape[-1]
-    dense = torch.rand(shape, generator=gen, device=DEV).to(dtype)
-    lung = (torch.rand(shape[:4] + (1,), generator=gen, device=DEV)
-            > 0.4).float()
+
+    def inputs():
+        return (torch.rand(shape, generator=gen, device=DEV).to(dtype),
+                (torch.rand(shape[:4] + (1,), generator=gen, device=DEV)
+                 > 0.4).float())
+
+    dense, lung = inputs()
     num, den = masked_sums(dense, lung)
     num2, den2 = masked_sums(dense, lung)
     torch.cuda.synchronize()
@@ -830,14 +891,18 @@ def compare_f(gen, shape, dtype, flush):
     rel = {name: ((got.double() - ref).abs() / ref.abs()).max().item()
            for name, got in (("kernel", num), ("plain", plain_num))}
     ratio = max(rel.values()) / F_REL_BOUND
-    lung_row = lung.to(dtype).reshape(b, 1, -1)
-    dense3 = dense.reshape(b, -1, c)
-    calls = (lambda: masked_sums(dense, lung),
-             lambda: masked_sums_plain(dense, lung),
-             lambda: torch.bmm(lung_row, dense3))
-    r = timed(*(graphed(fn) for fn in calls), dtype,
-              nbytes(dense, lung, num, den), 0, flush=flush)
-    call_ms = median_ms(calls[0], flush=flush)
+    moved = nbytes(dense, lung, num, den)
+    copies = [(dense, lung)] + [inputs() for _ in range(
+        min(F_CALLS, -(-2 * L2_BYTES // moved)) - 1)]
+
+    def bmm(d, l):
+        return torch.bmm(l.to(dtype).reshape(b, 1, -1), d.reshape(b, -1, c))
+
+    r = timed(*(graphed([lambda i=i, fn=fn: fn(*copies[i % len(copies)])
+                         for i in range(F_CALLS)])
+                for fn in (masked_sums, masked_sums_plain, bmm)),
+              dtype, moved, 0, calls=F_CALLS)
+    call_ms = median_ms(lambda: masked_sums(dense, lung), flush=flush)
     delta = (num.double() - ref).abs().float()
     return delta, ratio, (f"num rel|d| kernel {rel['kernel']:.2e} plain "
                           f"{rel['plain']:.2e} <= {F_REL_BOUND:g} of float64; "
@@ -849,6 +914,7 @@ def phase_masked_sums():
           "float64 (its three sites, ragged, C=1)")
     gen = torch.Generator(device=DEV).manual_seed(3)
     summary = new_summary()
+    shares = []
     l2 = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEV)
     flush = l2.zero_                 # 64 MB > the H100's 50 MB L2
     for site, shape, count in F_SITES:
@@ -857,13 +923,29 @@ def phase_masked_sums():
             delta, ratio, btxt, r, call_ms = compare_f(gen, shape, dtype,
                                                        flush)
             report("masked_sums", site, dname, shape, delta, ratio, btxt, r,
-                   f" per call {call_ms:.4f} ms; graph replays:")
+                   f" per Python call {call_ms:.4f} ms; per call in a "
+                   f"graph of {F_CALLS}:")
             accumulate(summary, delta, r, count, dtype, main=torch.float32)
+            shares.append(f"{site} {dname} "
+                          f"{100 * r['bound_ms'] / r['ms']:.1f}%")
             torch.cuda.empty_cache()
+    print(f"kernel F share of its byte bound per site: {', '.join(shares)}")
     print(f"per B=2 device-path batch (model regs + reduction, float32 "
-          f"maps; CUDA-graph replays): kernel F {summary['ms']:.4f} ms (plain "
+          f"maps; calls in CUDA graphs): kernel F {summary['ms']:.4f} ms "
+          f"(plain "
           f"{summary['plain_ms']:.4f}, torch.bmm {summary['library_ms']:.4f} "
-          f"without the lung sum, bound {summary['bound_ms']:.4f})")
+          f"without the lung sum, bound {summary['bound_ms']:.4f}: "
+          f"{100 * summary['bound_ms'] / summary['ms']:.1f}% of it)")
+    calls, shape = 10, F_SITES[0][1]
+    kernels = f_device_kernels(shape, flush, calls)
+    print(f"kernel F device kernels in {calls} calls at {shape} "
+          f"(torch.profiler, L2 flushed before each): " + "; ".join(
+              f"{name}: {n} x {us:.1f} us" for name, (n, us) in
+              kernels.items()))
+    check(sum(n for n, _ in kernels.values()) == calls and
+          all("masked_sums" in name for name in kernels),
+          "kernel F is not one device kernel per call")
+    print("kernel F: one device kernel per call")
     return summary
 
 
@@ -1612,6 +1694,16 @@ def phase_train50(work: Path):
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--masked-sums-only", action="store_true",
+        help="run phases 1, 2 and 3d only (kernel F); copied into another "
+             "checkout, this times that checkout's F by the same method")
+    if parser.parse_args().masked_sums_only:
+        phase_environment()
+        phase_build()
+        phase_masked_sums()
+        return
     card = phase_environment()
     phase_build()
     summary = phase_kernels()

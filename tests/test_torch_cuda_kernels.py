@@ -322,11 +322,31 @@ def test_stem_pool_bf16_d_ranges(dev, shape, chunks):
         _assert_close(got, ref, torch.bfloat16)
 
 
+def _sums_inputs(shape, dtype, dev, seed=9):
+    rng = np.random.RandomState(seed)
+    dense = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(
+        dev, dtype)
+    lung = torch.from_numpy(
+        (rng.rand(*shape[:4], 1) > 0.4).astype(np.float32)).to(dev)
+    return dense, lung
+
+
+def _assert_sums_held(dense, lung, num, den):
+    """Kernel F's bounds: the masked sums within 1e-5 relative of a float64
+    sum (float32 sums in another order), the lung sums equal to the count
+    of lung voxels."""
+    ref = (dense.double() * lung.double()).sum((1, 2, 3))
+    assert num.dtype == den.dtype == torch.float32 and num.shape == ref.shape
+    err = (num.double() - ref).abs()
+    assert torch.all(err <= 1e-5 * ref.abs())
+    assert torch.equal(den.double(), lung.double().sum((1, 2, 3, 4)))
+
+
 @pytest.mark.parametrize("shape,dtype", [
     ((3, 5, 7, 9, 3), torch.float32),       # ragged, C = 3: the generic loop
     ((2, 5, 7, 9, 2), torch.float32),       # odd voxel count: generic loop
     ((1, 4, 6, 8, 1), torch.float32),       # C = 1, 16-byte loads
-    ((2, 4, 6, 8, 4), torch.bfloat16),      # C = 4, cast to float32 first
+    ((2, 4, 6, 8, 4), torch.bfloat16),      # C = 4, bf16 read in the kernel
     ((2, 32, 56, 72, 2), torch.float32),    # C = 2, many voxel ranges
     ((1, 16, 28, 36, 5), torch.float32),    # many ranges, generic loop
 ])
@@ -335,11 +355,7 @@ def test_masked_sums_kernel_matches_plain(dev, shape, dtype):
     relative of a float64 sum (both are float32 sums, in other orders), the
     lung sums equal to the count of lung voxels, and the same bits on a
     second run."""
-    rng = np.random.RandomState(9)
-    dense = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(
-        dev, dtype)
-    lung = torch.from_numpy(
-        (rng.rand(*shape[:4], 1) > 0.4).astype(np.float32)).to(dev)
+    dense, lung = _sums_inputs(shape, dtype, dev)
     before = cuda_build.launches()["masked_sums"]
     num, den = masked_sums(dense, lung)
     num2, den2 = masked_sums(dense, lung)
@@ -353,6 +369,101 @@ def test_masked_sums_kernel_matches_plain(dev, shape, dtype):
     assert torch.equal(den.double(), lung.double().sum((1, 2, 3, 4)))
     if shape[1] >= 16:
         assert masked_sums_splits(shape[0], int(np.prod(shape[1:4]))) > 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [
+    (2, 32, 56, 70, 2),     # ranges of 4048 voxels: a step holds 4096
+    (2, 23, 40, 61, 1),     # C = 1: 8 bf16 voxels per load, 4 in flight
+    (1, 20, 30, 44, 4),     # C = 4: one float32 voxel per load
+])
+def test_masked_sums_kernel_ragged_last_step(dev, dtype, shape):
+    """The 16-byte loop where every range ends inside a thread's unrolled
+    step (its loads past the end add nothing) and the last range is short,
+    in float32 and bf16 maps."""
+    n = int(np.prod(shape[1:4]))
+    splits = masked_sums_splits(shape[0], n)
+    chunk = -(-(-(-n // splits)) // 8) * 8          # the kernel's range
+    vpl = (4 if dtype == torch.float32 else 8) // shape[-1]
+    step = 256 * vpl * (4 if vpl > 4 else 8)         # MT * VPL * unroll
+    assert splits > 1 and chunk % step and n % chunk
+    dense, lung = _sums_inputs(shape, dtype, dev)
+    _assert_sums_held(dense, lung, *masked_sums(dense, lung))
+
+
+@pytest.mark.parametrize("case", ["offset view", "C=127", "empty lung"])
+def test_masked_sums_kernel_edges(dev, case):
+    """A dense view one float past a 16-byte boundary (the generic loop),
+    C = 127 (the most the kernel takes), and a sample whose lung is empty
+    (den = 0, num = 0)."""
+    shape = (2, 6, 10, 12, 127) if case == "C=127" else (3, 16, 28, 36, 2)
+    dense, lung = _sums_inputs(shape, torch.float32, dev)
+    if case == "offset view":
+        flat = torch.zeros(dense.numel() + 1, device=dev)
+        flat[1:] = dense.reshape(-1)
+        dense = flat[1:].view(shape)
+        assert dense.data_ptr() % 16 == 4
+    if case == "empty lung":
+        lung[1] = 0.0
+    num, den = masked_sums(dense, lung)
+    _assert_sums_held(dense, lung, num, den)
+    if case == "empty lung":
+        assert den[1].item() == 0.0 and torch.all(num[1] == 0.0)
+        assert torch.all(den[[0, 2]] > 0)
+
+
+def test_masked_sums_kernel_back_to_back_bit_equal(dev):
+    """Twenty calls in a row on one stream give the same bits: the final
+    sum's order does not depend on which block finishes last, and every
+    call leaves the tickets at zero for the next."""
+    dense, lung = _sums_inputs((2, 32, 56, 72, 2), torch.float32, dev)
+    outs = [masked_sums(dense, lung) for _ in range(20)]
+    torch.cuda.synchronize()
+    for num, den in outs[1:]:
+        assert torch.equal(num, outs[0][0]) and torch.equal(den, outs[0][1])
+    _assert_sums_held(dense, lung, *outs[0])
+
+
+def test_masked_sums_kernel_in_a_cuda_graph(dev):
+    """One call captured in a CUDA graph (its stream's tickets made before
+    the capture, so the graph holds the kernel alone) and replayed three
+    times: each replay bit-equal to an eager call, which shows that the
+    kernel returns its tickets to zero."""
+    dense, lung = _sums_inputs((2, 32, 56, 72, 2), torch.float32, dev)
+    want = masked_sums(dense, lung)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        masked_sums(dense, lung)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        num, den = masked_sums(dense, lung)
+    for _ in range(3):
+        num.zero_()
+        den.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(num, want[0]) and torch.equal(den, want[1])
+
+
+def test_masked_sums_kernel_on_two_streams_at_once(dev):
+    """Two calls in flight at once on two streams, each with its own
+    tickets, give what each gives alone."""
+    inputs = [_sums_inputs((2, 32, 56, 72, 2), torch.float32, dev, seed)
+              for seed in (1, 2)]
+    want = [masked_sums(d, l) for d, l in inputs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = []
+    for s, (d, l) in zip(streams, inputs):
+        with torch.cuda.stream(s):
+            got.append([masked_sums(d, l) for _ in range(5)])
+    torch.cuda.synchronize()
+    for calls, (wn, wd) in zip(got, want):
+        for num, den in calls:
+            assert torch.equal(num, wn) and torch.equal(den, wd)
 
 
 @pytest.mark.parametrize("lung_shape", [(2, 8, 12, 16, 1), (2, 16, 24, 32, 1)])

@@ -5,6 +5,8 @@ JAX runs under ``jax.default_matmul_precision("highest")``.  Masked sums
 within rtol 1e-5 (float32 sums in another order), lung sums exact (0/1
 values); fractions within rtol 1e-5; the gradient within rtol 1e-6 (the
 same float32 division and product on both sides)."""
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +21,7 @@ from bodyct_dram_emph_subtype_tpu_torch.ops import cuda_build
 from bodyct_dram_emph_subtype_tpu_torch.ops.masked_pool import \
     lung_masked_fraction
 from bodyct_dram_emph_subtype_tpu_torch.ops.pallas_kernels import (
+    MAX_CHANNELS, SUMS_BLOCKS_PER_SM, SUMS_THREADS,
     lung_masked_fraction_kernel, masked_sums, masked_sums_plain,
     masked_sums_splits)
 
@@ -36,7 +39,7 @@ def _inputs(shape, seed=0, lung_shape=None):
     ((1, 4, 8, 128, 1), torch.float32),
     ((2, 5, 7, 9, 3), torch.float32),      # ragged, C = 3
     ((1, 3, 5, 7, 1), torch.float32),      # ragged, C = 1
-    ((2, 5, 7, 9, 2), torch.bfloat16),     # cast to float32 first
+    ((2, 5, 7, 9, 2), torch.bfloat16),     # widened exactly to float32
 ])
 def test_masked_sums_match_pallas(shape, dtype):
     dense, lung = _inputs(shape)
@@ -71,8 +74,17 @@ def test_masked_sums_refuse_what_the_kernel_cannot_take():
 
 
 def test_masked_sums_splits():
-    assert masked_sums_splits(2, 64 * 112 * 144) == 252
-    assert masked_sums_splits(2, 128 * 224 * 288) == 528
+    """Kernel F's launch plan: the mirrored block size and blocks per SM
+    equal the ``constexpr`` values of ``csrc/masked_sums.cu``; one wave of
+    2 blocks on each of the H100's 132 SMs (132 ranges per sample at
+    B = 2), fewer where a block would get under 16 voxels per thread."""
+    src = dict(re.findall(r"constexpr int (\w+) = (\d+);",
+                          (cuda_build.CSRC / "masked_sums.cu").read_text()))
+    assert int(src["MT"]) == SUMS_THREADS == 256
+    assert int(src["kBlocksPerSM"]) == SUMS_BLOCKS_PER_SM == 2
+    assert int(src["kMaxC"]) == MAX_CHANNELS
+    assert masked_sums_splits(2, 64 * 112 * 144) == 132
+    assert masked_sums_splits(2, 128 * 224 * 288) == 132
     assert masked_sums_splits(1, 5 * 7 * 9) == 1
 
 
