@@ -7,8 +7,8 @@ Numpy-only copy of ``bodyct_dram_emph_subtype_tpu/data/datasets.py``'s
 iterations, full 3^3 structure), outside-lung -2048 mask-out, lung-bbox
 crop + 5 mm border, -910 HU ``ess_mask``, per-uid ITK meta cache; and the
 training dataset ``COPDGeneSubtyping`` over a per-series ``.npz`` archive
-and its ``merged.csv`` (reference ``dataset.py:96-155``).  Reference
-``.pth`` caches are not read yet (ROADMAP section 1).
+or a reference ``{uid}.pth`` cache, and its ``merged.csv`` (reference
+``dataset.py:96-155``).
 """
 from __future__ import annotations
 
@@ -34,6 +34,22 @@ def ratio_to_label(ratio: float, ratio_mapping: Dict[int, tuple]) -> int:
         if lo <= ratio < hi:
             return label
     raise ValueError(f"ratio {ratio} outside every interval")
+
+
+def load_torch_cache(path) -> Dict[str, Any]:
+    """A reference training cache ``{uid}.pth`` (a dict of tensors and
+    labels, ``dataset.py:148``) with its tensors as numpy arrays, as the
+    ``.npz`` branch and the JAX package's torch-free reader
+    (``data/torch_pickle.py``) return them (bfloat16, which numpy lacks,
+    widened to float32), and the ``*_label`` entries as Python ints."""
+    import torch
+    data = torch.load(path, map_location="cpu", weights_only=True)
+    out = {}
+    for k, v in data.items():
+        if isinstance(v, torch.Tensor):
+            v = (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+        out[k] = int(v) if k.endswith("_label") else v
+    return out
 
 
 class SubtypingInference:
@@ -167,12 +183,11 @@ class COPDGeneSubtyping:
         if npz.exists():
             with np.load(npz) as z:
                 return {k: z[k] for k in z.files}
-        if (Path(self.archive_path) / f"{uid}.pth").exists():
-            raise NotImplementedError(
-                f"{uid}.pth: reference .pth caches are not read by the "
-                f"PyTorch package yet (ROADMAP section 1); convert the "
-                f"archive to .npz")
-        raise FileNotFoundError(f"no cache entry for series {uid} ({npz})")
+        pth = Path(self.archive_path) / f"{uid}.pth"
+        if pth.exists():
+            return load_torch_cache(pth)
+        raise FileNotFoundError(f"no cache entry for series {uid} "
+                                f"({npz} / {pth})")
 
     def get_data(self, uid: str) -> Dict[str, Any]:
         data = self._load_cached(uid)

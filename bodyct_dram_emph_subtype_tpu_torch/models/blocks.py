@@ -3,7 +3,8 @@
 Counterpart of the logical (non-packed) parts of
 ``bodyct_dram_emph_subtype_tpu/models/blocks.py``; reference ``med3d.py``:
 ``conv3x3x3`` (:91-100), ``downsample_basic_block`` (shortcut 'A',
-:103-112), ``BasicBlock`` (:115-144), ``Bottleneck`` (:147-184),
+:103-112), the 1x1x1 conv + BN shortcut 'B' (:250-260), ``BasicBlock``
+(:115-144), ``Bottleneck`` (:147-184),
 ``crop_concat_5d`` (:39-48) and ``UpsampleConvBlock5d`` (:50-89).
 
 Parameters are ``nn.Conv3d`` / ``nn.BatchNorm3d`` under the reference's
@@ -245,8 +246,49 @@ def downsample_shortcut_a(x: torch.Tensor, planes: int,
     return x
 
 
+class DownsampleB(nn.Sequential):
+    """Shortcut type 'B' (``med3d.py:250-260``): a 1x1x1 conv with stride
+    ``stride`` and no bias (cuDNN, rounded to the compute dtype), then
+    BatchNorm; the reference's children ``downsample.0`` / ``downsample.1``.
+    Pointwise, so the JAX package's space-to-batch domain of layer3/4
+    computes the same numbers on the logical tensor."""
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1):
+        super().__init__(nn.Conv3d(inplanes, planes, 1, stride, bias=False),
+                         nn.BatchNorm3d(planes))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv, bn = self
+        bn_fn = batch_norm_train if self.training else affine
+        return bn_fn(conv3d_apply(x, conv), bn)
+
+
+def _shortcut(block: nn.Module, inplanes: int, planes: int, stride: int,
+              shortcut_type: str) -> None:
+    """Set ``block.use_downsample`` by the JAX rule (``need_ds``,
+    ``resnet3d.py:228-229``: a stride or a change of width) and, for
+    shortcut type 'B', its ``downsample`` module."""
+    if shortcut_type not in ("A", "B"):
+        raise ValueError(f"shortcut_type must be 'A' or 'B', not "
+                         f"{shortcut_type!r}")
+    block.planes, block.stride = planes, stride
+    block.use_downsample = stride != 1 or inplanes != planes
+    block.shortcut_type = shortcut_type
+    if block.use_downsample and shortcut_type == "B":
+        block.downsample = DownsampleB(inplanes, planes, stride)
+
+
+def _residual(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    if not block.use_downsample:
+        return x
+    if block.shortcut_type == "B":
+        return block.downsample(x)
+    return downsample_shortcut_a(x, block.planes, block.stride)
+
+
 class BasicBlock(nn.Module):
-    """Two 3x3x3 convs + identity / type-'A' shortcut (``med3d.py:115-144``).
+    """Two 3x3x3 convs + identity / type-'A' or 'B' shortcut
+    (``med3d.py:115-144``).
 
     In eval mode under conv mode ``roll`` the identity blocks of layer1 and
     the layer2 tail run through ``ops/layer1_kernel.py`` (kernel A); this
@@ -257,11 +299,8 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 dilation: int = 1):
+                 dilation: int = 1, shortcut_type: str = "A"):
         super().__init__()
-        self.planes = planes
-        self.stride = stride
-        self.use_downsample = stride != 1 or inplanes != planes
         self.roll_train = False
         self.conv1 = nn.Conv3d(inplanes, planes, 3, stride, dilation,
                                dilation, bias=False)
@@ -269,6 +308,7 @@ class BasicBlock(nn.Module):
         self.conv2 = nn.Conv3d(planes, planes, 3, 1, dilation, dilation,
                                bias=False)
         self.bn2 = nn.BatchNorm3d(planes)
+        _shortcut(self, inplanes, planes, stride, shortcut_type)
 
     def _conv(self, x: torch.Tensor, conv: nn.Conv3d) -> torch.Tensor:
         if self.training and self.roll_train and _CONV3D_MODE == "roll":
@@ -279,9 +319,7 @@ class BasicBlock(nn.Module):
         bn = batch_norm_train if self.training else affine
         out = torch.relu(bn(self._conv(x, self.conv1), self.bn1))
         out = bn(self._conv(out, self.conv2), self.bn2)
-        residual = (downsample_shortcut_a(x, self.planes, self.stride)
-                    if self.use_downsample else x)
-        return torch.relu(out + residual)
+        return torch.relu(out + _residual(self, x))
 
     def fused_params(self):
         """(kernels, muls, adds) of both convs for ``fused_layer1``."""
@@ -297,11 +335,8 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 dilation: int = 1):
+                 dilation: int = 1, shortcut_type: str = "A"):
         super().__init__()
-        self.planes = planes
-        self.stride = stride
-        self.use_downsample = stride != 1 or inplanes != planes * 4
         self.conv1 = nn.Conv3d(inplanes, planes, 1, bias=False)
         self.bn1 = nn.BatchNorm3d(planes)
         self.conv2 = nn.Conv3d(planes, planes, 3, stride, dilation, dilation,
@@ -309,15 +344,14 @@ class Bottleneck(nn.Module):
         self.bn2 = nn.BatchNorm3d(planes)
         self.conv3 = nn.Conv3d(planes, planes * 4, 1, bias=False)
         self.bn3 = nn.BatchNorm3d(planes * 4)
+        _shortcut(self, inplanes, planes * 4, stride, shortcut_type)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bn = batch_norm_train if self.training else affine
         out = torch.relu(bn(conv3d_apply(x, self.conv1), self.bn1))
         out = torch.relu(bn(conv3d_apply(out, self.conv2), self.bn2))
         out = bn(conv3d_apply(out, self.conv3), self.bn3)
-        residual = (downsample_shortcut_a(x, self.planes * 4, self.stride)
-                    if self.use_downsample else x)
-        return torch.relu(out + residual)
+        return torch.relu(out + _residual(self, x))
 
 
 def crop_concat(t1: torch.Tensor, t2: torch.Tensor) -> torch.Tensor:
@@ -340,19 +374,33 @@ def decoder_kernels(packed: bool) -> bool:
     return packed and _CONV3D_MODE == "roll"
 
 
+def decoder_stage(x: torch.Tensor, conv: nn.Conv3d, bn: nn.BatchNorm3d,
+                  packed: bool, training: bool) -> torch.Tensor:
+    """One decoder stage ``relu(bn(conv(x)))`` (``packed.py::packed_stage``
+    and the unpacked ``UpsampleConvBlock`` / us3 stages).  For the packed
+    decoder under conv mode ``roll`` (:func:`decoder_kernels`) an eval stage
+    is one launch of kernel A with the conv bias and eval BN folded into its
+    epilogue, and a training stage is ``roll_conv_packed`` + bias, train BN,
+    ReLU.  Otherwise conv, BN, ReLU with the JAX unpacked rounding chain,
+    the conv through :func:`conv3d_apply` (cuDNN under ``roll``; kernel A
+    where a conv mode's gate passes) or, for the packed decoder outside
+    ``roll`` (``PackedConv3`` calls XLA's conv there, packed.py:318-328),
+    on cuDNN."""
+    kernels = decoder_kernels(packed)
+    if training or not kernels:
+        bn_fn = batch_norm_train if training else affine
+        y = (roll_conv_bias(x, conv) if kernels
+             else decoder_conv(x, conv, packed))
+        return torch.relu(bn_fn(y, bn))
+    mul, add = bn_affine(bn)
+    return roll_conv_affine_relu(x, kernel_dhwio(conv), mul,
+                                 conv.bias.float() * mul + add)
+
+
 class UpsampleConvBlock(nn.Module):
     """x2 trilinear (align_corners=True) upsample as interpolation-matrix
-    products + crop-concat + conv-BN-ReLU stages (``med3d.py:50-89``).
-    For the packed decoder under conv mode ``roll``
-    (:func:`decoder_kernels`) each eval stage is one launch of kernel A
-    with the conv bias and eval BN folded into its epilogue
-    (``packed.py::packed_stage``), and each training stage is
-    ``roll_conv_packed`` + bias, train BN, ReLU.  Otherwise a stage is
-    conv, BN, ReLU with the JAX unpacked rounding chain, the conv through
-    :func:`conv3d_apply` (cuDNN under ``roll``; kernel A where a conv
-    mode's gate passes) or, for the packed decoder outside ``roll``
-    (``PackedConv3`` calls XLA's conv there, packed.py:318-328), on
-    cuDNN."""
+    products + crop-concat + conv-BN-ReLU stages (``med3d.py:50-89``),
+    each a :func:`decoder_stage`."""
 
     def __init__(self, in_chs: int, base_chs: Sequence[int] = (64, 64),
                  scale_factor: int = 2):
@@ -373,16 +421,6 @@ class UpsampleConvBlock(nn.Module):
         up = resize_linear_matmul(inputs, (d * s, h * s, w * s), (1, 2, 3),
                                   align_corners=True).to(inputs.dtype)
         x = crop_concat(up, cats.to(inputs.dtype)).contiguous()
-        kernels = decoder_kernels(packed)
-        if self.training or not kernels:
-            bn_fn = batch_norm_train if self.training else affine
-            for conv, bn, _ in self.conv_blocks:
-                y = (roll_conv_bias(x, conv) if kernels
-                     else decoder_conv(x, conv, packed))
-                x = torch.relu(bn_fn(y, bn))
-            return x
         for conv, bn, _ in self.conv_blocks:
-            mul, add = bn_affine(bn)
-            x = roll_conv_affine_relu(x, kernel_dhwio(conv), mul,
-                                      conv.bias.float() * mul + add)
+            x = decoder_stage(x, conv, bn, packed, self.training)
         return x

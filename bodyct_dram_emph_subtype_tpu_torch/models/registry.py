@@ -9,29 +9,33 @@ same six reference arch names (``conf/*.yaml`` + ``utils.py:83-85``):
 
 plus the tiny 1-block-per-layer archs (``med3dtiny``, ``med3ddramtiny``)
 and the plain baselines ``resnet34`` / ``resnet50``.  Repo-local
-``conf/<name>.yaml`` files are read first, as in the JAX package.  The
-classification models (``ResNetSegCls``, ``ResNet``) are not ported yet:
-their names resolve, and building one raises ``NotImplementedError``.
+``conf/<name>.yaml`` files are read first, as in the JAX package; their
+``n_classes`` reaches the classification factories and is dropped for
+the dRAM ones, which have no class heads.
 """
 from __future__ import annotations
 
 import logging
 import re
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 from .blocks import BasicBlock, Bottleneck
-from .resnet3d import ResNetSegReg
+from .resnet3d import ResNet, ResNetSegCls, ResNetSegReg
 
 logger = logging.getLogger(__name__)
 
 
-def _not_ported(name: str):
-    def factory(**kw):
-        raise NotImplementedError(
-            f"{name} (a classification model) is not ported to the PyTorch "
-            f"package yet; the dRAM regression archs are")
-    return factory
+def resnet18segcls(**kw):
+    return ResNetSegCls(BasicBlock, (2, 2, 2, 2), **kw)
+
+
+def resnet34segcls(**kw):
+    return ResNetSegCls(BasicBlock, (3, 4, 6, 3), **kw)
+
+
+def resnet50segcls(**kw):
+    return ResNetSegCls(Bottleneck, (3, 4, 6, 3), **kw)
 
 
 def resnet18segreg(**kw):
@@ -46,31 +50,45 @@ def resnet50segreg(**kw):
     return ResNetSegReg(Bottleneck, (3, 4, 6, 3), **kw)
 
 
+def resnet34(**kw):
+    return ResNet(BasicBlock, (3, 4, 6, 3), **kw)
+
+
+def resnet50(**kw):
+    return ResNet(Bottleneck, (3, 4, 6, 3), **kw)
+
+
+def resnettinysegcls(**kw):
+    return ResNetSegCls(BasicBlock, (1, 1, 1, 1), **kw)
+
+
 def resnettinysegreg(**kw):
     return ResNetSegReg(BasicBlock, (1, 1, 1, 1), **kw)
 
 
 _FACTORIES = {
-    "resnet18segcls": _not_ported("resnet18segcls"),
-    "resnet34segcls": _not_ported("resnet34segcls"),
-    "resnet50segcls": _not_ported("resnet50segcls"),
+    "resnet18segcls": resnet18segcls,
+    "resnet34segcls": resnet34segcls,
+    "resnet50segcls": resnet50segcls,
     "resnet18segreg": resnet18segreg,
     "resnet34segreg": resnet34segreg,
     "resnet50segreg": resnet50segreg,
-    "resnet34": _not_ported("resnet34"),
-    "resnet50": _not_ported("resnet50"),
-    "resnettinysegcls": _not_ported("resnettinysegcls"),
+    "resnet34": resnet34,
+    "resnet50": resnet50,
+    "resnettinysegcls": resnettinysegcls,
     "resnettinysegreg": resnettinysegreg,
 }
+# the plain classifiers (ResNet): no decoder and no lung-mask argument
+PLAIN_FACTORIES = ("resnet34", "resnet50")
 
 _ARCH_TO_TARGET = {
-    "med3d": ("resnet34segcls", {}),
-    "med3d18": ("resnet18segcls", {}),
-    "med3d50": ("resnet50segcls", {}),
+    "med3d": ("resnet34segcls", {"n_classes": (6, 3)}),
+    "med3d18": ("resnet18segcls", {"n_classes": (6, 3)}),
+    "med3d50": ("resnet50segcls", {"n_classes": (6, 3)}),
     "med3ddram": ("resnet34segreg", {}),
     "med3ddram18": ("resnet18segreg", {}),
     "med3ddram50": ("resnet50segreg", {}),
-    "med3dtiny": ("resnettinysegcls", {}),
+    "med3dtiny": ("resnettinysegcls", {"n_classes": (6, 3)}),
     "med3ddramtiny": ("resnettinysegreg", {}),
 }
 
@@ -94,12 +112,11 @@ def _parse_conf_yaml(path: Path) -> Dict[str, Any]:
     return cfg
 
 
-def get_model_by_name(name: str, conf_dir: Optional[str] = None,
-                      **overrides):
-    """Build a model by arch name: repo-local ``conf/<name>.yaml`` (from
-    ``conf_dir``, ``./conf`` or the repo's ``conf/``), then the built-in
-    arch table, then direct factory names.  ``overrides`` go to the
-    model's constructor (e.g. ``generator=``)."""
+def resolve_arch(name: str, conf_dir: Optional[str] = None
+                 ) -> Tuple[str, Dict[str, Any]]:
+    """(factory name, constructor kwargs) of arch ``name``: repo-local
+    ``conf/<name>.yaml`` (from ``conf_dir``, ``./conf`` or the repo's
+    ``conf/``), then the built-in arch table, then direct factory names."""
     search = [Path(conf_dir)] if conf_dir else [
         Path("conf"), Path(__file__).resolve().parents[2] / "conf"]
     for base in search:
@@ -108,18 +125,26 @@ def get_model_by_name(name: str, conf_dir: Optional[str] = None,
             cfg = _parse_conf_yaml(path)
             target = cfg.pop("_target_", None)
             if target in _FACTORIES:
-                # n_classes configures the classification heads only
-                cfg.pop("n_classes", None)
-                cfg.update(overrides)
-                return _FACTORIES[target](**cfg)
+                if target.endswith("segreg"):
+                    # n_classes configures the classification heads only
+                    cfg.pop("n_classes", None)
+                return target, cfg
             logger.warning(
                 "config %s has unknown _target_ %r (known factories: %s); "
                 "falling back to the builtin arch table for %r",
                 path, target, sorted(_FACTORIES), name)
     if name in _ARCH_TO_TARGET:
         target, kwargs = _ARCH_TO_TARGET[name]
-        return _FACTORIES[target](**{**kwargs, **overrides})
+        return target, dict(kwargs)
     if name in _FACTORIES:
-        return _FACTORIES[name](**overrides)
+        return name, {}
     raise KeyError(f"unknown model arch: {name!r}; "
                    f"known: {sorted(_ARCH_TO_TARGET) + sorted(_FACTORIES)}")
+
+
+def get_model_by_name(name: str, conf_dir: Optional[str] = None,
+                      **overrides):
+    """Build a model by arch name (:func:`resolve_arch`); ``overrides``
+    go to the model's constructor (e.g. ``generator=``)."""
+    target, kwargs = resolve_arch(name, conf_dir)
+    return _FACTORIES[target](**{**kwargs, **overrides})

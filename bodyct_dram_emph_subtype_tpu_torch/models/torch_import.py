@@ -160,10 +160,13 @@ def load_reference_checkpoint(model: torch.nn.Module, path: str
     skipped with a warning, missing ones reported.  The file is a pickle
     written by the reference trainer (``torch.load`` with
     ``weights_only=False``, as the reference itself loads it): load only
-    checkpoints from a trusted source."""
+    checkpoints from a trusted source.  The port trainer's own checkpoint
+    (``train/checkpoint.py``) loads its ``model`` entry."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(ckpt, dict) and "state_dict" in ckpt:
         ckpt = ckpt["state_dict"]
+    elif isinstance(ckpt, dict) and isinstance(ckpt.get("model"), Mapping):
+        ckpt = ckpt["model"]        # the port trainer's ``epoch_<n>.pt``
     return load_state_dict_greedy(model, ckpt)
 
 

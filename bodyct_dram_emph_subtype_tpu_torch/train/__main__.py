@@ -8,9 +8,14 @@
 The flags of the root ``train.py`` that this slice supports, and the same
 flow (``train.py:123-133``): ``init_state`` -> ``setup_checkpointing`` ->
 ``try_resume`` -> ``fit`` -> ``restore_best`` -> ``evaluate("test")``.
+Both strategies run: dRAM regression for the ``med3ddram*`` archs, the
+classification strategy (weighted cross entropy, adaptive class
+re-weighting) for ``med3d``, ``med3d18``, ``med3d50`` and ``med3dtiny``.
 ``--input_pipeline device``, ``--mesh``, ``--multihost``, ``--ngpus`` > 1,
-``--remat`` other than ``none``, ``--noise_rng rbg`` and the CLS archs
-raise ``NotImplementedError``; ``--packed_decoder`` reaches the model
+``--remat`` other than ``none`` and ``--noise_rng rbg`` raise
+``NotImplementedError``; the plain ``resnet34``/``resnet50`` raise
+``ValueError`` (no lung mask: the JAX trainer cannot train them either).
+``--packed_decoder`` reaches the model
 (under conv mode ``roll`` its decoder convs then run on kernels A/D, as
 the JAX packed decoder's run on its roll kernels; outside ``roll`` on
 cuDNN, as JAX's run on XLA; without the flag the decoder runs on cuDNN),
@@ -20,13 +25,37 @@ ported and log so.  The conv mode comes from ``$BODYCT_CONV3D_MODE``
 one unless given ``--device cpu``, which runs every kernel site's plain
 version.
 """
+import contextlib
 import logging
 from argparse import ArgumentParser
+from pathlib import Path
 from typing import Optional, Sequence
 
 
-def _size(text: str):
+def parse_size(text: str):
     return tuple(int(v) for v in text.replace("x", ",").split(","))
+
+
+@contextlib.contextmanager
+def logging_to(exp_path: Path):
+    """Root logging at INFO to ``exp_path/debug.log`` and the console
+    while the block runs (the reference's ``debug.log``)."""
+    exp_path.mkdir(parents=True, exist_ok=True)
+    root = logging.getLogger()
+    handlers = [logging.FileHandler(exp_path / "debug.log"),
+                logging.StreamHandler()]
+    for handler in handlers:
+        handler.setFormatter(logging.Formatter(
+            "%(asctime)s [%(levelname)s] %(message)s"))
+        root.addHandler(handler)
+    if root.level > logging.INFO or root.level == logging.NOTSET:
+        root.setLevel(logging.INFO)
+    try:
+        yield
+    finally:
+        for handler in handlers:
+            root.removeHandler(handler)
+            handler.close()
 
 
 def build_parser() -> ArgumentParser:
@@ -44,7 +73,8 @@ def build_parser() -> ArgumentParser:
     p.add_argument("--weight_decay", default=None, type=float,
                    help="ignored (reference parity: Adam uses lr only)")
     p.add_argument("--ckp", type=str, default=None)
-    p.add_argument("--target_size", default=(128, 224, 288), type=_size)
+    p.add_argument("--target_size", default=(128, 224, 288),
+                   type=parse_size)
     p.add_argument("--data_path", default="./COPDGene_cache/", type=str)
     p.add_argument("--train_csv", default="./COPDGene_cache/merged.csv")
     p.add_argument("--valid_csv", default="./COPDGene_cache/merged.csv")
@@ -62,7 +92,7 @@ def build_parser() -> ArgumentParser:
                    choices=["float32", "bfloat16"])
     p.add_argument("--input_pipeline", default="host",
                    choices=["host", "device"])
-    p.add_argument("--pad_shape", default=None, type=_size,
+    p.add_argument("--pad_shape", default=None, type=parse_size,
                    help="device input pipeline only (not ported)")
     p.add_argument("--multihost", action="store_true")
     p.add_argument("--profile", action="store_true")
@@ -104,17 +134,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         grad_accum=args.grad_accum, packed_decoder=args.packed_decoder,
         device=args.device)
     trainer = SubtypeTrainer(config)
-    config.exp_path.mkdir(parents=True, exist_ok=True)
-    root = logging.getLogger()
-    handlers = [logging.FileHandler(config.exp_path / "debug.log"),
-                logging.StreamHandler()]
-    for handler in handlers:
-        handler.setFormatter(logging.Formatter(
-            "%(asctime)s [%(levelname)s] %(message)s"))
-        root.addHandler(handler)
-    if root.level > logging.INFO or root.level == logging.NOTSET:
-        root.setLevel(logging.INFO)
-    try:
+    with logging_to(config.exp_path):
         if args.momentum is not None or args.weight_decay is not None:
             logging.warning("--momentum/--weight_decay are ignored: the "
                             "optimizer is Adam(lr), as in the reference")
@@ -129,10 +149,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         trainer.fit()
         best_epoch = trainer.restore_best()
         trainer.evaluate("test", epoch=best_epoch)
-    finally:
-        for handler in handlers:
-            root.removeHandler(handler)
-            handler.close()
     return 0
 
 

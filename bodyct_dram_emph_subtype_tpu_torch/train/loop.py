@@ -1,9 +1,11 @@
-"""The training system of the dRAM regression strategy: an explicit epoch
-loop over the host loader, the train step and every-epoch checkpoints.
+"""The training system of both strategies: an explicit epoch loop over the
+host loader, the train step and every-epoch checkpoints.
 
 Counterpart of ``bodyct_dram_emph_subtype_tpu/train/loop.py``
-(``ScanRegLightningModule`` + ``SubtypeDataModule`` + the ``train.py``
-flow): CLE-stratified sampling with per-epoch reshuffled index order
+(``ScanCLSLightningModule`` / ``ScanRegLightningModule`` +
+``SubtypeDataModule`` + the ``train.py`` flow): the dRAM (regression)
+strategy for the ``*dram*``/``*reg*`` archs, the classification (CLS)
+strategy for the others; CLE-stratified sampling with per-epoch reshuffled index order
 (``models.py:99-123``); loader threads deliver host-preprocessed
 fixed-shape batches (``PreprocessedView``); augmentation, forward, losses,
 backward and the Adam update run on the device; lr decays x0.95 per epoch
@@ -15,13 +17,16 @@ Each step's augmentation ``torch.Generator`` is seeded from (seed, epoch,
 step), the counterpart of ``fold_in(fold_in(key, epoch), step)``
 (``loop.py:405``).  Training runs the model in ``.train()`` (the kernels
 A and D through ``roll_conv_packed``), evaluation in ``.eval()`` (the
-eval kernels A, B and C).
+eval kernels A, B and C).  The CLS strategy re-weights its classes at the
+end of every train phase (:func:`reweight_classes`).
 
 Not ported yet; each raises ``NotImplementedError`` naming its ROADMAP
-item: the CLS strategy (``ResNetSegCls``), the device input pipeline,
-multi-device training (``nchips`` > 1, ``mesh``), remat other than
-``none`` and the ``rbg`` noise source.  The confusion-matrix PNGs, the
-heatmap tiles and TensorBoard are skipped (logged once).
+item: the device input pipeline, multi-device training (``nchips`` > 1,
+``mesh``), remat other than ``none`` and the ``rbg`` noise source.  The
+plain ``ResNet`` archs (``resnet34``, ``resnet50``) are refused with a
+``ValueError``: they take no lung mask, so the JAX trainer cannot train
+them either.  The confusion-matrix PNGs, the heatmap tiles and
+TensorBoard are skipped (logged once).
 """
 from __future__ import annotations
 
@@ -40,14 +45,15 @@ from ..data.datasets import COPDGeneSubtyping
 from ..data.host_preprocess import PreprocessedView
 from ..data.loader import DataLoader
 from ..data.samplers import SubtypingStratifiedSampler, shard_indices
-from ..models.registry import get_model_by_name
+from ..models.registry import (PLAIN_FACTORIES, get_model_by_name,
+                               resolve_arch)
 from ..models.torch_import import (load_reference_checkpoint,
                                    load_state_dict_greedy)
 from ..utils.device import entry_device
 from ..utils.metrics_eval import classification_report
 from .checkpoint import CheckpointManager
 from .state import epoch_lr, make_optimizer
-from .steps import make_eval_step, make_reg_train_step
+from .steps import make_cls_train_step, make_eval_step, make_reg_train_step
 
 logger = logging.getLogger(__name__)
 
@@ -99,12 +105,14 @@ class TrainerConfig:
 
 
 def check_supported(cfg: TrainerConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not port."""
-    if not cfg.is_regression:
-        raise NotImplementedError(
-            f"{cfg.model_arch}: the CLS strategy needs ResNetSegCls, which "
-            f"is not ported yet (ROADMAP section 1, 'ResNetSegCls and "
-            f"ResNet')")
+    """Raise ``NotImplementedError`` for what this slice does not port, and
+    ``ValueError`` for what the trainer cannot run."""
+    if resolve_arch(cfg.model_arch)[0] in PLAIN_FACTORIES:
+        raise ValueError(
+            f"{cfg.model_arch}: the plain ResNet classifier takes no lung "
+            f"mask and has no decoder; the trainer runs the Seg archs "
+            f"(med3d*, med3ddram*), as the JAX trainer does, whose train "
+            f"forward passes the lungs to the model")
     if cfg.input_pipeline != "host":
         raise NotImplementedError(
             "input_pipeline='device' (fused on-device preprocess of raw "
@@ -132,6 +140,23 @@ def check_supported(cfg: TrainerConfig) -> None:
                          f"grad_accum {cfg.grad_accum}")
 
 
+def reweight_classes(current, y_true, y_pred) -> np.ndarray:
+    """The adaptive class re-weighting of the CLS strategy (JAX
+    ``loop.py:570-585``, reference ``models.py:369-379``): with the
+    per-class accuracy of the confusion matrix of ``y_true`` against
+    ``y_pred`` (a class never seen counts 0), ``new = current * (1 - acc)``,
+    normalised to sum 1; ``current`` is kept when that sum is 0 (every
+    seen class always right)."""
+    current = np.asarray(current, np.float64)
+    n = len(current)
+    matrix = np.zeros((n, n))
+    np.add.at(matrix, (np.asarray(y_true, int), np.asarray(y_pred, int)), 1)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        acc = np.nan_to_num(matrix.diagonal() / matrix.sum(axis=1))
+    new = current * (1.0 - acc)
+    return new / new.sum() if new.sum() > 0 else current
+
+
 def step_seed(seed: int, epoch: int, step: int) -> int:
     """The augmentation generator's seed of one train step."""
     return int(np.random.SeedSequence([seed, epoch, step])
@@ -139,7 +164,7 @@ def step_seed(seed: int, epoch: int, step: int) -> int:
 
 
 class SubtypeTrainer:
-    """Explicit trainer of the dRAM regression strategy.
+    """Explicit trainer of both strategies (``mode`` ``reg`` or ``cls``).
 
     ``step_mark``: optional ``mark(name)`` hook, called with ``loader``
     before each train batch is fetched and passed on to the train step
@@ -150,6 +175,7 @@ class SubtypeTrainer:
         self.config = config
         self.device = entry_device(config.device)
         self.dtype = DTYPES[config.compute_dtype]
+        self.mode = "reg" if config.is_regression else "cls"
         self.model: Optional[torch.nn.Module] = None
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.datasets: Dict[str, Any] = {}
@@ -170,10 +196,12 @@ class SubtypeTrainer:
             cfg.model_arch, generator=torch.Generator().manual_seed(cfg.seed),
             packed_decoder=cfg.packed_decoder).to(self.device)
         self.optimizer = make_optimizer(self.model.parameters(), cfg.lr)
-        self._train_step = make_reg_train_step(
+        make = (make_reg_train_step if self.mode == "reg"
+                else make_cls_train_step)
+        self._train_step = make(
             self.model, self.optimizer, accum_steps=cfg.grad_accum,
             compute_dtype=self.dtype, device=self.device)
-        self._eval_step = make_eval_step(self.model, "reg", self.dtype,
+        self._eval_step = make_eval_step(self.model, self.mode, self.dtype,
                                          self.device)
         return self.model
 
@@ -344,7 +372,10 @@ class SubtypeTrainer:
     def _epoch_end(self, outputs: List[Dict], phase: str, epoch: int
                    ) -> Dict[str, float]:
         """``shared_epoch_end`` (``models.py:287-317,603-633``): gather,
-        dedup by dataset index, accuracy, report, CSV, ``metrics.jsonl``."""
+        dedup by dataset index, accuracy, report, the CLS class
+        re-weighting of a train phase (CLE, then PSE, on the de-duplicated
+        outputs; the next epoch's steps and this epoch's checkpoint take
+        the new weights), CSV, ``metrics.jsonl``."""
         if not outputs:
             return {}
         cat = {k: np.concatenate([o[k] for o in outputs]) for k in outputs[0]}
@@ -359,6 +390,15 @@ class SubtypeTrainer:
                                             dedup["pred_pse_labels"], 3,
                                             prefix=f"epoch_{phase}_pse_"))
         self._log_skipped_once()
+        if phase == TRAIN_PHASE and self.mode == "cls":
+            for name in ("cle", "pse"):
+                current = getattr(self, f"{name}_class_weights")
+                new = reweight_classes(current, dedup[f"{name}_labels"],
+                                       dedup[f"pred_{name}_labels"])
+                if not np.array_equal(new, current):
+                    logger.info("reset %s class weights: %s -> %s", name,
+                                current, new)
+                setattr(self, f"{name}_class_weights", new)
         self._log_csv(dedup, phase, epoch)
         logger.info("epoch_%s_acc_cle=%.4f acc_pse=%.4f", phase, acc_cle,
                     acc_pse)

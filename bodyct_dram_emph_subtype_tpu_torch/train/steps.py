@@ -1,17 +1,22 @@
-"""The dRAM (regression) train step, the eval step and the predict step.
+"""The train steps of both strategies, the eval step and the predict step.
 
 Counterpart of ``bodyct_dram_emph_subtype_tpu/train/steps.py``'s
-``make_reg_train_step``, ``make_eval_step`` and ``make_predict_step``
-(reference ``models.py:539-592``, the TRAIN and VAL/TEST branches of
-``shared_step``, and ``models.py:430-450``, ``predict_step``):
+``make_reg_train_step``, ``make_cls_train_step``, ``make_eval_step`` and
+``make_predict_step`` (reference ``models.py:236-264, 539-592``, the TRAIN
+and VAL/TEST branches of ``shared_step``, and ``models.py:430-450``,
+``predict_step``):
 
-- train: on-device augmentation -> train-mode forward (BatchNorm batch
-  statistics) -> the four reg losses ``(cle + pse) / num_data_shards +
-  2 * mutex_dice + coverage_bce`` -> backward -> one Adam update;
+- train (both strategies, :func:`_make_train_step`): on-device
+  augmentation -> train-mode forward (BatchNorm batch statistics) -> the
+  losses -> backward -> one Adam update.  dRAM: the four reg losses
+  ``(cle + pse) / num_data_shards + 2 * mutex_dice + coverage_bce``;
+  CLS: the class-weighted cross entropies of the pooled CLE and PSE
+  logits, ``cle + pse``, and ``argmax`` predictions;
 - ``accum_steps > 1``: the batch splits into microbatches run one after
   the other, gradients averaged, BatchNorm running statistics chained
   through them, one Adam update (``steps.py:196-221``);
-- eval: eval forward (kernels A, B, C and F) + predicted labels;
+- eval: eval forward + predicted labels (interval lookup of the lesion
+  fractions for dRAM, ``argmax`` of the pooled logits for CLS);
 - predict: eval forward -> both dRAM maps linearly upsampled
   (align_corners=True) to the input size -> masked by the -910 HU
   emphysema-susceptible mask -> lesion percentages, normalised per sample
@@ -30,13 +35,15 @@ import torch
 
 from ..data.datasets import CLE_RATIO_MAP, PSE_RATIO_MAP
 from ..losses import (generate_regression_labels, interval_regression_loss,
-                      ratio_to_label_batch, segmentation_losses)
+                      ratio_to_label_batch, segmentation_losses,
+                      weighted_cross_entropy)
 from ..ops.pallas_kernels import masked_sums
 from ..ops.resize import resize_linear_matmul, resize_nearest
 from ..transforms.batch_augment import augment_batch, draw_augment_params
 from .state import set_lr
 
 METRICS = ("loss", "loss_cle", "loss_pse", "mul_loss", "seg_loss")
+CLS_METRICS = ("loss", "loss_cle", "loss_pse")
 
 
 def dense_map_size(spatial: Sequence[int]) -> Tuple[int, int, int]:
@@ -78,23 +85,44 @@ def _reg_heads(dense, regs, cle_labels, pse_labels, ems5, lungs5,
             "mul_loss": mul_loss, "seg_loss": seg_loss}
 
 
-def make_reg_train_step(model: torch.nn.Module,
-                        optimizer: torch.optim.Optimizer,
-                        num_data_shards: int = 1, augment: bool = True,
-                        accum_steps: int = 1,
-                        compute_dtype: torch.dtype = torch.float32,
-                        device=None):
-    """Returns ``step(batch, lr, cle_class_weights, pse_class_weights,
-    generator=None, mark=None) -> (metrics, preds)``.
+def _reg_losses(outs, inputs, cw_cle, cw_pse, num_data_shards: int):
+    """dRAM: the four reg losses and the interval-lookup labels."""
+    dense, regs = outs
+    losses = _reg_heads(dense, regs, inputs["cle_labels"],
+                        inputs["pse_labels"], inputs["ems5"],
+                        inputs["lungs5"], cw_cle, cw_pse, num_data_shards)
+    return losses, (ratio_to_label_batch(regs[0].detach(), CLE_RATIO_MAP),
+                    ratio_to_label_batch(regs[1].detach(), PSE_RATIO_MAP))
 
-    ``batch``: host arrays or tensors ``image``, ``lung_mask``, ``em_mask``
-    (B, D, H, W) and ``cls_label``/``pse_label`` (B,).  ``generator``: the
-    augmentation's ``torch.Generator`` (on ``device``; needed when
-    ``augment``).  ``mark(name)``, if given, is called as each phase
-    begins (``augment``, ``forward``, ``backward``, ``optimizer``) and with
-    ``done`` at the end — a hook for timing.  ``metrics`` are detached
-    scalar tensors (the mean over microbatches), ``preds`` the predicted
-    and true labels of the whole batch."""
+
+def _cls_losses(outs, inputs, cw_cle, cw_pse, num_data_shards: int):
+    """CLS (``steps.py:253-266``): weighted CE of the pooled logits, and
+    their ``argmax``.  The JAX step does not divide by the data shards."""
+    _, logits = outs
+    loss_cle = weighted_cross_entropy(logits[0], inputs["cle_labels"], cw_cle)
+    loss_pse = weighted_cross_entropy(logits[1], inputs["pse_labels"], cw_pse)
+    return ({"loss": loss_cle + loss_pse, "loss_cle": loss_cle,
+             "loss_pse": loss_pse},
+            (logits[0].detach().argmax(-1), logits[1].detach().argmax(-1)))
+
+
+def _make_train_step(losses_fn, model, optimizer, num_data_shards, augment,
+                     accum_steps, compute_dtype, device):
+    """The train step both strategies share: returns ``step(batch, lr,
+    cle_class_weights, pse_class_weights, generator=None, mark=None) ->
+    (metrics, preds)``.
+
+    ``losses_fn(outs, inputs, cw_cle, cw_pse, num_data_shards) -> (losses,
+    (pred_cle, pred_pse))`` turns the model's outputs into the losses, of
+    which ``losses["loss"]`` is differentiated.  ``batch``: host arrays or
+    tensors ``image``, ``lung_mask``, ``em_mask`` (B, D, H, W) and
+    ``cls_label``/``pse_label`` (B,).  ``generator``: the augmentation's
+    ``torch.Generator`` (on ``device``; needed when ``augment``).
+    ``mark(name)``, if given, is called as each phase begins
+    (``augment``, ``forward``, ``backward``, ``optimizer``) and with
+    ``done`` at the end — a hook for timing.  ``metrics`` are the losses
+    as detached scalar tensors (the mean over microbatches), ``preds`` the
+    predicted and true labels of the whole batch."""
     device = torch.device(device) if device is not None else \
         next(model.parameters()).device
 
@@ -106,8 +134,10 @@ def make_reg_train_step(model: torch.nn.Module,
         pse_labels = _as_tensor(batch["pse_label"], device, torch.long)
         if augment:
             mark("augment")
-            # the masks are only consumed at dense-map resolution, so the
-            # augmentation emits them there directly (never upsampling)
+            # the masks are only consumed at dense-map resolution (and not
+            # at all by the CLS losses), so the augmentation emits them
+            # there directly (never upsampling); the image does not depend
+            # on it
             mask_out = dense_map_size(images.shape[1:4])
             if any(o > i for o, i in zip(mask_out, images.shape[1:4])):
                 mask_out = None
@@ -117,19 +147,16 @@ def make_reg_train_step(model: torch.nn.Module,
                                                mask_out)
         mark("forward")
         x = images[..., None].to(compute_dtype)
-        lungs5, ems5 = lungs[..., None], ems[..., None]
-        dense, regs = model(x, lungs5)
-        losses = _reg_heads(dense, regs, cle_labels, pse_labels, ems5,
-                            lungs5, cw_cle, cw_pse, num_data_shards)
+        inputs = {"lungs5": lungs[..., None], "ems5": ems[..., None],
+                  "cle_labels": cle_labels, "pse_labels": pse_labels}
+        outs = model(x, inputs["lungs5"])
+        losses, (pred_cle, pred_pse) = losses_fn(outs, inputs, cw_cle,
+                                                 cw_pse, num_data_shards)
         mark("backward")
         losses["loss"].backward()
-        with torch.no_grad():
-            preds = {"pred_cle_labels": ratio_to_label_batch(regs[0].detach(),
-                                                             CLE_RATIO_MAP),
-                     "pred_pse_labels": ratio_to_label_batch(regs[1].detach(),
-                                                             PSE_RATIO_MAP),
-                     "cle_labels": cle_labels.to(torch.int32),
-                     "pse_labels": pse_labels.to(torch.int32)}
+        preds = {"pred_cle_labels": pred_cle, "pred_pse_labels": pred_pse,
+                 "cle_labels": cle_labels.to(torch.int32),
+                 "pse_labels": pse_labels.to(torch.int32)}
         return {k: v.detach() for k, v in losses.items()}, preds
 
     def step(batch: Dict, lr: float, cle_class_weights, pse_class_weights,
@@ -160,11 +187,35 @@ def make_reg_train_step(model: torch.nn.Module,
         optimizer.step()
         mark("done")
         metrics = {k: torch.stack([o[0][k] for o in outs]).mean()
-                   for k in METRICS}
+                   for k in outs[0][0]}
         preds = {k: torch.cat([o[1][k] for o in outs]) for k in outs[0][1]}
         return metrics, preds
 
     return step
+
+
+def make_reg_train_step(model: torch.nn.Module,
+                        optimizer: torch.optim.Optimizer,
+                        num_data_shards: int = 1, augment: bool = True,
+                        accum_steps: int = 1,
+                        compute_dtype: torch.dtype = torch.float32,
+                        device=None):
+    """The dRAM train step (:func:`_make_train_step`); ``metrics``:
+    :data:`METRICS`."""
+    return _make_train_step(_reg_losses, model, optimizer, num_data_shards,
+                            augment, accum_steps, compute_dtype, device)
+
+
+def make_cls_train_step(model: torch.nn.Module,
+                        optimizer: torch.optim.Optimizer,
+                        num_data_shards: int = 1, augment: bool = True,
+                        accum_steps: int = 1,
+                        compute_dtype: torch.dtype = torch.float32,
+                        device=None):
+    """The CLS train step (:func:`_make_train_step`, JAX
+    ``steps.py:226-308``); ``metrics``: :data:`CLS_METRICS`."""
+    return _make_train_step(_cls_losses, model, optimizer, num_data_shards,
+                            augment, accum_steps, compute_dtype, device)
 
 
 def make_eval_step(model: torch.nn.Module, mode: str = "reg",
@@ -172,11 +223,11 @@ def make_eval_step(model: torch.nn.Module, mode: str = "reg",
     """Eval step on host-preprocessed inputs (``steps.py:311-340``):
     ``step(batch) -> {pred_cle_labels, pred_pse_labels, cle_labels,
     pse_labels, dense_cle, dense_pse}``.  Runs the eval forward (the
-    model is put in ``.eval()``, so kernels A, B and C serve it)."""
-    if mode != "reg":
-        raise NotImplementedError(
-            "the CLS strategy needs ResNetSegCls, which is not ported yet "
-            "(ROADMAP section 1, 'ResNetSegCls and ResNet')")
+    model is put in ``.eval()``, so its eval kernels serve it); ``mode``
+    ``"reg"`` looks the lesion fractions up in the score intervals,
+    ``"cls"`` takes the ``argmax`` of the pooled logits."""
+    if mode not in ("reg", "cls"):
+        raise ValueError(f"mode must be 'reg' or 'cls', not {mode!r}")
     device = torch.device(device) if device is not None else \
         next(model.parameters()).device
 
@@ -185,13 +236,15 @@ def make_eval_step(model: torch.nn.Module, mode: str = "reg",
         with torch.inference_mode():
             x = _as_tensor(batch["image"], device, torch.float32)
             lungs = _as_tensor(batch["lung_mask"], device, torch.float32)
-            dense, regs = model(x[..., None].to(compute_dtype),
-                                lungs[..., None])
+            dense, heads = model(x[..., None].to(compute_dtype),
+                                 lungs[..., None])
+            if mode == "reg":
+                pred_cle = ratio_to_label_batch(heads[0], CLE_RATIO_MAP)
+                pred_pse = ratio_to_label_batch(heads[1], PSE_RATIO_MAP)
+            else:
+                pred_cle, pred_pse = heads[0].argmax(-1), heads[1].argmax(-1)
             return {
-                "pred_cle_labels": ratio_to_label_batch(regs[0],
-                                                        CLE_RATIO_MAP),
-                "pred_pse_labels": ratio_to_label_batch(regs[1],
-                                                        PSE_RATIO_MAP),
+                "pred_cle_labels": pred_cle, "pred_pse_labels": pred_pse,
                 "cle_labels": _as_tensor(batch["cls_label"], device,
                                          torch.int32),
                 "pse_labels": _as_tensor(batch["pse_label"], device,

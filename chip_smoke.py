@@ -129,8 +129,33 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    test evaluation with C 1, A 4, B 1, F 1 per forward; step ms and peak
    device memory.
 
-Kernel F (the lung-masked sums) runs once in every forward, eval and
-train, so each train step and each eval batch also counts one F launch.
+7. the classification strategy (med3d, resnet34segcls, n_classes (6, 3),
+   bf16, B=2, 128x224x288): (a) med3d's eval us3 (conv 64 -> 32 + BN +
+   ReLU on kernel A, a site the dRAM forward runs on B) is in phase 3's
+   list, in A's bounds; (b) a synthetic archive of phase 6's 4 scans
+   written as reference ``.pth`` caches (``torch.save``) through the
+   trainer (packed decoder, one epoch of 4 steps, augmentation on):
+   finite losses, params and BN running statistics moved, per step A 22
+   and D 11 (``train_roll_sites``) and no B, C or F, the class weights at
+   the epoch end equal to ``reweight_classes`` of the sampler's weights
+   and the epoch's train predictions (each summing to 1 where it
+   changed) in the trainer and the checkpoint, ms per step, volumes/s,
+   peak memory and one step split; (c) the evaluation entry point
+   (``evaluate.__main__.main(argv)`` in-process) on that checkpoint by
+   epoch number and by path: equal metrics, per forward C 1 and A 17
+   (``roll_eval_sites(kind="cls")``), no B or F; (f) the bf16 and float32
+   forward of the trained model on one test batch: the pooled logits'
+   max|d| over max|logit| <= 2.5e-2 (the first card run measured 9.0e-3)
+   and the share of equal argmax labels (printed: 4/4 there); (d) the
+   trainers' default routing (``packed_decoder`` False): two steps at A
+   12, D 6 and a test evaluation at A 12, C 1 per forward; (e, after
+   phase 6b) one med3dtiny train step (float32, augment off) on the card
+   against the CPU plain path, same weights and batch, in phase 6b's
+   bounds.
+
+Kernel F (the lung-masked sums) runs once in every dRAM forward, eval
+and train, so each such train step and eval batch also counts one F
+launch; the classification models have no F.
 
 Every timed site also prints the library call that computes the same
 conv or pool (cuDNN ``F.conv3d``, its ``conv3d_input`` / ``conv3d_weight``
@@ -199,11 +224,13 @@ from bodyct_dram_emph_subtype_tpu_torch.ops.roll_conv import (
     roll_conv_heads_sigmoid, roll_conv_heads_sigmoid_plain, roll_conv_packed)
 from bodyct_dram_emph_subtype_tpu_torch.ops.stem_kernel import (
     fused_stem_pool, fused_stem_pool_plain, stem_smem_bytes)
-from bodyct_dram_emph_subtype_tpu_torch.train.loop import (SubtypeTrainer,
-                                                           TrainerConfig)
+from bodyct_dram_emph_subtype_tpu_torch.evaluate.__main__ import \
+    main as evaluate_main
+from bodyct_dram_emph_subtype_tpu_torch.train.loop import (
+    SubtypeTrainer, TrainerConfig, reweight_classes)
 from bodyct_dram_emph_subtype_tpu_torch.train.state import make_optimizer
-from bodyct_dram_emph_subtype_tpu_torch.train.steps import \
-    make_reg_train_step
+from bodyct_dram_emph_subtype_tpu_torch.train.steps import (
+    make_cls_train_step, make_reg_train_step)
 
 DEV = torch.device("cuda")
 B = 2
@@ -218,6 +245,9 @@ A_SITES = [
     ("us1.conv1", (B, 32, 56, 72, 64), 64, False, 1),
     ("us2.conv0", (B, 64, 112, 144, 128), 64, False, 1),
     ("us2.conv1", (B, 64, 112, 144, 64), 64, False, 1),
+    # med3d's eval us3 (phase 7): not in the dRAM forward, whose us3 runs
+    # on B, so it adds nothing to A's per-forward summary
+    ("us3 (cls)", (B, 64, 112, 144, 64), 32, False, 0),
     ("ragged", (1, 5, 7, 9, 20), 13, True, 0),
 ]
 B_SITES = [("us3+heads", (B, 64, 112, 144, 64), 32, 2, 1),
@@ -227,18 +257,21 @@ C_SITES = [("stem.pool", (B, 64, 112, 144, 64), 1),
 LAYERS = (3, 4, 6, 3)
 
 
-def per_forward(packed_decoder=True, quad=False, block=BasicBlock):
-    """Launches per eval forward of a med3ddram-family model under conv
-    mode roll (``roll_eval_sites``), every kernel named, F's one call."""
-    sites = roll_eval_sites(LAYERS, quad, packed_decoder, block)
+def per_forward(packed_decoder=True, quad=False, block=BasicBlock,
+                kind="reg"):
+    """Launches per eval forward of a med3ddram-family (``kind`` "reg") or
+    med3d-family ("cls") model under conv mode roll (``roll_eval_sites``),
+    every kernel named; the dRAM forward's one F call, none for CLS."""
+    sites = roll_eval_sites(LAYERS, quad, packed_decoder, block, kind)
     return {**{k: 0 for k in cuda_build.KERNELS}, **site_launches(sites),
-            "masked_sums": 1}
+            "masked_sums": int(kind == "reg")}
 
 
-def per_train_step(sites):
-    """Launches per train step with ``sites`` of ``roll_conv_packed``."""
+def per_train_step(sites, kind="reg"):
+    """Launches per train step with ``sites`` of ``roll_conv_packed`` (and
+    the dRAM forward's one F call)."""
     return {**{k: 0 for k in cuda_build.KERNELS},
-            **train_roll_launches(sites), "masked_sums": 1}
+            **train_roll_launches(sites), "masked_sums": int(kind == "reg")}
 
 
 # the bf16 processor's forward (packed decoder): A 16, B 1, C 1, F 1
@@ -258,7 +291,10 @@ L2_BYTES = 50 * 2 ** 20          # the H100's L2 cache
 # (site, x shape, O) of the training convs, plus a ragged shape
 TRAIN_SITES = train_roll_site_shapes(B, TARGET) + [
     ("ragged", (1, 5, 7, 9, 20), 13)]
-GRAD_L2_BOUND, GRAD_PEAK_BOUND = 5e-3, 2e-2      # phase 6b
+GRAD_L2_BOUND, GRAD_PEAK_BOUND = 5e-3, 2e-2      # phases 6b, 7e
+# phase 7f: bf16 against float32 pooled logits, max|d| over max|logit|
+# (the first card run: 9.0e-3)
+CLS_POOLED_BOUND = 2.5e-2
 # phase 6 (packed decoder): A 22, D 11, F 1
 PER_TRAIN_STEP = per_train_step(TRAIN_ROLL_SITES)
 # the trainers' default (unpacked decoder; phase 6d): layer1's 6 sites
@@ -1328,11 +1364,12 @@ def phase_host_path(model, scan_dir: Path, lobe_dir: Path, work: Path,
     return total, host_rate
 
 
-def write_archive(root: Path, shape=(180, 320, 320)):
+def write_archive(root: Path, shape=(180, 320, 320), fmt="npz"):
     """Synthetic training archive of 4 scans: int16 CT with a lung
-    ellipsoid at a stored size of ``shape``, ``{uid}.npz`` +
-    ``merged.csv`` (4 CLE classes, so 2 samples each make one epoch of 4
-    steps)."""
+    ellipsoid at a stored size of ``shape``, ``{uid}.npz`` (``fmt``
+    "npz") or the reference cache ``{uid}.pth`` written with
+    ``torch.save`` ("pth"), + ``merged.csv`` (4 CLE classes, so 2 samples
+    each make one epoch of 4 steps)."""
     rows = ["SeriesInstanceUID,CT_Visual_Emph_Severity_P1,"
             "CT_Visual_Emph_Paraseptal_P1"]
     zz, yy, xx = np.ogrid[:shape[0], :shape[1], :shape[2]]
@@ -1344,8 +1381,14 @@ def write_archive(root: Path, shape=(180, 320, 320)):
                  + ((xx - c[2]) / (0.39 * shape[2])) ** 2) < 1)
         ct = np.full(shape, -1000, np.int16)
         ct[lung] = (-900 + 80 * rng.randn(int(lung.sum()))).astype(np.int16)
-        np.savez(root / f"scan{i}.npz", image=ct, lung_mask=lung,
-                 cls_label=cle, pse_label=pse)
+        if fmt == "pth":
+            torch.save({"image": torch.from_numpy(ct),
+                        "lung_mask": torch.from_numpy(lung),
+                        "cls_label": cle, "pse_label": pse},
+                       root / f"scan{i}.pth")
+        else:
+            np.savez(root / f"scan{i}.npz", image=ct, lung_mask=lung,
+                     cls_label=cle, pse_label=pse)
         rows.append(f"scan{i},{cle},{pse}")
     (root / "merged.csv").write_text("\n".join(rows) + "\n")
     return shape
@@ -1467,14 +1510,7 @@ def phase_train(work: Path):
     losses, clock, train_launches, fit_s, peak = fit_logged(trainer)
     n = check_steps(losses, clock, PER_TRAIN_STEP, "packed decoder")
     check(n >= 4, f"{n} train steps")
-    after = trainer.model.state_dict()
-    moved = {k: (after[k].float() - before[k].float()).abs().max().item()
-             for k in before if not k.endswith("num_batches_tracked")}
-    check(all(v > 0 for k, v in moved.items() if k.endswith("weight")),
-          "a weight did not move")
-    stats = [k for k in moved if "running" in k]
-    check(all(moved[k] > 0 for k in stats), "a BN running statistic did not "
-          "move")
+    moved, stats = moved_state(before, trainer.model.state_dict())
     print(f"every weight moved (min max|d| "
           f"{min(v for k, v in moved.items() if k.endswith('weight')):.3e}); "
           f"all {len(stats)} BN running statistics moved")
@@ -1516,9 +1552,11 @@ def phase_train(work: Path):
                    "peak_gib": peak / 2 ** 30, "split": split}
 
 
-def phase_train_small(mode: str = "roll"):
-    print(f"== phase 6b: med3ddramtiny train step on the card vs its CPU "
-          f"plain path (float32, augment off, conv mode {mode})")
+def phase_train_small(mode: str = "roll", arch: str = "med3ddramtiny"):
+    kind = "cls" if arch == "med3dtiny" else "reg"
+    print(f"== phase {'7e' if kind == 'cls' else '6b'}: {arch} train step on "
+          f"the card vs its CPU plain path (float32, augment off, conv mode "
+          f"{mode})")
     rng = np.random.RandomState(7)
     # tapmm's JAX gate refuses rows narrower than 24: layer1 needs W >= 96
     size = (32, 48, 128) if mode == "tapmm" else (32, 48, 64)
@@ -1531,22 +1569,23 @@ def phase_train_small(mode: str = "roll"):
     for dev in ("cpu", "cuda"):
         # roll: the packed decoder, so the decoder convs take A and D too
         model = get_model_by_name(
-            "med3ddramtiny", generator=torch.Generator().manual_seed(3),
+            arch, generator=torch.Generator().manual_seed(3),
             packed_decoder=mode == "roll")
-        with torch.no_grad():           # keep the maps off the clip edge
-            for fc in model.fcs:
-                fc.weight.mul_(0.05)
-                fc.bias.fill_(-1.5)
+        if kind == "reg":
+            with torch.no_grad():       # keep the maps off the clip edge
+                for fc in model.fcs:
+                    fc.weight.mul_(0.05)
+                    fc.bias.fill_(-1.5)
         model.to(dev)
         if mode == "roll":
-            want = per_train_step(train_roll_sites((1, 1, 1, 1)))
+            want = per_train_step(train_roll_sites((1, 1, 1, 1)), kind)
         else:
             n = len(mode_conv_sites(model, mode, B, size, torch.float32))
             check(n > 0, f"no {mode} site at {size}")
             want = {"conv3x3x3_affine": n, "conv3x3x3_wgrad": 0,
                     "masked_sums": 1}
-        step = make_reg_train_step(model, make_optimizer(model.parameters()),
-                                   augment=False)
+        make = make_reg_train_step if kind == "reg" else make_cls_train_step
+        step = make(model, make_optimizer(model.parameters()), augment=False)
         blocks.set_conv3d_mode(mode)
         try:
             cuda_build.reset_launches()
@@ -1693,6 +1732,157 @@ def phase_train50(work: Path):
         {"step_ms": wall[-1], "peak_gib": peak / 2 ** 30}
 
 
+def moved_state(before, after):
+    """max|d| per state-dict entry (no ``num_batches_tracked``); checks
+    that every weight and every BN running statistic moved."""
+    moved = {k: (after[k].float() - before[k].float()).abs().max().item()
+             for k in before if not k.endswith("num_batches_tracked")}
+    check(all(v > 0 for k, v in moved.items() if k.endswith("weight")),
+          "a weight did not move")
+    stats = [k for k in moved if "running" in k]
+    check(all(moved[k] > 0 for k in stats), "a BN running statistic did not "
+          "move")
+    return moved, stats
+
+
+def phase_cls(work: Path):
+    print("== phase 7: the classification strategy (med3d, bf16, B=2, "
+          "reference .pth caches)")
+    t0 = time.perf_counter()
+    shape = write_archive(work, fmt="pth")
+    print(f"wrote 4 synthetic scans {shape} as .pth (torch.save) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    csv = str(work / "merged.csv")
+    models = work / "models"
+    # (b) the CLS trainer, packed decoder, one epoch of 4 steps
+    print("-- 7b: trainer, packed decoder, augmentation on")
+    cfg = trainer_config(work, model_arch="med3d", num_samples=2,
+                         packed_decoder=True, model_path=str(models))
+    trainer = SubtypeTrainer(cfg)
+    check(trainer.mode == "cls", f"mode {trainer.mode}")
+    trainer.init_state()
+    trainer.setup_checkpointing()
+    before = {k: v.detach().clone()
+              for k, v in trainer.model.state_dict().items()}
+    losses, clock, launches, fit_s, peak = fit_logged(trainer)
+    want = per_train_step(TRAIN_ROLL_SITES, "cls")
+    n = check_steps(losses, clock, want, "med3d packed decoder")
+    check(n == 4, f"{n} med3d train steps")
+    moved, stats = moved_state(before, trainer.model.state_dict())
+    print(f"every weight moved (min max|d| "
+          f"{min(v for k, v in moved.items() if k.endswith('weight')):.3e}); "
+          f"all {len(stats)} BN running statistics moved")
+    saved = trainer.ckpt.restore(0)
+    with open(cfg.exp_path / "predicts" / "train" / "0_predicts.csv") as f:
+        rows = [line.split(",") for line in f.read().split()[1:]]
+    for name, col in (("cle", 1), ("pse", 2)):
+        start = getattr(trainer.sampler, f"{name}_class_weights")
+        new = reweight_classes(start, [int(r[col + 2]) for r in rows],
+                               [int(r[col]) for r in rows])
+        now = np.asarray(getattr(trainer, f"{name}_class_weights"))
+        check(np.array_equal(now, new) and np.array_equal(
+            np.asarray(saved[f"{name}_class_weights"]), new),
+            f"{name} class weights {now} / checkpoint "
+            f"{saved[f'{name}_class_weights']} vs {new}")
+        # kept only where every seen class was always right (sum 0)
+        changed = not np.array_equal(now, start)
+        check(not changed or abs(now.sum() - 1) < 1e-12,
+              f"{name} class weights {start} -> {now}")
+        print(f"{name} class weights at the epoch end "
+              f"({'re-weighted' if changed else 'unchanged'}): "
+              + " ".join(f"{w:.4f}" for w in start) + " -> "
+              + " ".join(f"{w:.4f}" for w in now)
+              + f" (sum {now.sum():.6f}; the checkpoint holds them)")
+    wall = clock.wall_ms()
+    med = statistics.median(wall[1:])
+    split = clock.breakdown(n - 1)
+    print(f"train step ms (loader to loader): "
+          + ", ".join(f"{t:.1f}" for t in wall)
+          + f"; median without the first {med:.1f} ms, "
+          f"{B / med * 1e3:.3f} volumes/s; fit {fit_s:.1f} s (incl. epoch "
+          f"end and checkpoint); peak device memory {peak / 2 ** 30:.2f} GiB")
+    print("last step split (ms): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in split.items())
+        + " (loader wait: host clock; the rest: CUDA events); loader wait "
+        "per step (ms): " + ", ".join(
+            f"{clock.breakdown(i)['loader wait']:.1f}" for i in range(n)))
+    total = Counter(launches)
+    # (c) the evaluation entry point on that checkpoint, by epoch and path
+    print("-- 7c: python -m bodyct_dram_emph_subtype_tpu_torch.evaluate")
+    per_fwd = per_forward(kind="cls")
+    forwards = -(-4 // B)
+    argv = ["--model_arch", "med3d", "--data_path", str(work),
+            "--train_csv", csv, "--valid_csv", csv, "--test_csv", csv,
+            "--model_path", str(models), "--batch_size", str(B),
+            "--workers", "4", "--compute_dtype", "bfloat16",
+            "--packed_decoder", "--device", "cuda"]
+    results = []
+    for ckp in ("0", str(trainer.ckpt.path(0))):
+        cuda_build.reset_launches()
+        results.append(evaluate_main(argv + ["--ckp", ckp]))
+        torch.cuda.synchronize()
+        got = cuda_build.launches()
+        check(got == {k: v * forwards for k, v in per_fwd.items()},
+              f"evaluate --ckp {ckp}: launches {got}")
+        total.update(got)
+    check(results[0] == results[1], f"by epoch {results[0]} vs by path "
+          f"{results[1]}")
+    print(f"--ckp 0 and --ckp {trainer.ckpt.path(0).name}: equal metrics, "
+          f"acc_cle {results[0]['epoch_test_acc_cle']:.3f} acc_pse "
+          f"{results[0]['epoch_test_acc_pse']:.3f}; launches per forward "
+          + ", ".join(f"{k} {v}" for k, v in per_fwd.items() if v)
+          + f" (no B, no F) over {forwards} forwards each")
+    # (f) the whole forward, bf16 against float32 on the same weights
+    print("-- 7f: bf16 vs float32 forward of the trained med3d, one batch")
+    batch = next(iter(trainer._loader("test", 0)))
+    x = torch.from_numpy(np.asarray(batch["image"], np.float32)).to(DEV)
+    model = trainer.model.eval()
+    with torch.inference_mode():
+        dense16, pooled16 = model(x[..., None].to(torch.bfloat16))
+        dense32, pooled32 = model(x[..., None])
+    torch.cuda.synchronize()
+    worst, agree, total_labels = 0.0, 0, 0
+    for p16, p32, d16 in zip(pooled16, pooled32, dense16):
+        check(d16.dtype == torch.bfloat16 and p16.dtype == torch.float32
+              and bool(torch.isfinite(p16).all()), "bf16 outputs")
+        worst = max(worst, ((p16 - p32).abs().max()
+                            / p32.abs().max()).item())
+        agree += int((p16.argmax(-1) == p32.argmax(-1)).sum())
+        total_labels += p16.shape[0]
+    print(f"pooled logits max|d| / max|logit| {worst:.3e} "
+          f"(<= {CLS_POOLED_BOUND:g}); argmax labels equal "
+          f"{agree}/{total_labels}; dense "
+          + ", ".join(str(tuple(d.shape)) for d in dense16))
+    check(worst <= CLS_POOLED_BOUND, "bf16 pooled logits")
+    del dense16, dense32, model, trainer
+    torch.cuda.empty_cache()
+    # (d) the trainers' default routing: unpacked decoder
+    print("-- 7d: the trainers' default routing (packed_decoder False)")
+    cfg = trainer_config(work, model_arch="med3d",
+                         model_path=str(work / "models_default"))
+    trainer = SubtypeTrainer(cfg)
+    trainer.init_state()
+    trainer.setup_checkpointing()
+    losses, clock, launches, _, peak_d = fit_logged(trainer)
+    n = check_steps(losses, clock, per_train_step(DEFAULT_TRAIN_SITES, "cls"),
+                    "med3d default routing")
+    check(n == 2, f"{n} med3d default-routing train steps")
+    _, eval_launches = check_eval(
+        trainer, per_forward(packed_decoder=False, kind="cls"),
+        "med3d default routing")
+    wall_d = clock.wall_ms()
+    print(f"test eval launches " + ", ".join(
+        f"{k} {v}" for k, v in eval_launches.items() if v)
+        + f" over {forwards} forwards (A 12, C 1 each); step ms (loader to "
+        f"loader) " + ", ".join(f"{t:.1f}" for t in wall_d)
+        + f"; peak device memory {peak_d / 2 ** 30:.2f} GiB")
+    total.update(launches)
+    total.update(eval_launches)
+    return total, {"step_ms": med, "volumes_s": B / med * 1e3,
+                   "peak_gib": peak / 2 ** 30,
+                   "default_step_ms": wall_d[-1]}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -1737,8 +1927,13 @@ def main():
         main_launches.update(launches)
         launches, train50 = phase_train50(work)
         main_launches.update(launches)
+        work = Path(tmp) / "cls"
+        work.mkdir()
+        launches, cls = phase_cls(work)
+        main_launches.update(launches)
     for mode in ("roll", *MODES):
         phase_train_small(mode)
+    phase_train_small("roll", "med3dtiny")
     kernels = []
     for name, s in summary.items():
         source, replaces = SOURCES[name]
@@ -1762,8 +1957,12 @@ def main():
           f"routing {default_train['step_ms']:.1f} ms (peak "
           f"{default_train['peak_gib']:.2f} GiB); med3ddram50 "
           f"{train50['step_ms']:.1f} ms (peak {train50['peak_gib']:.2f} GiB); "
+          f"med3d (CLS) {cls['step_ms']:.1f} ms ({cls['volumes_s']:.3f} "
+          f"volumes/s, peak {cls['peak_gib']:.2f} GiB), default routing "
+          f"{cls['default_step_ms']:.1f} ms; "
           f"launches are the main paths' "
-          f"(phases 4, 4c, 4d, 6, 6c, 6d, 6e); kernel ms per B=2 bf16 forward (A, B, "
+          f"(phases 4, 4c, 4d, 6, 6c, 6d, 6e, 7); kernel ms per B=2 bf16 "
+          f"dRAM forward (A, B, "
           f"C, E: default or quad path; the conv-mode ops: their mode's "
           f"forward), train step (D) or device-path batch (F, float32 "
           f"maps), summed over the sites")

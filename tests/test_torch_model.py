@@ -175,10 +175,35 @@ def test_train_forward_matches_jax(block):
 
 
 @pytest.mark.parametrize("name", ["med3d", "med3d18", "med3d50",
-                                  "med3dtiny"])
-def test_classification_archs_not_ported_yet(name):
-    with pytest.raises(NotImplementedError):
-        get_model_by_name(name)
+                                  "med3dtiny", "resnet34", "resnet50"])
+def test_classification_archs_build(name):
+    """Each classification arch builds, with the JAX package's
+    ``n_classes``, and its state-dict keys and shapes are those of the JAX
+    model's variable tree (``jax.eval_shape`` of ``init``) under
+    ``flax_path_to_torch_key``."""
+    from bodyct_dram_emph_subtype_tpu_torch.models.torch_import import \
+        flax_path_to_torch_key
+    model = jax_model(name)
+    x = jax.ShapeDtypeStruct((1, 16, 16, 16, 1), jnp.float32)
+    args = (x,) if name.startswith("resnet") else (x, x)
+    tree = jax.eval_shape(lambda *a: model.init(jax.random.PRNGKey(0), *a,
+                                                train=False), *args)
+    want = {}
+    for coll in ("params", "batch_stats"):
+        for path, leaf in jax.tree_util.tree_flatten_with_path(
+                tree[coll])[0]:
+            path = tuple(p.key for p in path)
+            shape = leaf.shape
+            if len(shape) == 5:             # DHWIO -> OIDHW
+                shape = (shape[4], shape[3], *shape[:3])
+            want[flax_path_to_torch_key(coll, path)] = tuple(shape)
+    port = get_model_by_name(name)
+    got = {k: tuple(v.shape) for k, v in port.state_dict().items()
+           if not k.endswith("num_batches_tracked")}
+    assert got == want
+    heads = ["fc.weight"] if name.startswith("resnet") else \
+        ["fcs.0.weight", "fcs.1.weight"]
+    assert [got[k][0] for k in heads] == ([6] if len(heads) == 1 else [6, 3])
 
 
 def test_unknown_arch_lists_known():

@@ -2,8 +2,9 @@
 JAX package's routing, for both decoders.
 
 1. At the deployment shape (B=2, 128x224x288, bf16).  The JAX model is
-   traced abstractly (``jax.eval_shape``: no FLOP runs) for med3ddram and
-   med3ddram50 with ``packed_decoder`` False and True:
+   traced abstractly (``jax.eval_shape``: no FLOP runs) for med3ddram,
+   med3ddram50 and the classification archs med3d and med3d50 with
+   ``packed_decoder`` False and True:
 
    - eval: recorders around ``pl.pallas_call`` give the kernel module of
      every site; :func:`roll_eval_sites` must list the same;
@@ -11,7 +12,10 @@ JAX package's routing, for both decoders.
      roll-conv forward/dgrad (``_roll_conv_impl``) and the wgrad kernel;
      :func:`train_roll_sites` must list the forward sites, shape by
      shape.  Expected: med3ddram 11 sites packed, layer1's 6 unpacked;
-     med3ddram50 the 5 decoder convs packed, none unpacked.
+     med3ddram50 the 5 decoder convs packed, none unpacked; med3d and
+     med3d50 as their dRAM twins (the CLS us3 trains as the dRAM us3
+     does; in eval it is one more kernel-A site where dRAM fuses it into
+     kernel B).
 
    Every JAX gate passes there but one: the roll kernel's VMEM plan
    (``supports_roll_conv``) refuses med3ddram50's us1.conv0, whose input
@@ -65,8 +69,11 @@ from bodyct_dram_emph_subtype_tpu_torch.train.steps import \
     make_reg_train_step
 
 B, SIZE = 2, (128, 224, 288)
-ARCHS = {"med3ddram": ((3, 4, 6, 3), BasicBlock),
-         "med3ddram50": ((3, 4, 6, 3), Bottleneck)}
+# arch -> (layers, block, roll_eval_sites kind)
+ARCHS = {"med3ddram": ((3, 4, 6, 3), BasicBlock, "reg"),
+         "med3ddram50": ((3, 4, 6, 3), Bottleneck, "reg"),
+         "med3d": ((3, 4, 6, 3), BasicBlock, "cls"),
+         "med3d50": ((3, 4, 6, 3), Bottleneck, "cls")}
 
 
 @pytest.fixture(scope="module")
@@ -90,7 +97,7 @@ def _jax_refused(arch, packed):
     """Names of the port's roll-conv sites whose W-pair packed shape the
     JAX gate ``_roll_mode_supported`` refuses (a TPU budget the port does
     not copy)."""
-    layers, block = ARCHS[arch]
+    layers, block, _ = ARCHS[arch]
     out = []
     for name, (b, d, h, w, c), o in train_roll_site_shapes(
             B, SIZE, train_roll_sites(layers, block, packed)):
@@ -104,8 +111,8 @@ def _jax_refused(arch, packed):
 @pytest.mark.parametrize("arch", list(ARCHS))
 def test_the_jax_tpu_budgets_refuse_only_c2304(monkeypatch, arch, packed):
     _roll_mode(monkeypatch)
-    want = ["us1.conv_blocks.0.0"] if (arch, packed) == ("med3ddram50",
-                                                          True) else []
+    want = ["us1.conv_blocks.0.0"] if ARCHS[arch][1] is Bottleneck \
+        and packed else []
     assert _jax_refused(arch, packed) == want
     if want:
         # the VMEM plan, not the lane gate, refuses it
@@ -142,21 +149,25 @@ def test_eval_sites_equal_the_jax_kernel_sites(monkeypatch, jax_variables,
     x = jax.ShapeDtypeStruct((B, *SIZE, 1), jnp.float32)
     jax.eval_shape(lambda v, a: model.apply(v, a, a, train=False),
                    jax_variables[arch], x)
-    layers, block = ARCHS[arch]
-    want = roll_eval_sites(layers, packed_decoder=packed, block=block)
+    layers, block, kind = ARCHS[arch]
+    want = roll_eval_sites(layers, packed_decoder=packed, block=block,
+                           kind=kind)
     refused = _jax_refused(arch, packed)
     assert collections.Counter(sites) == collections.Counter(
         mod for name, mod, _ in want if name not in refused)
     launches = site_launches(want)
     a = launches.get("conv3x3x3_affine", 0)
+    # packed: us1 and us2 on 4 A, us3 on B fused with the dRAM heads or on
+    # one more A (CLS)
+    us3_a = int(packed and kind == "cls")
     if block is BasicBlock:
-        # pool + layer1 (C + 6 A), layer2 tail (6 A), packed: 4 A + B
-        assert a == (16 if packed else 12)
-        assert launches["max_pool3d_k3s2p1"] == 1
+        # pool + layer1 (C + 6 A), layer2 tail (6 A)
+        assert a == (16 if packed else 12) + us3_a
     else:
-        assert a == (4 if packed else 0)
-        assert launches["max_pool3d_k3s2p1"] == 1
-    assert launches.get("conv3x3x3_heads_sigmoid", 0) == int(packed)
+        assert a == (4 if packed else 0) + us3_a
+    assert launches["max_pool3d_k3s2p1"] == 1
+    assert launches.get("conv3x3x3_heads_sigmoid", 0) == int(
+        packed and kind == "reg")
 
 
 @pytest.mark.parametrize("packed", [False, True])
@@ -191,10 +202,10 @@ def test_train_sites_equal_the_jax_kernel_sites(monkeypatch, jax_variables,
 
     jax.eval_shape(jax.grad(loss), variables["params"],
                    variables["batch_stats"], x)
-    layers, block = ARCHS[arch]
+    layers, block, _ = ARCHS[arch]
     want = train_roll_sites(layers, block, packed)
-    n = {("med3ddram", True): 11, ("med3ddram", False): 6,
-         ("med3ddram50", True): 5, ("med3ddram50", False): 0}[arch, packed]
+    n = {(BasicBlock, True): 11, (BasicBlock, False): 6,
+         (Bottleneck, True): 5, (Bottleneck, False): 0}[block, packed]
     assert len(want) == n
     impls = [c for c in calls if c[0] == "impl"]
     wgrads = [c for c in calls if c[0] == "wgrad"]
@@ -215,7 +226,7 @@ def test_train_sites_equal_the_jax_kernel_sites(monkeypatch, jax_variables,
                                if name != "us3.0")
     assert train_roll_launches(want) == {"conv3x3x3_affine": 2 * n,
                                          "conv3x3x3_wgrad": n}
-    if arch == "med3ddram50" and packed:
+    if block is Bottleneck and packed:
         assert train_roll_site_shapes(B, SIZE, want)[0] == (
             "us1.conv_blocks.0.0", (B, 32, 56, 72, 2304), 64)
 
