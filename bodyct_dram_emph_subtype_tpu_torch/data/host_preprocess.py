@@ -9,6 +9,8 @@ the train loader reads through (window -> standardize -> in-plane bilinear
 + linspace depth subsample, reference ``models.py:57-63``).  Indices and
 weights are float64-derived (linear) or exact integer (nearest, depth),
 bit-identical to the device side (``ops/preprocess.py``, ``ops/resize.py``).
+``RawPaddedView`` is the loader view of the training device input
+pipeline: it only pads, and the device preprocesses.
 """
 from __future__ import annotations
 
@@ -127,6 +129,45 @@ class PreprocessedView:
     def __getitem__(self, index):
         return preprocess_sample(self.dataset[index], self.target_size,
                                  self.window)
+
+    def __getattr__(self, name):
+        return getattr(self.dataset, name)
+
+
+class RawPaddedView:
+    """Loader view of the device input pipeline: each sample's raw int16 CT
+    and its lung mask padded into a static ``pad_shape`` buffer (-2048 and
+    0), with its true extent ``in_sizes``; windowing, standardization,
+    resizing and the LAA mask run on the device
+    (``ops/preprocess.py::fused_preprocess``).  A sample larger than the
+    pad raises ``ValueError``."""
+
+    def __init__(self, dataset, pad_shape):
+        self.dataset = dataset
+        self.pad_shape = tuple(pad_shape)
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, index):
+        d = self.dataset[index]
+        img = np.asarray(d["image"])
+        lung = np.asarray(d["lung_mask"])
+        shape = img.shape
+        if any(s > p for s, p in zip(shape, self.pad_shape)):
+            raise ValueError(f"sample {index} shape {shape} exceeds "
+                             f"pad_shape {self.pad_shape}")
+        img_p = np.full(self.pad_shape, -2048, np.int16)
+        lung_p = np.zeros(self.pad_shape, np.uint8)
+        sl = tuple(slice(0, s) for s in shape)
+        img_p[sl] = img.astype(np.int16)
+        lung_p[sl] = (lung > 0)
+        out = {"image_raw": img_p, "lung_raw": lung_p,
+               "in_sizes": np.asarray(shape, np.int32)}
+        for key in ("cls_label", "pse_label", "index"):
+            if key in d:
+                out[key] = d[key]
+        return out
 
     def __getattr__(self, name):
         return getattr(self.dataset, name)

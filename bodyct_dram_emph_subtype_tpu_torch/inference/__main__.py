@@ -6,9 +6,11 @@
 
 Same flags and defaults as the repository's root ``processor.py`` (the
 reference ``processor.py:55-74``); ``--host_preprocess`` takes the host
-path for every scan.  The port runs on one CUDA device (``--device cpu``
-on request); the flags of paths it has not ported yet are accepted and
-refused with a message when set to anything but their defaults.
+path for every scan; ``--gated_frac`` sizes the device path's gated CT
+stream (a scan over it falls back alone to the host path).  The port runs
+on one CUDA device (``--device cpu`` on request); the flags of paths it
+has not ported yet are accepted and refused with a message when set to
+anything but their defaults.
 """
 import logging
 import re
@@ -52,8 +54,10 @@ def main(argv=None):
                              "larger crops fall back per scan to the host "
                              "path")
     parser.add_argument("--gated_frac", default=0.8, type=float,
-                        help="unused: the block-gated transport is not "
-                             "ported (the upload is the raw int16 planes)")
+                        help="capacity of the device path's block-gated CT "
+                             "stream as a fraction of the upload buffer's "
+                             "blocks; a scan with more live blocks falls "
+                             "back to the host path")
     parser.add_argument("--device", default=None, type=str,
                         help="torch device (default cuda; without a card "
                              "pass --device cpu, which runs the kernels' "
@@ -79,7 +83,8 @@ def main(argv=None):
         batch_size=args.batch_size, workers=args.workers,
         compute_dtype=args.compute_dtype,
         device_preprocess=not args.host_preprocess,
-        pad_shape=args.pad_shape, device=args.device, seed=args.seed)
+        pad_shape=args.pad_shape, gated_frac=args.gated_frac,
+        device=args.device, seed=args.seed)
     print("results:", results)
 
 

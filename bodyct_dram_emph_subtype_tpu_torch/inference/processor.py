@@ -15,13 +15,23 @@ Per batch of the device path (the default):
 
 1. loader threads read, dilate, mask and crop each scan, take the exact
    linspace depth planes of the CT into an in-plane padded int16 buffer,
-   nearest-select the lung to the model size and compute the exact
-   standardize moments (``_RawPredictView``);
-2. upload: the int16 planes and the uint8 lung go to the device as they
-   are (the JAX package's 10-bit block-gated transport, ``ops/packing.py``,
-   was a fix for its TPU link and is exact, so leaving it out changes no
-   number);
-3. preprocess on device (``ops/preprocess.py``), then the eval forward;
+   compute its block gate (the ``block``-voxel flat blocks holding a voxel
+   above the HU window floor), nearest-select the lung to the model size
+   and compute the exact standardize moments (``_RawPredictView``);
+2. upload (JAX ``processor.py:357-414``): the dispatch thread packs the
+   batch's CT as the block-gated 10-bit window-domain stream of
+   ``ops/packing.py`` (only the live blocks, window-clamped, in a static
+   stream of ``budget`` voxels sized by ``gated_frac``), the gate bits and
+   the lung as little-endian bits; these, the extents and the moments go
+   to the device (pinned, asynchronous).  The transport is exact: it
+   changes no number the processor writes.  At the default pad (upload
+   buffer 128x288x384, block 128, ``gated_frac`` 0.8) that is 14.2 MB +
+   14 KB + 1.0 MB per scan, against 28.3 MB + 8.3 MB for int16 planes and
+   a uint8 lung (counted from the shapes; ``chip_smoke.py`` phase 4
+   checks them against ``stats["upload_bytes"]``);
+3. on the device: the CT unpacked (``unpack10_gated_device``) and the lung
+   bits unpacked, the preprocess (``ops/preprocess.py``), then the eval
+   forward;
 4. reduction on device: the exact lesion percentages through the
    adjoint-resize identity ``sum(resize(d)*ess) == sum(d * R^T ess)``
    (``_cached_predict_packed``, processor.py:232-242), f16 half maps and
@@ -41,9 +51,11 @@ upsampled to the model size and masked, the two numerators in one call of
 kernel F.  A scan whose lung crop exceeds ``pad_shape`` in-plane does not
 stop the cohort: the device path records it, warns naming it and emits a
 dummy that is skipped on output, and afterwards just those scans run the
-host path (``stats["host_scans"]``).  A ``target_size`` whose voxel count
-breaks the ess bit-packing sends the whole run to the host path with a
-warning.  Results keep the cohort (glob) order.
+host path (``stats["host_scans"]``); so does a scan whose live blocks
+exceed the stream's budget.  A ``target_size`` whose voxel count breaks
+the bit-packing, or a ``pad_shape`` whose upload buffer has no gate block
+(``pick_gate_block`` returns 0), sends the whole run to the host path with
+a warning.  Results keep the cohort (glob) order.
 """
 from __future__ import annotations
 
@@ -68,6 +80,9 @@ from ..data.loader import DataLoader
 from ..data.mha import write_arrays_to_mha
 from ..models.registry import get_model_by_name
 from ..models.torch_import import load_reference_checkpoint
+from ..ops.packing import (WINDOW_LO, gate_blocks_np, gated_budget,
+                           pack10_gated_host, pick_gate_block,
+                           unpack10_gated_device)
 from ..ops.pallas_kernels import masked_sums
 from ..ops.preprocess import fused_preprocess_preselected
 from ..ops.resize import resize_linear_matmul_transpose
@@ -107,36 +122,42 @@ class _PredictView:
 class _RawPredictView:
     """Device-path loader view: the cropped raw int16 CT, depth-preselected
     to ``up_shape[0]`` planes (bit-identical to the device's linspace
-    selection) and padded in-plane to ``up_shape``; the lung nearest-
-    selected all the way to ``target_size``; the standardize moments from
-    exact integer sums.
+    selection) and padded in-plane to ``up_shape``, with its block gate
+    (``gate_blocks_np(img > WINDOW_LO)``, computed here so that the
+    dispatch thread's packing does not scan the buffer again); the lung
+    nearest-selected all the way to ``target_size``; the standardize
+    moments from exact integer sums.
 
-    A scan whose lung crop exceeds ``up_shape`` in-plane does not abort the
-    cohort: its index goes into :attr:`oversized` (the loader workers are
-    threads, so the caller sees it), a warning names the scan, and a dummy
-    zero-lung item marked ``oversized`` takes its place; the caller skips
-    the dummy on output and re-runs those scans on the host path.  The JAX
-    package's second overflow, a gated CT stream over its budget, cannot
-    happen here: the port uploads the raw int16 planes."""
+    A scan whose lung crop exceeds ``up_shape`` in-plane, or whose live
+    blocks exceed ``budget`` voxels, does not abort the cohort: its index
+    goes into :attr:`oversized` (the loader workers are threads, so the
+    caller sees it), a warning names the scan, and a dummy zero-lung item
+    marked ``oversized`` takes its place; the caller skips the dummy on
+    output and re-runs those scans on the host path (JAX
+    ``processor.py:76-164``)."""
 
-    def __init__(self, dataset: SubtypingInference, up_shape, target_size):
+    def __init__(self, dataset: SubtypingInference, up_shape, target_size,
+                 budget: int, block: int):
         self.dataset = dataset
         self.up_shape = tuple(up_shape)      # (target_d, Hpad, Wpad)
         self.target_size = tuple(target_size)
+        self.budget = int(budget)
+        self.block = int(block)
+        self.nblk = int(np.prod(self.up_shape)) // self.block
         self.oversized: Set[int] = set()
         self._lock = threading.Lock()
 
     def __len__(self):
         return len(self.dataset)
 
-    def _dummy(self, index, d, shape):
+    def _dummy(self, index, d, why: str):
         with self._lock:
             self.oversized.add(index)
         logger.warning(
-            "scan %s crop %s exceeds in-plane pad %s — will fall back to "
-            "host preprocessing for this scan only", d["uid"], shape,
-            self.up_shape[1:])
+            "scan %s %s — will fall back to host preprocessing for this "
+            "scan only", d["uid"], why)
         return {"image_raw": np.full(self.up_shape, -2048, np.int16),
+                "gate_blocks": np.zeros(self.nblk, bool),
                 "lung_raw": np.zeros(self.target_size, np.uint8),
                 "in_sizes": np.asarray(self.up_shape, np.int32),
                 "moments": np.zeros(2, np.float32),
@@ -147,15 +168,21 @@ class _RawPredictView:
         d = self.dataset[index]
         img = np.asarray(d["image"])         # int16 crop
         if any(s > p for s, p in zip(img.shape[1:], self.up_shape[1:])):
-            return self._dummy(index, d, img.shape)
+            return self._dummy(index, d, f"crop {img.shape} exceeds "
+                               f"in-plane pad {self.up_shape[1:]}")
         idx = depth_indices_np(img.shape[0], self.up_shape[0])
         img_p = np.full(self.up_shape, -2048, np.int16)
         img_p[:, :img.shape[1], :img.shape[2]] = img[idx]
+        gate = gate_blocks_np((img_p > WINDOW_LO).reshape(1, -1),
+                              self.block)[0]
+        if int(np.count_nonzero(gate)) * self.block > self.budget:
+            return self._dummy(index, d, f"gated voxel count exceeds budget "
+                               f"{self.budget}")
         lung_sel = resize_nearest_np(
             np.ascontiguousarray(np.asarray(d["lung_mask"])[idx],
                                  dtype=bool).view(np.uint8),
             self.target_size[1:], (1, 2))
-        return {"image_raw": img_p, "lung_raw": lung_sel,
+        return {"image_raw": img_p, "gate_blocks": gate, "lung_raw": lung_sel,
                 "in_sizes": np.asarray(
                     (self.up_shape[0], img.shape[1], img.shape[2]), np.int32),
                 "moments": window_moments_np(img),
@@ -200,9 +227,36 @@ def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
-def _predict(model, raw, lung, in_sizes, moments, target_size,
-             dtype: torch.dtype, clock: _StageClock) -> Dict[str, Any]:
-    """The device program of one batch (``_cached_predict_packed``)."""
+def gate_plan(target_size, pad_shape, gated_frac: float = 0.8):
+    """The device path's upload plan: ``(up_shape, block, budget)``, the
+    depth-preselected upload buffer (target depth, in-plane pad), its gate
+    block (``pick_gate_block``) and the stream's capacity in voxels,
+    ``gated_frac`` of the buffer's blocks rounded up to 8 blocks (JAX
+    ``processor.py:373-379``).  Raises ``ValueError`` when the buffer has
+    no gate block, where the JAX package would divide by 0."""
+    up_shape = (int(target_size[0]), int(pad_shape[1]), int(pad_shape[2]))
+    n_vox = int(np.prod(up_shape))
+    block = pick_gate_block(n_vox)
+    if block == 0:
+        raise ValueError(f"upload buffer {up_shape} ({n_vox} voxels) has no "
+                         f"gate block: its voxel count is not a multiple of "
+                         f"8 blocks of 64")
+    budget = gated_budget([int(n_vox // block * gated_frac)], block=block)
+    return up_shape, block, budget
+
+
+def _predict(model, packed, gate_bits, lung_bits, in_sizes, moments,
+             up_shape, block: int, target_size, dtype: torch.dtype,
+             clock: _StageClock) -> Dict[str, Any]:
+    """The device program of one batch (``_cached_predict_packed``): the
+    gated CT stream and the lung bits unpacked (JAX
+    ``processor.py:211-224``), then the preprocess, forward and
+    reduction."""
+    b = packed.shape[0]
+    raw = unpack10_gated_device(packed, gate_bits, up_shape, block)
+    shifts = torch.arange(8, dtype=torch.uint8, device=lung_bits.device)
+    lung = ((lung_bits[..., None] >> shifts) & 1).reshape(b, -1)[
+        :, :int(np.prod(target_size))].reshape(b, *target_size)
     pre = fused_preprocess_preselected(raw, lung, in_sizes, moments,
                                        target_size=target_size,
                                        em_threshold=-910.0)
@@ -212,7 +266,6 @@ def _predict(model, raw, lung, in_sizes, moments, target_size,
     clock.mark()
     dense, _ = model(x, lungs5)
     clock.mark()
-    b = raw.shape[0]
     half = dense[0].shape[1:4]
     ess_w = resize_linear_matmul_transpose(ess5, half, (1, 2, 3),
                                            align_corners=True)
@@ -448,23 +501,34 @@ def build_model(model_arch: str = "med3ddram",
 
 def _device_path(model, dataset: SubtypingInference, make_loader,
                  fetcher: _FetchStage, target_size, pad_shape,
-                 dtype: torch.dtype, device: torch.device,
+                 gated_frac: float, dtype: torch.dtype, device: torch.device,
                  stats: Dict[str, Any]) -> List[int]:
     """Every scan through the device program (``_predict``), batch by
-    batch; returns the dataset indices whose crops exceeded ``pad_shape``
-    in-plane, for the host path."""
+    batch, uploaded as the block-gated 10-bit stream (:func:`gate_plan`);
+    returns the dataset indices whose crops exceeded ``pad_shape``
+    in-plane or whose live blocks exceeded the budget, for the host
+    path."""
     n_vox_t = int(np.prod(target_size))
-    up_shape = (target_size[0], int(pad_shape[1]), int(pad_shape[2]))
-    view = _RawPredictView(dataset, up_shape, target_size)
+    up_shape, block, budget = gate_plan(target_size, pad_shape, gated_frac)
+    view = _RawPredictView(dataset, up_shape, target_size, budget, block)
     for batch in make_loader(view, range(len(view))):
+        t0 = time.perf_counter()
+        packed, gate_bits = pack10_gated_host(
+            batch["image_raw"], batch["gate_blocks"], budget, block)
+        lung_bits = np.packbits(batch["lung_raw"].reshape(len(packed), -1),
+                                axis=-1, bitorder="little")
+        stats["pack_ms"] += 1e3 * (time.perf_counter() - t0)
+        stats["upload_bytes"] += sum(a.nbytes for a in (
+            packed, gate_bits, lung_bits, batch["in_sizes"],
+            batch["moments"]))
         clock = _StageClock(device)
         clock.mark()
-        raw = _upload(batch["image_raw"], device)
-        lung = _upload(batch["lung_raw"], device)
-        moments = _upload(batch["moments"], device)
+        inputs = [_upload(a, device) for a in (
+            packed, gate_bits, lung_bits, batch["in_sizes"],
+            batch["moments"])]
         clock.mark()
-        res = _predict(model, raw, lung, batch["in_sizes"].tolist(), moments,
-                       target_size, dtype, clock)
+        res = _predict(model, *inputs, up_shape, block, target_size, dtype,
+                       clock)
         # enqueue the download now, into pinned host memory, ahead of the
         # next batch's work on the stream
         res = {k: v.to("cpu", non_blocking=True) for k, v in res.items()}
@@ -505,7 +569,7 @@ def run_inference(scan_path: str, lobe_path: str, output_path: str,
                   target_size=(128, 224, 288), batch_size: int = 2,
                   workers: int = 2, compute_dtype: str = "float32",
                   device_preprocess: bool = True,
-                  pad_shape=(160, 288, 384),
+                  pad_shape=(160, 288, 384), gated_frac: float = 0.8,
                   model: Optional[torch.nn.Module] = None,
                   device=None, seed: int = 0,
                   stats: Optional[Dict[str, Any]] = None
@@ -513,8 +577,10 @@ def run_inference(scan_path: str, lobe_path: str, output_path: str,
     """Run the deployment pipeline over every scan; returns the results.
 
     ``device_preprocess=True`` (the default): the device path; scans whose
-    lung crop exceeds ``pad_shape`` in-plane then run the host path one by
-    one (batched among themselves).  ``False``: every scan on the
+    lung crop exceeds ``pad_shape`` in-plane, or whose live CT blocks
+    exceed the gated stream's budget (``gated_frac`` of the upload
+    buffer's blocks), then run the host path one by one (batched among
+    themselves).  ``False``: every scan on the
     host-preprocess path, the strict reference-parity path.
     ``model``: an eval port model to use as is (``model_arch``,
     ``ckp_path`` and ``seed`` then go unused); otherwise one is built by
@@ -524,7 +590,11 @@ def run_inference(scan_path: str, lobe_path: str, output_path: str,
     ``bfloat16``.  ``stats``: if given, filled with ``batches`` (device and
     host path), ``scans``, ``host_scans`` (the uids that ran the host path,
     in cohort order), ``fractions`` (each uid's unrounded CLE and PSE
-    lesion fractions), the summed per-stage milliseconds ``stage_ms`` and
+    lesion fractions), ``upload_bytes`` (bytes the device path uploaded,
+    every batch's stream, gate bits, lung bits, extents and moments) and
+    ``pack_ms`` (host-clock ms of the dispatch thread's packing, summed
+    over the device-path batches), the summed per-stage milliseconds
+    ``stage_ms`` and
     ``pipeline_s``, the wall time from the first loader read to the last
     file written.  ``STAGES`` are intervals of the device timeline (on a
     card: from the batch's first event, which may wait behind the previous
@@ -551,11 +621,16 @@ def run_inference(scan_path: str, lobe_path: str, output_path: str,
                                  compute_ess=not device_preprocess)
     if len(dataset) == 0:
         raise FileNotFoundError(f"no .mha scans under {scan_path}")
-    if device_preprocess and int(np.prod(target_size)) % 8:
+    n_vox_u = target_size[0] * int(pad_shape[1]) * int(pad_shape[2])
+    if device_preprocess and (int(np.prod(target_size)) % 8 or n_vox_u % 8
+                              or pick_gate_block(n_vox_u) == 0):
+        # JAX processor.py:616-631: the bit-packing needs
+        # prod(target_size) % 8 == 0, the gated transport a gate block
         logger.warning(
-            "target_size %s breaks the device path's ess bit-packing "
-            "(prod(target_size) %% 8 == 0) — using host preprocessing "
-            "instead", target_size)
+            "target_size %s / pad_shape %s break the device path's packing "
+            "(prod(target_size) %% 8 == 0, a gate block for the upload "
+            "buffer) — using host preprocessing instead", target_size,
+            tuple(pad_shape))
         device_preprocess = False
     if model is None:
         model = build_model(model_arch, ckp_path, seed, compute_dtype)
@@ -573,6 +648,7 @@ def run_inference(scan_path: str, lobe_path: str, output_path: str,
     if stats is None:
         stats = {}
     stats.update(batches=0, scans=len(dataset), host_scans=[], fractions={},
+                 upload_bytes=0, pack_ms=0.0,
                  stage_ms={k: 0.0 for k in (*STAGES, "postprocess")})
 
     t0 = time.perf_counter()
@@ -586,7 +662,7 @@ def run_inference(scan_path: str, lobe_path: str, output_path: str,
                 if device_preprocess:
                     host_subset = _device_path(
                         model, dataset, make_loader, fetcher, target_size,
-                        pad_shape, dtype, device, stats)
+                        pad_shape, gated_frac, dtype, device, stats)
                 if host_subset:
                     stats["host_scans"] = [Path(dataset.scan_files[i]).stem
                                            for i in host_subset]

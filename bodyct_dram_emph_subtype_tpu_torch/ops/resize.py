@@ -68,10 +68,15 @@ def resize_linear_matmul_transpose(x: torch.Tensor, in_sizes: Sequence[int],
     return x
 
 
-def nearest_indices(out_size: int, in_size: int, device=None
-                    ) -> torch.Tensor:
+def nearest_indices(out_size: int, in_size, device=None) -> torch.Tensor:
     """torch 'nearest' source rows ``floor(i * in / out)`` as the exact
-    integer rational floor."""
+    integer rational floor.  ``in_size``: an int, or an integer tensor of
+    extents (B,), which gives (B, out_size) rows on its device without a
+    host read."""
+    if isinstance(in_size, torch.Tensor):
+        n = in_size.to(torch.int64)[..., None]
+        i = torch.arange(out_size, dtype=torch.int64, device=in_size.device)
+        return torch.minimum((i * n) // out_size, n - 1)
     i = torch.arange(out_size, dtype=torch.int64, device=device)
     return torch.clamp((i * int(in_size)) // out_size, max=int(in_size) - 1)
 
@@ -94,10 +99,16 @@ def resize_nearest(x: torch.Tensor, out_sizes: Sequence[int],
     return x
 
 
-def depth_linspace_indices(original_d: int, new_d: int,
+def depth_linspace_indices(original_d, new_d: int,
                            device=None) -> torch.Tensor:
     """``torch.linspace(0, D-1, newD).long()`` as the exact rational floor
-    ``(i * (D-1)) // (newD-1)``."""
+    ``(i * (D-1)) // (newD-1)``.  ``original_d``: an int, or an integer
+    tensor of depths (B,), which gives (B, new_d) indices on its device."""
+    if isinstance(original_d, torch.Tensor):
+        d = original_d.to(torch.int64)[..., None]
+        i = torch.arange(new_d, dtype=torch.int64, device=original_d.device)
+        return (i * (d - 1)) // (new_d - 1) if new_d > 1 else \
+            torch.zeros_like(d)
     if new_d > 1:
         i = torch.arange(new_d, dtype=torch.int64, device=device)
         return (i * (int(original_d) - 1)) // (new_d - 1)

@@ -11,9 +11,11 @@ flow (``train.py:123-133``): ``init_state`` -> ``setup_checkpointing`` ->
 Both strategies run: dRAM regression for the ``med3ddram*`` archs, the
 classification strategy (weighted cross entropy, adaptive class
 re-weighting) for ``med3d``, ``med3d18``, ``med3d50`` and ``med3dtiny``.
-``--input_pipeline device``, ``--mesh``, ``--multihost``, ``--ngpus`` > 1,
-``--remat`` other than ``none`` and ``--noise_rng rbg`` raise
-``NotImplementedError``; the plain ``resnet34``/``resnet50`` raise
+``--input_pipeline device --pad_shape D,H,W`` trains and evaluates on raw
+int16 volumes padded to ``pad_shape``, preprocessed on the device (without
+``--pad_shape`` it raises ``ValueError``).  ``--mesh``, ``--multihost``,
+``--ngpus`` > 1, ``--remat`` other than ``none`` and ``--noise_rng rbg``
+raise ``NotImplementedError``; the plain ``resnet34``/``resnet50`` raise
 ``ValueError`` (no lung mask: the JAX trainer cannot train them either).
 ``--packed_decoder`` reaches the model
 (under conv mode ``roll`` its decoder convs then run on kernels A/D, as
@@ -91,9 +93,13 @@ def build_parser() -> ArgumentParser:
     p.add_argument("--compute_dtype", default="float32",
                    choices=["float32", "bfloat16"])
     p.add_argument("--input_pipeline", default="host",
-                   choices=["host", "device"])
+                   choices=["host", "device"],
+                   help="host: the loader threads preprocess; device: they "
+                        "pad raw int16 volumes to --pad_shape and the card "
+                        "preprocesses them in the train and eval steps")
     p.add_argument("--pad_shape", default=None, type=parse_size,
-                   help="device input pipeline only (not ported)")
+                   help="D,H,W buffer of --input_pipeline device; a larger "
+                        "scan raises ValueError")
     p.add_argument("--multihost", action="store_true")
     p.add_argument("--profile", action="store_true")
     p.add_argument("--debug_nans", action="store_true")
@@ -129,7 +135,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         valid_csv=args.valid_csv, test_csv=args.test_csv,
         model_path=args.model_path, nchips=args.nchips, seed=args.seed,
         sampler_seed=args.sampler_seed, compute_dtype=args.compute_dtype,
-        input_pipeline=args.input_pipeline, mesh=args.mesh,
+        input_pipeline=args.input_pipeline, pad_shape=args.pad_shape,
+        mesh=args.mesh,
         remat=args.remat, noise_rng=args.noise_rng,
         grad_accum=args.grad_accum, packed_decoder=args.packed_decoder,
         device=args.device)

@@ -7,11 +7,16 @@ Counterpart of ``bodyct_dram_emph_subtype_tpu/train/loop.py``
 strategy for the ``*dram*``/``*reg*`` archs, the classification (CLS)
 strategy for the others; CLE-stratified sampling with per-epoch reshuffled index order
 (``models.py:99-123``); loader threads deliver host-preprocessed
-fixed-shape batches (``PreprocessedView``); augmentation, forward, losses,
-backward and the Adam update run on the device; lr decays x0.95 per epoch
-(``models.py:685-698``); every-epoch checkpoints with auto-resume and
-greedy weight reload (``train.py:77-99``); per-epoch accuracy,
-classification report, prediction CSV and ``metrics.jsonl``.
+fixed-shape batches (``PreprocessedView``, ``input_pipeline="host"``) or,
+with ``input_pipeline="device"``, raw int16 volumes padded to
+``pad_shape`` (``RawPaddedView``) that the train and eval steps preprocess
+on the device (``fused_preprocess``); either way ``prefetch_to_device``
+keeps the next batches' uploads in flight (pinned memory, a copy stream
+of their own) while a step runs (JAX ``loop.py:374-495``); augmentation,
+forward, losses, backward and the Adam update run on the device; lr
+decays x0.95 per epoch (``models.py:685-698``); every-epoch checkpoints
+with auto-resume and greedy weight reload (``train.py:77-99``); per-epoch
+accuracy, classification report, prediction CSV and ``metrics.jsonl``.
 
 Each step's augmentation ``torch.Generator`` is seeded from (seed, epoch,
 step), the counterpart of ``fold_in(fold_in(key, epoch), step)``
@@ -21,8 +26,8 @@ eval kernels A, B and C).  The CLS strategy re-weights its classes at the
 end of every train phase (:func:`reweight_classes`).
 
 Not ported yet; each raises ``NotImplementedError`` naming its ROADMAP
-item: the device input pipeline, multi-device training (``nchips`` > 1,
-``mesh``), remat other than ``none`` and the ``rbg`` noise source.  The
+item: multi-device training (``nchips`` > 1, ``mesh``), remat other than
+``none`` and the ``rbg`` noise source.  The
 plain ``ResNet`` archs (``resnet34``, ``resnet50``) are refused with a
 ``ValueError``: they take no lung mask, so the JAX trainer cannot train
 them either.  The confusion-matrix PNGs, the heatmap tiles and
@@ -42,8 +47,9 @@ import numpy as np
 import torch
 
 from ..data.datasets import COPDGeneSubtyping
-from ..data.host_preprocess import PreprocessedView
-from ..data.loader import DataLoader
+from ..data.host_preprocess import PreprocessedView, RawPaddedView
+from ..data.loader import (DataLoader, DeviceUploader, default_collate,
+                           pinned_collate, prefetch_to_device)
 from ..data.samplers import SubtypingStratifiedSampler, shard_indices
 from ..models.registry import (PLAIN_FACTORIES, get_model_by_name,
                                resolve_arch)
@@ -81,7 +87,8 @@ class TrainerConfig:
     seed: int = 0
     sampler_seed: Optional[int] = None   # None == wall-clock (reference)
     compute_dtype: str = "float32"       # or "bfloat16"
-    input_pipeline: str = "host"
+    input_pipeline: str = "host"         # or "device": fused preprocess
+    pad_shape: Optional[Tuple[int, int, int]] = None  # device-pipeline buffer
     mesh: Optional[str] = None
     remat: str = "none"
     noise_rng: str = "threefry"
@@ -113,11 +120,6 @@ def check_supported(cfg: TrainerConfig) -> None:
             f"mask and has no decoder; the trainer runs the Seg archs "
             f"(med3d*, med3ddram*), as the JAX trainer does, whose train "
             f"forward passes the lungs to the model")
-    if cfg.input_pipeline != "host":
-        raise NotImplementedError(
-            "input_pipeline='device' (fused on-device preprocess of raw "
-            "volumes in training) is not ported yet (ROADMAP section 1, 'The "
-            "10-bit gated transport and the device input pipeline')")
     if cfg.mesh is not None or (cfg.nchips or 1) > 1:
         raise NotImplementedError(
             "multi-device training (mesh, nchips > 1, multihost) needs DDP, "
@@ -200,10 +202,35 @@ class SubtypeTrainer:
                 else make_cls_train_step)
         self._train_step = make(
             self.model, self.optimizer, accum_steps=cfg.grad_accum,
-            compute_dtype=self.dtype, device=self.device)
-        self._eval_step = make_eval_step(self.model, self.mode, self.dtype,
-                                         self.device)
+            compute_dtype=self.dtype, device=self.device,
+            fused_input=cfg.input_pipeline == "device",
+            target_size=tuple(cfg.target_size))
+        # per input pipeline; the device one preprocesses in the step (JAX
+        # loop.py:488-495), so evaluation follows the pipeline it is given
+        self._eval_steps = {
+            pipeline: make_eval_step(
+                self.model, self.mode, self.dtype, self.device,
+                fused_input=pipeline == "device",
+                target_size=tuple(cfg.target_size))
+            for pipeline in ("host", "device")}
+        self._uploader = DeviceUploader(self.device)
         return self.model
+
+    def _put(self, pipeline: str, train: bool):
+        """``put_fn`` of ``prefetch_to_device``: one loader batch's inputs
+        and labels -> (:class:`~..data.loader.Upload`, the host batch).
+        The arrays each pipeline uploads are JAX ``loop.py:374-384,
+        441-451``'s; eval batches need no ``em_mask``."""
+        if pipeline == "device":
+            keys = ("image_raw", "lung_raw", "in_sizes")
+        else:
+            keys = ("image", "lung_mask") + (("em_mask",) if train else ())
+        keys += ("cls_label", "pse_label")
+
+        def put(batch):
+            return self._uploader({k: batch[k] for k in keys}), batch
+
+        return put
 
     def setup_checkpointing(self) -> CheckpointManager:
         self.ckpt = CheckpointManager(self.config.exp_path / "checkpoints")
@@ -262,16 +289,29 @@ class SubtypeTrainer:
             ds.pse_class_weights = self.pse_class_weights
         return ds
 
-    def _loader(self, phase: str, epoch: int) -> DataLoader:
+    def _loader(self, phase: str, epoch: int,
+                input_pipeline: Optional[str] = None) -> DataLoader:
+        """The loader of ``phase``: host-preprocessed batches, or raw
+        padded ones for the device pipeline (``input_pipeline``, default
+        the config's).  On a CUDA device batches are stacked in pinned
+        memory."""
         cfg = self.config
         ds = self._dataset(phase)
-        view = PreprocessedView(ds, cfg.target_size)
+        if (input_pipeline or cfg.input_pipeline) == "device":
+            if cfg.pad_shape is None:
+                raise ValueError("input_pipeline='device' needs pad_shape")
+            view = RawPaddedView(ds, cfg.pad_shape)
+        else:
+            view = PreprocessedView(ds, cfg.target_size)
+        collate = (pinned_collate if self.device.type == "cuda"
+                   else default_collate)
         if phase == TRAIN_PHASE:
             indices = shard_indices(list(iter(self.sampler)), 1, 0,
                                     shuffle=True, epoch=epoch)
             return DataLoader(view, indices=indices,
                               batch_size=cfg.batch_size,
-                              num_workers=cfg.workers, drop_last=True)
+                              num_workers=cfg.workers, drop_last=True,
+                              collate=collate)
         # pad by wrap-around so the last batch is full; duplicates are
         # dropped at epoch end (models.py:306-311)
         indices = np.arange(len(ds))
@@ -279,7 +319,7 @@ class SubtypeTrainer:
             total = -(-len(indices) // cfg.batch_size) * cfg.batch_size
             indices = np.resize(indices, total)
         return DataLoader(view, indices=indices, batch_size=cfg.batch_size,
-                          num_workers=cfg.workers)
+                          num_workers=cfg.workers, collate=collate)
 
     def _log_skipped_once(self):
         if not self._skipped_logged:
@@ -331,17 +371,19 @@ class SubtypeTrainer:
         outputs: List[Dict[str, np.ndarray]] = []
         running: Dict[str, float] = {}
         n_steps = 0
-        it = iter(self._loader(TRAIN_PHASE, epoch))
+        it = prefetch_to_device(self._loader(TRAIN_PHASE, epoch),
+                                self._put(cfg.input_pipeline, train=True))
         while True:
             mark("loader")
-            batch = next(it, None)
-            if batch is None:
+            item = next(it, None)
+            if item is None:
                 break
+            upload, batch = item
             gen = torch.Generator(self.device).manual_seed(
                 step_seed(cfg.seed, epoch, n_steps))
             metrics, preds = self._train_step(
-                batch, lr, self.cle_class_weights, self.pse_class_weights,
-                generator=gen, mark=mark)
+                upload.ready(), lr, self.cle_class_weights,
+                self.pse_class_weights, generator=gen, mark=mark)
             n_steps += 1
             for k, v in metrics.items():
                 running[k] = running.get(k, 0.0) + float(v)
@@ -352,16 +394,22 @@ class SubtypeTrainer:
                 outputs)
 
     # ------------------------------------------------------------------- eval
-    def evaluate(self, phase: str, epoch: Optional[int] = None
-                 ) -> Dict[str, float]:
-        """Eval epoch on the host pipeline: eval forward, labels, the
-        epoch-end report of ``phase``."""
+    def evaluate(self, phase: str, epoch: Optional[int] = None,
+                 input_pipeline: Optional[str] = None) -> Dict[str, float]:
+        """Eval epoch: eval forward, labels, the epoch-end report of
+        ``phase``.  ``input_pipeline`` defaults to the config's, so a
+        device-pipeline run serves val and test through the fused eval
+        step too; ``"host"`` or ``"device"`` overrides it per call."""
         epoch = epoch if epoch is not None else self.epoch
         if self.model is None:
             self.init_state()
+        pipeline = input_pipeline or self.config.input_pipeline
+        eval_step = self._eval_steps[pipeline]
         outputs = []
-        for batch in self._loader(phase, epoch):
-            res = self._eval_step(batch)
+        for upload, batch in prefetch_to_device(
+                self._loader(phase, epoch, input_pipeline=pipeline),
+                self._put(pipeline, train=False)):
+            res = eval_step(upload.ready())
             out = {k: v.cpu().numpy() for k, v in res.items()
                    if not k.startswith("dense")}
             out["index"] = np.asarray(batch["index"]).reshape(-1)

@@ -6,7 +6,10 @@ Counterpart of ``bodyct_dram_emph_subtype_tpu/train/steps.py``'s
 and VAL/TEST branches of ``shared_step``, and ``models.py:430-450``,
 ``predict_step``):
 
-- train (both strategies, :func:`_make_train_step`): on-device
+- train (both strategies, :func:`_make_train_step`): with
+  ``fused_input`` (the device input pipeline) the raw padded int16 volumes
+  through ``ops/preprocess.py::fused_preprocess`` (LAA mask at -950 HU,
+  ``steps.py:88-99``), then on-device
   augmentation -> train-mode forward (BatchNorm batch statistics) -> the
   losses -> backward -> one Adam update.  dRAM: the four reg losses
   ``(cle + pse) / num_data_shards + 2 * mutex_dice + coverage_bce``;
@@ -15,8 +18,9 @@ and VAL/TEST branches of ``shared_step``, and ``models.py:430-450``,
 - ``accum_steps > 1``: the batch splits into microbatches run one after
   the other, gradients averaged, BatchNorm running statistics chained
   through them, one Adam update (``steps.py:196-221``);
-- eval: eval forward + predicted labels (interval lookup of the lesion
-  fractions for dRAM, ``argmax`` of the pooled logits for CLS);
+- eval: (``fused_input``: the fused preprocess, then) eval forward +
+  predicted labels (interval lookup of the lesion fractions for dRAM,
+  ``argmax`` of the pooled logits for CLS);
 - predict: eval forward -> both dRAM maps linearly upsampled
   (align_corners=True) to the input size -> masked by the -910 HU
   emphysema-susceptible mask -> lesion percentages, normalised per sample
@@ -38,6 +42,7 @@ from ..losses import (generate_regression_labels, interval_regression_loss,
                       ratio_to_label_batch, segmentation_losses,
                       weighted_cross_entropy)
 from ..ops.pallas_kernels import masked_sums
+from ..ops.preprocess import fused_preprocess
 from ..ops.resize import resize_linear_matmul, resize_nearest
 from ..transforms.batch_augment import augment_batch, draw_augment_params
 from .state import set_lr
@@ -61,6 +66,25 @@ def dense_map_size(spatial: Sequence[int]) -> Tuple[int, int, int]:
 def _as_tensor(a, device, dtype=None) -> torch.Tensor:
     t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
     return t.to(device=device, dtype=dtype, non_blocking=True)
+
+
+def _batch_inputs(batch, fused_input: bool, target_size, device):
+    """(images, lungs, ems) float32 on ``device``, (B, D, H, W): the
+    host-preprocessed ``image``, ``lung_mask`` and ``em_mask`` (``None``
+    when the batch has none: eval batches), or with ``fused_input`` the
+    raw padded ``image_raw``/``lung_raw`` of true extents ``in_sizes``
+    through the fused preprocess (``steps.py:88-99``)."""
+    if fused_input:
+        pre = fused_preprocess(_as_tensor(batch["image_raw"], device),
+                               _as_tensor(batch["lung_raw"], device),
+                               _as_tensor(batch["in_sizes"], device),
+                               target_size=tuple(target_size),
+                               em_threshold=-950.0)
+        return pre["image"], pre["lung_mask"], pre["em_mask"]
+    ems = batch.get("em_mask")
+    return (_as_tensor(batch["image"], device, torch.float32),
+            _as_tensor(batch["lung_mask"], device, torch.float32),
+            None if ems is None else _as_tensor(ems, device, torch.float32))
 
 
 def _reg_heads(dense, regs, cle_labels, pse_labels, ems5, lungs5,
@@ -107,7 +131,8 @@ def _cls_losses(outs, inputs, cw_cle, cw_pse, num_data_shards: int):
 
 
 def _make_train_step(losses_fn, model, optimizer, num_data_shards, augment,
-                     accum_steps, compute_dtype, device):
+                     accum_steps, compute_dtype, device, fused_input,
+                     target_size):
     """The train step both strategies share: returns ``step(batch, lr,
     cle_class_weights, pse_class_weights, generator=None, mark=None) ->
     (metrics, preds)``.
@@ -115,21 +140,25 @@ def _make_train_step(losses_fn, model, optimizer, num_data_shards, augment,
     ``losses_fn(outs, inputs, cw_cle, cw_pse, num_data_shards) -> (losses,
     (pred_cle, pred_pse))`` turns the model's outputs into the losses, of
     which ``losses["loss"]`` is differentiated.  ``batch``: host arrays or
-    tensors ``image``, ``lung_mask``, ``em_mask`` (B, D, H, W) and
-    ``cls_label``/``pse_label`` (B,).  ``generator``: the augmentation's
-    ``torch.Generator`` (on ``device``; needed when ``augment``).
-    ``mark(name)``, if given, is called as each phase begins
-    (``augment``, ``forward``, ``backward``, ``optimizer``) and with
-    ``done`` at the end — a hook for timing.  ``metrics`` are the losses
+    tensors ``image``, ``lung_mask``, ``em_mask`` (B, D, H, W) or, with
+    ``fused_input``, ``image_raw``, ``lung_raw`` (B, Dp, Hp, Wp) and
+    ``in_sizes`` (B, 3), preprocessed to ``target_size`` on the device;
+    and ``cls_label``/``pse_label`` (B,).  ``generator``: the
+    augmentation's ``torch.Generator`` (on ``device``; needed when
+    ``augment``).  ``mark(name)``, if given, is called as each phase
+    begins (``preprocess`` with ``fused_input``, ``augment``, ``forward``,
+    ``backward``, ``optimizer``) and with ``done`` at the end — a hook for
+    timing.  ``metrics`` are the losses
     as detached scalar tensors (the mean over microbatches), ``preds`` the
     predicted and true labels of the whole batch."""
     device = torch.device(device) if device is not None else \
         next(model.parameters()).device
 
     def micro(batch, cw_cle, cw_pse, generator, mark):
-        images = _as_tensor(batch["image"], device, torch.float32)
-        lungs = _as_tensor(batch["lung_mask"], device, torch.float32)
-        ems = _as_tensor(batch["em_mask"], device, torch.float32)
+        if fused_input:
+            mark("preprocess")
+        images, lungs, ems = _batch_inputs(batch, fused_input, target_size,
+                                           device)
         cle_labels = _as_tensor(batch["cls_label"], device, torch.long)
         pse_labels = _as_tensor(batch["pse_label"], device, torch.long)
         if augment:
@@ -174,9 +203,8 @@ def _make_train_step(losses_fn, model, optimizer, num_data_shards, augment,
             raise ValueError(f"batch {b} must divide by accum_steps "
                              f"{accum_steps}")
         mb = b // accum_steps
-        outs = [micro({k: batch[k][i * mb:(i + 1) * mb] for k in
-                       ("image", "lung_mask", "em_mask", "cls_label",
-                        "pse_label")}, cw_cle, cw_pse, generator, mark)
+        outs = [micro({k: v[i * mb:(i + 1) * mb] for k, v in batch.items()},
+                      cw_cle, cw_pse, generator, mark)
                 for i in range(accum_steps)]
         mark("optimizer")
         if accum_steps > 1:
@@ -199,11 +227,13 @@ def make_reg_train_step(model: torch.nn.Module,
                         num_data_shards: int = 1, augment: bool = True,
                         accum_steps: int = 1,
                         compute_dtype: torch.dtype = torch.float32,
-                        device=None):
+                        device=None, fused_input: bool = False,
+                        target_size=(128, 224, 288)):
     """The dRAM train step (:func:`_make_train_step`); ``metrics``:
     :data:`METRICS`."""
     return _make_train_step(_reg_losses, model, optimizer, num_data_shards,
-                            augment, accum_steps, compute_dtype, device)
+                            augment, accum_steps, compute_dtype, device,
+                            fused_input, target_size)
 
 
 def make_cls_train_step(model: torch.nn.Module,
@@ -211,21 +241,27 @@ def make_cls_train_step(model: torch.nn.Module,
                         num_data_shards: int = 1, augment: bool = True,
                         accum_steps: int = 1,
                         compute_dtype: torch.dtype = torch.float32,
-                        device=None):
+                        device=None, fused_input: bool = False,
+                        target_size=(128, 224, 288)):
     """The CLS train step (:func:`_make_train_step`, JAX
     ``steps.py:226-308``); ``metrics``: :data:`CLS_METRICS`."""
     return _make_train_step(_cls_losses, model, optimizer, num_data_shards,
-                            augment, accum_steps, compute_dtype, device)
+                            augment, accum_steps, compute_dtype, device,
+                            fused_input, target_size)
 
 
 def make_eval_step(model: torch.nn.Module, mode: str = "reg",
-                   compute_dtype: torch.dtype = torch.float32, device=None):
-    """Eval step on host-preprocessed inputs (``steps.py:311-340``):
-    ``step(batch) -> {pred_cle_labels, pred_pse_labels, cle_labels,
-    pse_labels, dense_cle, dense_pse}``.  Runs the eval forward (the
-    model is put in ``.eval()``, so its eval kernels serve it); ``mode``
-    ``"reg"`` looks the lesion fractions up in the score intervals,
-    ``"cls"`` takes the ``argmax`` of the pooled logits."""
+                   compute_dtype: torch.dtype = torch.float32, device=None,
+                   fused_input: bool = False, target_size=(128, 224, 288)):
+    """Eval step (``steps.py:311-340``): ``step(batch) ->
+    {pred_cle_labels, pred_pse_labels, cle_labels, pse_labels, dense_cle,
+    dense_pse}``.  The batch holds host-preprocessed ``image`` and
+    ``lung_mask`` or, with ``fused_input``, the raw padded volumes that
+    the fused preprocess takes to ``target_size`` on the device.  Runs the
+    eval forward (the model is put in ``.eval()``, so its eval kernels
+    serve it); ``mode`` ``"reg"`` looks the lesion fractions up in the
+    score intervals, ``"cls"`` takes the ``argmax`` of the pooled
+    logits."""
     if mode not in ("reg", "cls"):
         raise ValueError(f"mode must be 'reg' or 'cls', not {mode!r}")
     device = torch.device(device) if device is not None else \
@@ -234,8 +270,8 @@ def make_eval_step(model: torch.nn.Module, mode: str = "reg",
     def step(batch: Dict) -> Dict[str, torch.Tensor]:
         model.eval()
         with torch.inference_mode():
-            x = _as_tensor(batch["image"], device, torch.float32)
-            lungs = _as_tensor(batch["lung_mask"], device, torch.float32)
+            x, lungs, _ = _batch_inputs(batch, fused_input, target_size,
+                                        device)
             dense, heads = model(x[..., None].to(compute_dtype),
                                  lungs[..., None])
             if mode == "reg":

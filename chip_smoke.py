@@ -58,8 +58,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 4. main path — three synthetic scans through ``run_inference`` (med3ddram,
    bf16, batch 2, seeded random weights), output contract checked, kernel
    launch counts checked per batch (the forward's, plus one kernel-F call
-   for the reduction), scans/s and per-stage times; then the tiny model
-   on the card against its CPU plain path;
+   for the reduction), scans/s and per-stage times; the upload: bytes per
+   scan of the block-gated 10-bit CT stream, its gate bits and the lung
+   bits (checked against ``stats["upload_bytes"]``) beside the int16
+   planes + uint8 lung of the ungated upload, the host-clock ms of the
+   packing per batch, and for the first batch the card's
+   ``unpack10_gated_device`` equal bit for bit to ``clip(image_raw, -1150,
+   -300)`` as float32 and to the CPU unpack; then the tiny model on the
+   card against its CPU plain path;
 5. bf16 vs float32 forward of the same weights on one scan;
 6. training path — a synthetic ``.npz`` archive of 4 scans (int16 CT with a
    lung ellipsoid, stored 180x320x320) through the trainer in-process
@@ -112,6 +118,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    fallback at the default ``pad_shape``: a fourth scan whose lung crop is
    wider than 384 columns runs the host path alone, the other three the
    device path, results in cohort order; peak device memory;
+4e. the gated stream's overflow: phase 4's scans with a ``gated_frac`` whose
+   budget lies between the largest and the second-largest live block
+   count, so that exactly one scan exceeds it: a warning names that scan,
+   ``stats["host_scans"]`` lists it alone, the results keep cohort order,
+   launches per batch as phase 4 (2 device-path batches + 1 host), and
+   every scan's fractions and heatmaps hold phase 4d's bf16 bounds
+   against phase 4's device path;
 6c. two trainer steps in conv mode ``pallas`` (med3ddram, bf16, B=2, the
    unpacked decoder, phase 6's archive): 31 kernel-A launches in every
    step, no D, B or C, finite losses; step ms and peak device memory;
@@ -127,7 +140,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    bounds, and A with the BN epilogue at that conv's eval site; then two
    trainer steps (bf16, B=2, packed decoder): per step A 10, D 5, F 1; a
    test evaluation with C 1, A 4, B 1, F 1 per forward; step ms and peak
-   device memory.
+   device memory;
+6f. the device input pipeline: a synthetic ``.npz`` archive of 4 scans of
+   differing extents (the largest 180x320x320); the card's
+   ``fused_preprocess`` of each scan (padded to 192x320x320) against the
+   host ``preprocess_sample`` (image max|d| <= 1e-4, the JAX package's
+   bound; lung and LAA masks bit-equal) and against the CPU
+   ``fused_preprocess`` (<= 1e-5, masks bit-equal), and its time per batch
+   of 2; then the trainer on each pipeline (med3ddram, bf16, B=2, packed
+   decoder, one epoch of 4 steps, ``--input_pipeline device --pad_shape
+   192,320,320`` and the host pipeline): per step A 22, D 11, F 1, ms per
+   step (median without the first), volumes/s, loader wait per step, the
+   last step's split (preprocess on the device pipeline, augment,
+   forward, backward, optimizer) and peak memory; a test evaluation
+   through each pipeline's eval step (the device pipeline's fused eval
+   step) at the eval launch counts; and the device-pipeline model's
+   forward on both pipelines' test inputs: labels equal, lesion fractions
+   within 5e-3.
 
 7. the classification strategy (med3d, resnet34segcls, n_classes (6, 3),
    bf16, B=2, 128x224x288): (a) med3d's eval us3 (conv 64 -> 32 + BN +
@@ -176,6 +205,7 @@ repository beside it, the script exits non-zero and prints no result.
 """
 import argparse
 import json
+import logging
 import math
 import re
 import shutil
@@ -195,12 +225,16 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
              "False); this smoke runs only on a GPU")
 
-from bodyct_dram_emph_subtype_tpu_torch.data.loader import default_collate
+from bodyct_dram_emph_subtype_tpu_torch.data.loader import (
+    default_collate, prefetch_to_device)
 from bodyct_dram_emph_subtype_tpu_torch.data.mha import read_mha, write_mha
+from bodyct_dram_emph_subtype_tpu_torch.data.host_preprocess import (
+    RawPaddedView, preprocess_sample)
 from bodyct_dram_emph_subtype_tpu_torch.inference.processor import (
-    _RawPredictView, build_model, run_inference)
-from bodyct_dram_emph_subtype_tpu_torch.data.datasets import \
-    SubtypingInference
+    _RawPredictView, build_model, gate_plan, run_inference)
+from bodyct_dram_emph_subtype_tpu_torch.data.datasets import (
+    CLE_RATIO_MAP, PSE_RATIO_MAP, COPDGeneSubtyping, SubtypingInference)
+from bodyct_dram_emph_subtype_tpu_torch.losses import ratio_to_label_batch
 from bodyct_dram_emph_subtype_tpu_torch.models import blocks, experimental
 from bodyct_dram_emph_subtype_tpu_torch.models.registry import \
     get_model_by_name
@@ -209,8 +243,10 @@ from bodyct_dram_emph_subtype_tpu_torch.ops.maxpool_kernel import (
     max_pool_k3s2p1, max_pool_k3s2p1_plain)
 from bodyct_dram_emph_subtype_tpu_torch.ops.pallas_kernels import (
     masked_sums, masked_sums_plain)
-from bodyct_dram_emph_subtype_tpu_torch.ops.preprocess import \
-    fused_preprocess_preselected
+from bodyct_dram_emph_subtype_tpu_torch.ops.packing import (
+    pack10_gated_host, unpack10_gated_device)
+from bodyct_dram_emph_subtype_tpu_torch.ops.preprocess import (
+    fused_preprocess, fused_preprocess_preselected)
 from bodyct_dram_emph_subtype_tpu_torch.models.blocks import (BasicBlock,
                                                               Bottleneck)
 from bodyct_dram_emph_subtype_tpu_torch.models.resnet3d import (
@@ -235,6 +271,18 @@ from bodyct_dram_emph_subtype_tpu_torch.train.steps import (
 DEV = torch.device("cuda")
 B = 2
 TARGET = (128, 224, 288)
+PAD = (160, 288, 384)            # the processor's default pad_shape
+# phase 6f: the device input pipeline's buffer, and the archive's extents
+# (differing, the largest 180x320x320)
+PAD_6F = (192, 320, 320)
+SHAPES_6F = [(180, 320, 320), (150, 300, 310), (170, 280, 320),
+             (160, 320, 290)]
+# phase 6f: the card's fused_preprocess against the host chain (the JAX
+# package's bound, tests/test_fused_preprocess.py:34-35) and against the
+# port's CPU fused_preprocess
+PRE_HOST_ATOL, PRE_CPU_ATOL = 1e-4, 1e-5
+# the bf16 bound on lesion fractions (tests/test_composed_oracle.py)
+FRAC_BOUND = 5e-3
 # (site, input shape, O, residual, launches per forward)
 A_SITES = [
     ("layer1.conv1", (B, 32, 56, 72, 64), 64, False, 3),
@@ -1076,11 +1124,76 @@ def phase_main_path(work: Path):
     print("per batch of 2 (ms): " + ", ".join(
         f"{k} {v:.1f}" for k, v in stage.items())
         + "  (device: upload..download; host: postprocess)")
+    gated = check_gated_upload(scan_dir, lobe_dir, stats, nb)
     print(f"main path: 3 scans in {stats['pipeline_s']:.2f} s pipeline "
           f"({3 / stats['pipeline_s']:.3f} scans/s), "
           f"run_inference {wall:.2f} s")
     return model, scan_dir, lobe_dir, launches, stage, \
-        3 / stats["pipeline_s"], results, stats["fractions"]
+        3 / stats["pipeline_s"], results, stats["fractions"], gated
+
+
+def check_gated_upload(scan_dir: Path, lobe_dir: Path, stats, nb: int):
+    """Phase 4's upload: the bytes per scan of the block-gated 10-bit
+    stream, its gate bits and the lung bits against the int16 planes and
+    uint8 lung the parent shipped, the host-clock ms of the packing per
+    batch; and, for the first batch, the card's ``unpack10_gated_device``
+    equal bit for bit to ``clip(image_raw, -1150, -300)`` as float32 and to
+    the CPU unpack."""
+    up_shape, block, budget = gate_plan(TARGET, PAD)
+    nblk = int(np.prod(up_shape)) // block
+    parts = {"stream": budget * 5 // 4, "gate bits": nblk // 8,
+             "lung bits": int(np.prod(TARGET)) // 8,
+             "extents + moments": 3 * 4 + 2 * 4}
+    per_scan = sum(parts.values())
+    parent = int(np.prod(up_shape)) * 2 + int(np.prod(TARGET)) + 2 * 4
+    check(stats["upload_bytes"] == per_scan * B * nb,
+          f"uploaded {stats['upload_bytes']} bytes, planned {per_scan} per "
+          f"scan")
+    dataset = SubtypingInference(str(scan_dir), str(lobe_dir),
+                                 keep_original=False, compute_ess=False)
+    view = _RawPredictView(dataset, up_shape, TARGET, budget, block)
+    batch = default_collate([view[i] for i in range(B)])
+    check(not any(batch["oversized"]), "phase 4's first batch overflowed")
+    live = [int(g.sum()) for g in batch["gate_blocks"]]
+    packed, bits = pack10_gated_host(batch["image_raw"], batch["gate_blocks"],
+                                     budget, block)
+    want = torch.from_numpy(np.clip(batch["image_raw"], -1150, -300)
+                            .astype(np.float32))
+    p_dev, b_dev = (torch.from_numpy(a).to(DEV) for a in (packed, bits))
+    card = unpack10_gated_device(p_dev, b_dev, up_shape, block)
+    cpu = unpack10_gated_device(torch.from_numpy(packed),
+                                torch.from_numpy(bits), up_shape, block)
+    check(card.dtype == torch.float32 and torch.equal(card.cpu(), want),
+          "card gated unpack differs from the window clamp")
+    check(torch.equal(cpu, want), "CPU gated unpack differs")
+    unpack_ms = median_ms(
+        lambda: unpack10_gated_device(p_dev, b_dev, up_shape, block))
+    lung, sizes, moments = (torch.from_numpy(batch[k]).to(DEV) for k in
+                            ("lung_raw", "in_sizes", "moments"))
+    with torch.inference_mode():
+        pre_ms = median_ms(lambda: fused_preprocess_preselected(
+            card, lung, sizes, moments, target_size=TARGET,
+            em_threshold=-910.0))
+    del card, p_dev, b_dev, lung
+    pack_ms = stats["pack_ms"] / nb
+    print(f"upload per scan (gate block {block}, budget {budget // block} of "
+          f"{nblk} blocks): " + ", ".join(f"{k} {v}" for k, v in parts.items())
+          + f" = {per_scan} bytes ({per_scan / 1e6:.2f} MB) against "
+          f"{parent} ({parent / 1e6:.2f} MB) for int16 planes + uint8 lung "
+          f"({per_scan / parent:.3f} of it); live blocks of the first batch "
+          f"{live} ({max(live) / nblk:.3f} of the buffer at most)")
+    print(f"pack10_gated_host + lung packbits {pack_ms:.1f} ms per batch of "
+          f"{B} (host clock, dispatch thread); the first batch's gated unpack "
+          f"on the card equals clip(image_raw, -1150, -300) and the CPU "
+          f"unpack bit for bit; alone on the card (CUDA events) the "
+          f"batch's unpack takes {unpack_ms:.3f} ms and its preselected "
+          f"preprocess {pre_ms:.3f} ms, against a preprocess stage of "
+          f"{stats['stage_ms']['preprocess'] / nb:.1f} ms in the run (a "
+          f"device-timeline interval that also holds the dispatch thread's "
+          f"host time between the ops)")
+    return {"bytes_per_scan": per_scan, "parent_bytes_per_scan": parent,
+            "pack_ms": pack_ms, "unpack_ms": unpack_ms,
+            "preprocess_ms": pre_ms}
 
 
 def phase_small_reference():
@@ -1113,8 +1226,10 @@ def preprocessed(scan_dir: Path, lobe_dir: Path, n: int):
     preprocessed on the card as the processor does."""
     dataset = SubtypingInference(str(scan_dir), str(lobe_dir),
                                  keep_original=False, compute_ess=False)
-    view = _RawPredictView(dataset, (TARGET[0], 288, 384), TARGET)
+    up_shape, block, budget = gate_plan(TARGET, PAD)
+    view = _RawPredictView(dataset, up_shape, TARGET, budget, block)
     batch = default_collate([view[i] for i in range(n)])
+    check(not any(batch["oversized"]), "preprocessed: a dummy item")
     with torch.inference_mode():
         pre = fused_preprocess_preselected(
             torch.from_numpy(batch["image_raw"]).to(DEV),
@@ -1364,17 +1479,102 @@ def phase_host_path(model, scan_dir: Path, lobe_dir: Path, work: Path,
     return total, host_rate
 
 
-def write_archive(root: Path, shape=(180, 320, 320), fmt="npz"):
+class WarningLog(logging.Handler):
+    """The port's WARNING records while the block runs."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        logging.getLogger("bodyct_dram_emph_subtype_tpu_torch").addHandler(
+            self)
+        return self
+
+    def __exit__(self, *exc):
+        logging.getLogger("bodyct_dram_emph_subtype_tpu_torch") \
+            .removeHandler(self)
+
+
+def phase_gated_overflow(model, scan_dir: Path, lobe_dir: Path, work: Path,
+                         default_fractions):
+    print("== phase 4e: a gated CT stream over its budget falls back alone "
+          "(run_inference, med3ddram, bf16, batch 2)")
+    up_shape, block, _ = gate_plan(TARGET, PAD)
+    nblk = int(np.prod(up_shape)) // block
+    dataset = SubtypingInference(str(scan_dir), str(lobe_dir),
+                                 keep_original=False, compute_ess=False)
+    view = _RawPredictView(dataset, up_shape, TARGET, nblk * block, block)
+    live = {dataset[i]["uid"]: int(view[i]["gate_blocks"].sum())
+            for i in range(len(dataset))}
+    order = sorted(live, key=live.get)
+    over = order[-1]
+    # the budget of gated_frac is int(nblk * frac) rounded up to 8 blocks:
+    # take the second-largest count rounded up, so that only `over` exceeds
+    blocks = -(-live[order[-2]] // 8) * 8
+    frac = (blocks + 0.5) / nblk
+    _, _, budget = gate_plan(TARGET, PAD, frac)
+    check(budget == blocks * block and live[over] > blocks,
+          f"no budget between the live block counts {live}")
+    stats = {}
+    out = work / "out_gated_overflow"
+    cuda_build.reset_launches()
+    with WarningLog() as log:
+        results = run_inference(
+            str(scan_dir), str(lobe_dir), str(out), target_size=TARGET,
+            compute_dtype="bfloat16", batch_size=B, workers=2, model=model,
+            device=DEV, gated_frac=frac, stats=stats)
+    torch.cuda.synchronize()
+    launches = cuda_build.launches()
+    uids = [f"scan{i}" for i in range(3)]
+    check_outputs(out, results, uids,
+                  read_mha(scan_dir / "scan0.mha").array.shape)
+    warned = [m for m in log.messages if "exceeds budget" in m]
+    check(len(warned) == 1 and over in warned[0],
+          f"overflow warnings {warned}")
+    check(stats["host_scans"] == [over], f"host scans {stats['host_scans']}")
+    nb = stats["batches"]
+    check(nb == 3, f"gated overflow: {nb} batches, expected 2 device + 1 "
+          f"host")
+    check(launches == {k: PER_BATCH.get(k, 0) * nb for k in launches},
+          f"gated overflow launches {launches} for {nb} batches")
+    worst = 0.0
+    for uid in uids:
+        frac_d = max(abs(a - b) for a, b in zip(stats["fractions"][uid],
+                                                default_fractions[uid]))
+        heat = heatmap_delta(out, work / "out", uid)
+        check(frac_d < FRAC_BOUND, f"{uid} fractions |d| {frac_d}")
+        check(all(h[0] < 1.5e-2 and h[1] < 5e-3 for h in heat.values()),
+              f"{uid} heatmaps {heat}")
+        worst = max(worst, frac_d)
+    print(f"live blocks {live} of {nblk}; gated_frac {frac:.6f} (budget "
+          f"{blocks} blocks): {over} alone over it, warned ({warned[0]!r}), "
+          f"host scans {stats['host_scans']}, results in cohort order "
+          f"{[r['entity'] for r in results]}; launches " + ", ".join(
+              f"{k} {v}" for k, v in launches.items() if v)
+          + f" over {nb} batches; against phase 4's device path: fractions "
+          f"|d| {worst:.2e} at most (< {FRAC_BOUND:g}), heatmaps within the "
+          f"bf16 bounds")
+    return Counter(launches)
+
+
+def write_archive(root: Path, shape=(180, 320, 320), fmt="npz",
+                  shapes=None):
     """Synthetic training archive of 4 scans: int16 CT with a lung
-    ellipsoid at a stored size of ``shape``, ``{uid}.npz`` (``fmt``
-    "npz") or the reference cache ``{uid}.pth`` written with
-    ``torch.save`` ("pth"), + ``merged.csv`` (4 CLE classes, so 2 samples
-    each make one epoch of 4 steps)."""
+    ellipsoid at a stored size of ``shape`` (or scan i at ``shapes[i]``),
+    ``{uid}.npz`` (``fmt`` "npz") or the reference cache ``{uid}.pth``
+    written with ``torch.save`` ("pth"), + ``merged.csv`` (4 CLE classes,
+    so 2 samples each make one epoch of 4 steps)."""
     rows = ["SeriesInstanceUID,CT_Visual_Emph_Severity_P1,"
             "CT_Visual_Emph_Paraseptal_P1"]
-    zz, yy, xx = np.ogrid[:shape[0], :shape[1], :shape[2]]
-    c = [s / 2 for s in shape]
+    shapes = shapes or [shape] * 4
     for i, (cle, pse) in enumerate(((0, 0), (2, 1), (3, 2), (5, 1))):
+        shape = shapes[i]
+        zz, yy, xx = np.ogrid[:shape[0], :shape[1], :shape[2]]
+        c = [s / 2 for s in shape]
         rng = np.random.RandomState(200 + i)
         lung = ((((zz - c[0]) / (0.39 * shape[0])) ** 2
                  + ((yy - c[1]) / ((0.31 + 0.015 * i) * shape[1])) ** 2
@@ -1391,7 +1591,7 @@ def write_archive(root: Path, shape=(180, 320, 320), fmt="npz"):
                      cls_label=cle, pse_label=pse)
         rows.append(f"scan{i},{cle},{pse}")
     (root / "merged.csv").write_text("\n".join(rows) + "\n")
-    return shape
+    return shapes[0] if len(set(shapes)) == 1 else shapes
 
 
 class StepClock:
@@ -1524,7 +1724,9 @@ def phase_train(work: Path):
           f"(incl. epoch end and checkpoint)")
     print("last step split (ms): " + ", ".join(
         f"{k} {v:.1f}" for k, v in split.items())
-        + " (loader wait: host clock; the rest: CUDA events)")
+        + " (loader wait: host clock; the rest: CUDA events); loader wait "
+        "per step (ms): " + ", ".join(
+            f"{clock.breakdown(i)['loader wait']:.1f}" for i in range(n)))
     print(f"peak device memory {peak / 2 ** 30:.2f} GiB "
           f"(torch.cuda.max_memory_allocated)")
     best = trainer.restore_best()
@@ -1732,6 +1934,135 @@ def phase_train50(work: Path):
         {"step_ms": wall[-1], "peak_gib": peak / 2 ** 30}
 
 
+def pipeline_run(work: Path, pipeline: str):
+    """Phase 6f's trainer over the ragged archive in ``work`` (med3ddram,
+    bf16, B=2, packed decoder, one epoch of 4 steps) on ``pipeline``, then
+    a test evaluation through that pipeline's eval step."""
+    cfg = trainer_config(work, num_samples=2, packed_decoder=True,
+                         input_pipeline=pipeline,
+                         pad_shape=PAD_6F if pipeline == "device" else None,
+                         model_path=str(work / f"models_{pipeline}"))
+    trainer = SubtypeTrainer(cfg)
+    trainer.init_state()
+    trainer.setup_checkpointing()
+    losses, clock, launches, fit_s, peak = fit_logged(trainer)
+    n = check_steps(losses, clock, PER_TRAIN_STEP, f"{pipeline} pipeline")
+    check(n == 4, f"{n} {pipeline}-pipeline train steps")
+    wall = clock.wall_ms()
+    med = statistics.median(wall[1:])
+    waits = [clock.breakdown(i)["loader wait"] for i in range(n)]
+    split = clock.breakdown(n - 1)
+    metrics, eval_launches = check_eval(trainer, PER_FORWARD,
+                                        f"{pipeline} pipeline")
+    print(f"{pipeline} pipeline: step ms (loader to loader) "
+          + ", ".join(f"{t:.1f}" for t in wall)
+          + f"; median without the first {med:.1f} ms, "
+          f"{B / med * 1e3:.3f} volumes/s; loader wait per step (ms) "
+          + ", ".join(f"{w:.1f}" for w in waits) + "; last step split (ms) "
+          + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+          + f"; peak device memory {peak / 2 ** 30:.2f} GiB; test eval "
+          f"acc_cle {metrics['epoch_test_acc_cle']:.3f} with launches "
+          + ", ".join(f"{k} {v}" for k, v in eval_launches.items() if v))
+    return trainer, Counter(launches) + Counter(eval_launches), {
+        "step_ms": med, "volumes_s": B / med * 1e3, "waits": waits,
+        "split": split, "peak_gib": peak / 2 ** 30}
+
+
+def forward_fractions(trainer, pipeline: str):
+    """{dataset index: (CLE, PSE) lesion fractions} of the bf16 eval
+    forward of ``trainer``'s model on the test split's ``pipeline``
+    inputs (the device pipeline's through ``fused_preprocess``)."""
+    model = trainer.model.eval()
+    out = {}
+    for upload, batch in prefetch_to_device(
+            trainer._loader("test", 0, pipeline),
+            trainer._put(pipeline, train=False)):
+        x = upload.ready()
+        with torch.inference_mode():
+            if pipeline == "device":
+                pre = fused_preprocess(x["image_raw"], x["lung_raw"],
+                                       x["in_sizes"], TARGET, -950.0)
+                img, lung = pre["image"], pre["lung_mask"]
+            else:
+                img, lung = x["image"], x["lung_mask"]
+            _, regs = model(img[..., None].to(torch.bfloat16),
+                            lung[..., None])
+        for j, idx in enumerate(np.asarray(batch["index"]).reshape(-1)):
+            out[int(idx)] = (regs[0][j].item(), regs[1][j].item())
+    return out
+
+
+def phase_device_pipeline(work: Path):
+    print("== phase 6f: the device input pipeline (trainer, med3ddram, bf16, "
+          f"B=2, packed decoder, --input_pipeline device --pad_shape "
+          f"{','.join(map(str, PAD_6F))}) against the host pipeline")
+    t0 = time.perf_counter()
+    write_archive(work, shapes=SHAPES_6F)
+    print(f"wrote 4 synthetic scans {SHAPES_6F} as .npz in "
+          f"{time.perf_counter() - t0:.1f} s")
+    # (a) the card's fused_preprocess per scan against the host chain and
+    # against the CPU fused_preprocess
+    ds = COPDGeneSubtyping(str(work), COPDGeneSubtyping.get_series_uids(
+        str(work / "merged.csv")))
+    batch = default_collate([RawPaddedView(ds, PAD_6F)[i] for i in range(4)])
+    raw, lung, sizes = (torch.from_numpy(batch[k]) for k in
+                        ("image_raw", "lung_raw", "in_sizes"))
+    check(sorted(map(tuple, batch["in_sizes"].tolist())) ==
+          sorted(SHAPES_6F), f"in_sizes {batch['in_sizes'].tolist()}")
+    args = [t.to(DEV) for t in (raw, lung, sizes)]
+    with torch.inference_mode():
+        card = fused_preprocess(*args, TARGET, -950.0)
+        pre_ms = median_ms(lambda: fused_preprocess(
+            *(a[:B] for a in args), TARGET, -950.0))
+    cpu = fused_preprocess(raw, lung, sizes, TARGET, -950.0)
+    card = {k: v.cpu() for k, v in card.items()}
+    worst_host = worst_cpu = 0.0
+    for i in range(4):
+        host = preprocess_sample(ds[i], TARGET)
+        e_host = (card["image"][i] - torch.from_numpy(host["image"])
+                  ).abs().max().item()
+        e_cpu = (card["image"][i] - cpu["image"][i]).abs().max().item()
+        for key in ("lung_mask", "em_mask"):
+            check(np.array_equal(card[key][i].numpy(), host[key]) and
+                  torch.equal(card[key][i], cpu[key][i]),
+                  f"scan{i} {key}: card, host and CPU differ")
+        check(e_host <= PRE_HOST_ATOL and e_cpu <= PRE_CPU_ATOL,
+              f"scan{i} image |d| host {e_host}, CPU {e_cpu}")
+        worst_host, worst_cpu = max(worst_host, e_host), max(worst_cpu, e_cpu)
+    print(f"fused_preprocess on the card, per scan of {SHAPES_6F}: image "
+          f"max|d| against the host preprocess_sample {worst_host:.2e} (<= "
+          f"{PRE_HOST_ATOL:g}), against the CPU fused_preprocess "
+          f"{worst_cpu:.2e} (<= {PRE_CPU_ATOL:g}); lung and LAA masks "
+          f"bit-equal to both; {pre_ms:.3f} ms per batch of {B} at pad "
+          f"{PAD_6F} (CUDA events)")
+    del card, cpu, args
+    # (b) both pipelines through the trainer, then the test evaluation
+    total, runs = Counter(), {}
+    for pipeline in ("host", "device"):
+        trainer, launches, runs[pipeline] = pipeline_run(work, pipeline)
+        total.update(launches)
+        if pipeline == "host":
+            del trainer
+            torch.cuda.empty_cache()
+    # (c) the device pipeline's trained model on both pipelines' test inputs
+    frac = {p: forward_fractions(trainer, p) for p in ("host", "device")}
+    check(sorted(frac["host"]) == sorted(frac["device"]) == [0, 1, 2, 3],
+          f"test indices {sorted(frac['host'])}")
+    worst = 0.0
+    for idx in range(4):
+        h, d = frac["host"][idx], frac["device"][idx]
+        for f_h, f_d, ratio_map in zip(h, d, (CLE_RATIO_MAP, PSE_RATIO_MAP)):
+            labels = [int(ratio_to_label_batch(torch.tensor([f]), ratio_map))
+                      for f in (f_h, f_d)]
+            check(abs(f_h - f_d) < FRAC_BOUND and labels[0] == labels[1],
+                  f"scan{idx}: host {f_h} / device {f_d}, labels {labels}")
+            worst = max(worst, abs(f_h - f_d))
+    print(f"the device-pipeline model's eval forward (bf16) on host- and "
+          f"device-pipeline test inputs: labels equal for all 4 scans, "
+          f"lesion fractions |d| {worst:.2e} at most (< {FRAC_BOUND:g})")
+    return total, runs, pre_ms
+
+
 def moved_state(before, after):
     """max|d| per state-dict entry (no ``num_batches_tracked``); checks
     that every weight and every BN running statistic moved."""
@@ -1903,7 +2234,7 @@ def main():
     main_launches, main_ops = Counter(), Counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         model, scan_dir, lobe_dir, launches, stage, rate, results, \
-            fractions = phase_main_path(Path(tmp))
+            fractions, gated = phase_main_path(Path(tmp))
         main_launches.update(launches)
         phase_small_reference()
         launches, ops = phase_modes(model, scan_dir, lobe_dir, Path(tmp),
@@ -1914,6 +2245,8 @@ def main():
         launches, host_rate = phase_host_path(model, scan_dir, lobe_dir,
                                               Path(tmp), fractions)
         main_launches.update(launches)
+        main_launches.update(phase_gated_overflow(model, scan_dir, lobe_dir,
+                                                  Path(tmp), fractions))
         del model
         torch.cuda.empty_cache()
         work = Path(tmp) / "train"
@@ -1926,6 +2259,10 @@ def main():
         launches, default_train = phase_train_default(work)
         main_launches.update(launches)
         launches, train50 = phase_train50(work)
+        main_launches.update(launches)
+        work = Path(tmp) / "device_pipeline"
+        work.mkdir()
+        launches, pipes, pre_ms = phase_device_pipeline(work)
         main_launches.update(launches)
         work = Path(tmp) / "cls"
         work.mkdir()
@@ -1947,7 +2284,10 @@ def main():
             "bound_by": ("bytes" if s["bytes_ms"] >= s["ops_ms"]
                          else "operations"),
             "library_ms": s["library_ms"]})
-    print(f"card: {card}; main path {rate:.3f} scans/s, host path "
+    print(f"card: {card}; main path {rate:.3f} scans/s (upload "
+          f"{gated['bytes_per_scan'] / 1e6:.2f} MB per scan, parent "
+          f"{gated['parent_bytes_per_scan'] / 1e6:.2f}; packing "
+          f"{gated['pack_ms']:.1f} ms per batch), host path "
           f"{host_rate:.3f} scans/s; training "
           f"{train['step_ms']:.1f} ms per B=2 bf16 step "
           f"({train['volumes_s']:.3f} volumes/s, peak "
@@ -1959,10 +2299,16 @@ def main():
           f"{train50['step_ms']:.1f} ms (peak {train50['peak_gib']:.2f} GiB); "
           f"med3d (CLS) {cls['step_ms']:.1f} ms ({cls['volumes_s']:.3f} "
           f"volumes/s, peak {cls['peak_gib']:.2f} GiB), default routing "
-          f"{cls['default_step_ms']:.1f} ms; "
+          f"{cls['default_step_ms']:.1f} ms; device input pipeline (6f, "
+          f"ragged archive) {pipes['device']['step_ms']:.1f} ms "
+          f"({pipes['device']['volumes_s']:.3f} volumes/s, loader wait "
+          f"{statistics.median(pipes['device']['waits'][1:]):.1f} ms, fused "
+          f"preprocess {pre_ms:.2f} ms per batch) against the host "
+          f"pipeline's {pipes['host']['step_ms']:.1f} ms (loader wait "
+          f"{statistics.median(pipes['host']['waits'][1:]):.1f} ms); "
           f"launches are the main paths' "
-          f"(phases 4, 4c, 4d, 6, 6c, 6d, 6e, 7); kernel ms per B=2 bf16 "
-          f"dRAM forward (A, B, "
+          f"(phases 4, 4c, 4d, 4e, 6, 6c, 6d, 6e, 6f, 7); kernel ms per B=2 "
+          f"bf16 dRAM forward (A, B, "
           f"C, E: default or quad path; the conv-mode ops: their mode's "
           f"forward), train step (D) or device-path batch (F, float32 "
           f"maps), summed over the sites")

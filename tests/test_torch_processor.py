@@ -1,9 +1,14 @@
 """The port's deployment processor against the JAX package's, end to end:
 the ``tests/test_processor.py`` synthetic scans, ``med3ddramtiny`` with one
 set of weights, target (32, 48, 64), float32, through both
-``run_inference``s, on the device path, the host-preprocess path and the
-per-scan fallback between them.  Score JSONs equal, percentages within
-1e-4, heatmaps within one uint8 count."""
+``run_inference``s, on the device path (both ship the block-gated 10-bit
+CT stream), the host-preprocess path and the per-scan fallbacks between
+them (a crop over the pad, a gated stream over its budget).  Score JSONs
+equal, percentages within 1e-4, heatmaps within one uint8 count.
+
+At the default pad the upload buffer is 32 x 288 x 384 (27648 blocks of
+128); case1 has 1072 live blocks, case2 970, so ``gated_frac`` 0.0362 (a
+budget of 1000 blocks) sends case1 alone to the host path."""
 import functools
 import json
 import logging
@@ -19,7 +24,11 @@ from bodyct_dram_emph_subtype_tpu.inference import \
     run_inference as jax_run_inference
 from bodyct_dram_emph_subtype_tpu.models import get_model_by_name as jax_model
 from bodyct_dram_emph_subtype_tpu.train.state import TrainState, make_optimizer
+from bodyct_dram_emph_subtype_tpu_torch.data.datasets import \
+    SubtypingInference
 from bodyct_dram_emph_subtype_tpu_torch.inference import run_inference
+from bodyct_dram_emph_subtype_tpu_torch.inference.processor import (
+    _RawPredictView, gate_plan)
 from bodyct_dram_emph_subtype_tpu_torch.models.registry import \
     get_model_by_name
 from bodyct_dram_emph_subtype_tpu_torch.models.torch_import import \
@@ -30,6 +39,7 @@ TARGET = (32, 48, 64)
 HEATMAPS = ("centrilobular-emphysema-heatmap", "paraseptal-emphysema-heatmap")
 SCORE_JSONS = ("centrilobular-emphysema-score.json",
                "araseptal-emphysema-score.json")
+OVER_BUDGET_FRAC = 0.0362       # 1000 blocks: case1 (1072) over, case2 under
 
 
 @pytest.fixture
@@ -118,6 +128,66 @@ def test_oversized_crop_falls_back_per_scan(cases, caplog):
     assert len(warned) == 1 and "case1" in warned[0]
 
 
+def _live_blocks(scans, lobes, pad_shape=(160, 288, 384)):
+    up_shape, block, _ = gate_plan(TARGET, pad_shape)
+    ds = SubtypingInference(str(scans), str(lobes), keep_original=False,
+                            compute_ess=False)
+    view = _RawPredictView(ds, up_shape, TARGET, 10 ** 12, block)
+    return {ds[i]["uid"]: int(view[i]["gate_blocks"].sum())
+            for i in range(len(ds))}
+
+
+def test_gated_upload_is_the_planned_stream(cases):
+    """The device path uploads the gated stream of ``gate_plan`` (stream,
+    gate bits, lung bits, extents, moments) and matches the JAX device
+    path; ``gate_plan`` sizes the budget as JAX ``processor.py:373-379``."""
+    root, scans, lobes = cases
+    stats = _run_both(root, scans, lobes, gated_frac=0.5)
+    up_shape, block, budget = gate_plan(TARGET, (160, 288, 384), 0.5)
+    assert (up_shape, block) == ((32, 288, 384), 128)
+    assert budget == 13824 * 128           # 27648 blocks x 0.5
+    per_batch = 2 * (budget * 5 // 4 + 27648 // 8
+                     + int(np.prod(TARGET)) // 8 + 3 * 4 + 2 * 4)
+    assert stats["upload_bytes"] == per_batch * stats["batches"]
+    assert stats["pack_ms"] > 0 and stats["host_scans"] == []
+
+
+def test_gated_budget_overflow_falls_back_per_scan(cases, caplog):
+    """A scan whose live blocks exceed the budget falls back alone, as in
+    the JAX package (its ``oversized``), with a warning that names it."""
+    root, scans, lobes = cases
+    live = _live_blocks(scans, lobes)
+    _, block, budget = gate_plan(TARGET, (160, 288, 384), OVER_BUDGET_FRAC)
+    assert live["case2"] * block <= budget < live["case1"] * block
+    with caplog.at_level(logging.WARNING,
+                         logger="bodyct_dram_emph_subtype_tpu_torch"):
+        stats = _run_both(root, scans, lobes, batch_size=1,
+                          gated_frac=OVER_BUDGET_FRAC)
+    assert stats["host_scans"] == ["case1"]
+    assert stats["batches"] == 3
+    warned = [r.getMessage() for r in caplog.records
+              if r.name.startswith("bodyct_dram_emph_subtype_tpu_torch")
+              and "exceeds budget" in r.getMessage()]
+    assert len(warned) == 1 and "case1" in warned[0]
+
+
+def test_pad_without_gate_block_takes_the_host_path(cases, caplog):
+    """An upload buffer of 32 x 60 x 74 voxels (not a multiple of 8 blocks
+    of 64) has no gate block: the run warns and takes the host path, as the
+    JAX processor does, and ``gate_plan`` refuses it instead of dividing by
+    0."""
+    root, scans, lobes = cases
+    with pytest.raises(ValueError, match="no gate block"):
+        gate_plan(TARGET, (160, 60, 74))
+    with caplog.at_level(logging.WARNING,
+                         logger="bodyct_dram_emph_subtype_tpu_torch"):
+        stats = _run_both(root, scans, lobes, pad_shape=(160, 60, 74))
+    assert stats["host_scans"] == ["case1", "case2"]
+    assert stats["upload_bytes"] == 0
+    assert any("gate block" in r.getMessage() for r in caplog.records
+               if r.name.startswith("bodyct_dram_emph_subtype_tpu_torch"))
+
+
 def test_host_preprocess_matches_jax_host_path(cases):
     stats = _run_both(*cases, device_preprocess=False)
     assert stats["host_scans"] == ["case1", "case2"]
@@ -155,6 +225,24 @@ def test_cli_host_preprocess(cases):
     assert [r["entity"] for r in results] == ["case1", "case2"]
     for sub in HEATMAPS:
         assert (out / "images" / sub / "case1.mha").exists()
+
+
+def test_cli_gated_frac_reaches_the_budget(cases, caplog):
+    from bodyct_dram_emph_subtype_tpu_torch.inference.__main__ import main
+    root, scans, lobes = cases
+    out = root / "cli_gated_out"
+    with caplog.at_level(logging.WARNING,
+                         logger="bodyct_dram_emph_subtype_tpu_torch"):
+        main(["--scan_path", str(scans), "--lobe_path", str(lobes),
+              "--output_path", str(out), "--model_arch", "med3ddramtiny",
+              "--ckp", str(root / "missing.ckpt"), "--target_size",
+              ",".join(map(str, TARGET)), "--compute_dtype", "float32",
+              "--device", "cpu", "--gated_frac", str(OVER_BUDGET_FRAC)])
+    warned = [r.getMessage() for r in caplog.records
+              if "exceeds budget" in r.getMessage()]
+    assert len(warned) == 1 and "case1" in warned[0]
+    results = json.loads((out / "results.json").read_text())
+    assert [r["entity"] for r in results] == ["case1", "case2"]
 
 
 @pytest.mark.parametrize("entry", ["run_inference", "SubtypeTrainer"])

@@ -132,8 +132,7 @@ def test_cli_trains_checkpoints_resumes_and_tests(archive, tmp_path):
     assert third["param_groups"][0]["lr"] == pytest.approx(epoch_lr(LR, 2))
 
 
-@pytest.mark.parametrize("flag", [["--input_pipeline", "device"],
-                                  ["--remat", "all"], ["--mesh", "data=2"],
+@pytest.mark.parametrize("flag", [["--remat", "all"], ["--mesh", "data=2"],
                                   ["--ngpus", "2"], ["--noise_rng", "rbg"],
                                   ["--multihost"]])
 def test_cli_refuses_what_is_not_ported(archive, tmp_path, flag):
