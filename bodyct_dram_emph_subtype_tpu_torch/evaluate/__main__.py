@@ -10,19 +10,23 @@ root ``test.py`` (reference ``test.py:18-87``):
 a ``.pt`` is the trainer's own checkpoint), evaluated as epoch 0, as the
 reference does; no ``--ckp`` takes the newest epoch's weights.  Then the
 test split runs through the trainer's eval step (both strategies) and
-writes ``predicts/test/<epoch>_predicts.csv`` and ``metrics.jsonl``.  The
-confusion-matrix PNGs, heatmap tiles and TensorBoard are not ported.
+writes ``predicts/test/<epoch>_predicts.csv``, ``metrics.jsonl``, the
+confusion-matrix PNGs, the heatmap tiles and TensorBoard scalars.
 
 The flags of ``test.py``, plus the port's ``--packed_decoder`` (the
-decoder's routing, as in the training CLI) and ``--device``.  It runs on
-the CUDA card and refuses to start without one unless given ``--device
-cpu``; ``--ngpus`` > 1 is refused as in the trainer.
+decoder's routing, as in the training CLI), ``--device``, and the
+trainer's ``--multihost``.  ``--ngpus N`` (as
+``test.py:17``) evaluates on N ranks, one per card: each evaluates its
+shard of the test set, rank 0 gathers them and writes the outputs.  It
+runs on the CUDA card and refuses to start without one unless given
+``--device cpu``.
 """
 from argparse import ArgumentParser
 from pathlib import Path
 from typing import Optional, Sequence
 
-from ..train.__main__ import logging_to, parse_size
+from ..train.__main__ import (add_distributed_args, distributed,
+                              logging_to, parse_size)
 
 WEIGHT_FILES = (".ckpt", ".pth", ".pt", ".npz")
 
@@ -32,7 +36,8 @@ def build_parser() -> ArgumentParser:
                             "evaluate")
     p.add_argument("--model_arch", default="med3d", type=str)
     p.add_argument("--ngpus", "--nchips", dest="nchips", default=None,
-                   type=int, help="more than 1 needs DDP (not ported)")
+                   type=int, help="ranks on this host, one per card "
+                                  "(default: every visible card)")
     p.add_argument("--ckp", type=str, default=None,
                    help="epoch number, or a .ckpt/.pth/.pt/.npz path")
     p.add_argument("--data_path", default="./COPDGene_cache/", type=str)
@@ -53,14 +58,22 @@ def build_parser() -> ArgumentParser:
                    help="torch device (default cuda; without a card pass "
                         "--device cpu, which runs the kernels' plain "
                         "versions)")
+    add_distributed_args(p)
     p.add_argument("--local_rank", default=0, type=int,
                    help="this argument is not used and should be ignored")
     return p
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
-    """Run the test evaluation; returns its metrics."""
+    """Run the test evaluation; returns its metrics (on rank 0; ``{}`` on
+    other ranks and in the process that started the ranks)."""
     args = build_parser().parse_args(argv)
+    with distributed("bodyct_dram_emph_subtype_tpu_torch.evaluate", args,
+                     argv) as place:
+        return {} if place is None else evaluate(args, *place)
+
+
+def evaluate(args, device, rank: int) -> dict:
     from ..train.loop import TEST_PHASE, SubtypeTrainer, TrainerConfig
     config = TrainerConfig(
         model_arch=args.model_arch, batch_size=args.batch_size,
@@ -69,9 +82,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         valid_csv=args.valid_csv, test_csv=args.test_csv,
         model_path=args.model_path, nchips=args.nchips,
         compute_dtype=args.compute_dtype,
-        packed_decoder=args.packed_decoder, device=args.device)
+        packed_decoder=args.packed_decoder, device=device)
     trainer = SubtypeTrainer(config)
-    with logging_to(config.exp_path):
+    with logging_to(config.exp_path, to_file=rank == 0):
         trainer.init_state()
         trainer.setup_checkpointing()
         epoch = 0
@@ -84,7 +97,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         else:
             trainer.try_resume(reload_only_weights=True)
             epoch = trainer.ckpt.latest_epoch() or 0
-        return trainer.evaluate(TEST_PHASE, epoch=epoch)
+        metrics = trainer.evaluate(TEST_PHASE, epoch=epoch)
+        trainer.close()
+        return metrics
 
 
 if __name__ == "__main__":

@@ -13,6 +13,11 @@ Counterpart of ``bodyct_dram_emph_subtype_tpu/losses/losses.py``
   quirk that alpha comes from ``t.shape[0]`` (the batch size, not the voxel
   count);
 - lesion fraction -> severity label by vectorised interval lookup.
+
+Under data parallelism each loss is the JAX package's global-batch loss
+(a data mesh reduces over the whole batch): every sum and count that
+spans the batch is this rank's partial sum through
+:func:`~..parallel.mesh.all_sum` (the identity in a world of one).
 """
 from __future__ import annotations
 
@@ -21,6 +26,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..parallel.mesh import all_sum
 
 BETA = 0.7338
 GAMMA = 0.2578
@@ -32,7 +39,8 @@ def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     log_probs = F.log_softmax(logits, dim=-1)
     nll = -torch.gather(log_probs, -1, labels[:, None].long())[:, 0]
     w = class_weights[labels.long()]
-    return torch.sum(nll * w) / torch.sum(w)
+    num, den = all_sum(torch.stack([torch.sum(nll * w), torch.sum(w)]))
+    return num / den
 
 
 def generate_regression_labels(cls_targets: torch.Tensor,
@@ -59,7 +67,7 @@ def interval_regression_loss(outs: torch.Tensor, reg_targets: torch.Tensor,
     k = (0.5 * (data[:, 2] - data[:, 1])) ** 2
     unhinged = (data[:, 0] - (data[:, 2] + data[:, 1]) / 2.0) ** 2 - k
     loss = 10.0 * torch.relu(unhinged) * weight_factors
-    return torch.sum(loss)
+    return all_sum(torch.sum(loss))
 
 
 def dice_coef(y: torch.Tensor, y_hat: torch.Tensor,
@@ -67,9 +75,10 @@ def dice_coef(y: torch.Tensor, y_hat: torch.Tensor,
     """Whole-batch flattened Dice."""
     y_flat = y.reshape(-1)
     y_hat_flat = y_hat.reshape(-1)
-    inter = torch.sum(y_hat_flat * y_flat)
-    return (2.0 * inter + smooth) / (torch.sum(y_flat) + torch.sum(y_hat_flat)
-                                     + smooth)
+    inter, sum_y, sum_y_hat = all_sum(torch.stack([
+        torch.sum(y_hat_flat * y_flat), torch.sum(y_flat),
+        torch.sum(y_hat_flat)]))
+    return (2.0 * inter + smooth) / (sum_y + sum_y_hat + smooth)
 
 
 def binary_dice(y, y_hat, smooth: float = 1e-7):
@@ -83,7 +92,9 @@ def masked_balanced_bce(y: torch.Tensor, y_hat: torch.Tensor, mask=None,
     ``1 - t.sum()/t.shape[0]`` (the batch size) clamped to [0.3, 0.7]."""
     t = y.float()
     p = y_hat
-    alpha = torch.clamp(1.0 - torch.sum(t) / t.shape[0], 0.3, 0.7)
+    rows = torch.full((), float(t.shape[0]), device=t.device)
+    sum_t, rows = all_sum(torch.stack([torch.sum(t), rows]))
+    alpha = torch.clamp(1.0 - sum_t / rows, 0.3, 0.7)
     pt = p * t + (1.0 - p) * (1.0 - t)
     w = alpha * t + (1.0 - alpha) * (1.0 - t)
     log_ptc = torch.log(torch.clamp(pt, eps, 1.0 - eps))
@@ -92,7 +103,8 @@ def masked_balanced_bce(y: torch.Tensor, y_hat: torch.Tensor, mask=None,
                       + log_ptc * w * (1.0 - mask))
     else:
         nll = -smoothness * log_ptc * w
-    return torch.sum(nll) / torch.sum(w)
+    num, den = all_sum(torch.stack([torch.sum(nll), torch.sum(w)]))
+    return num / den
 
 
 def segmentation_losses(dense_cle: torch.Tensor, dense_pse: torch.Tensor,

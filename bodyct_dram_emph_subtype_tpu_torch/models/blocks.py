@@ -55,6 +55,7 @@ from ..ops.pallas_conv import pallas_conv3d, supports_pallas_conv3d
 from ..ops.resize import resize_linear_matmul
 from ..ops.roll_conv import roll_conv_affine_relu, roll_conv_packed
 from ..ops.tap_conv import supports_tap_conv3d, tap_conv3d
+from ..parallel.mesh import all_sum
 
 CONV3D_MODES = ("direct", "d2sum", "d2cat", "pallas", "tapmm", "packw",
                 "roll", "flat")
@@ -169,11 +170,22 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm3d) -> torch.Tensor:
     the BIASED variance with momentum ``bn.momentum`` (torch 0.1 == flax
     0.9), updated explicitly under ``no_grad`` —
     ``F.batch_norm(training=True)`` would store the unbiased n/(n-1)
-    variance."""
+    variance.
+
+    The moments are the global batch's, as the JAX package's BatchNorm
+    reduces over a data mesh (JAX ``blocks.py:268-276``, the reference's
+    SyncBatchNorm): the float32 sums of ``x`` and ``x^2`` and the voxel
+    count go through the differentiable :func:`~..parallel.mesh.all_sum`
+    (the identity in a world of one), so every rank updates its running
+    statistics with the same values."""
     xf = x.float()
     dims = tuple(range(x.ndim - 1))
-    mean = xf.mean(dims)
-    var = (xf * xf).mean(dims) - mean * mean
+    c = xf.shape[-1]
+    count = torch.full((1,), xf.numel() // c, dtype=xf.dtype,
+                       device=xf.device)      # a fill: no host copy
+    sums = all_sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims), count]))
+    mean = sums[:c] / sums[-1]
+    var = sums[c:2 * c] / sums[-1] - mean * mean
     with torch.no_grad():
         bn.running_mean.mul_(1.0 - bn.momentum).add_(bn.momentum * mean)
         bn.running_var.mul_(1.0 - bn.momentum).add_(bn.momentum * var)

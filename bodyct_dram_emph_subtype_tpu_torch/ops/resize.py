@@ -1,8 +1,10 @@
-"""Torch-parity resampling, the parts the deployment path needs.
+"""Torch-parity resampling, the parts the deployment path and the
+trainer's heatmap tiles need.
 
 Counterpart of ``bodyct_dram_emph_subtype_tpu/ops/resize.py``.  Linear
 resizes are dense interpolation-matrix products (two taps per output
-column, float64-derived tables); nearest and depth-linspace selections
+column, float64-derived tables), or for the tiles the JAX package's
+gather-and-lerp ``resize_linear``; nearest and depth-linspace selections
 use EXACT integer index math.  ``F.interpolate`` is deliberately not
 used: float index floors flip at exact-integer crossings and moved whole
 mask rows and CT slices in the reference before its round 4 (DEVNOTES
@@ -65,6 +67,67 @@ def resize_linear_matmul_transpose(x: torch.Tensor, in_sizes: Sequence[int],
         m = _matrix(in_size, x.shape[axis], align_corners, x)
         x = torch.movedim(torch.tensordot(x, m, dims=([axis], [1])), -1,
                           axis)
+    return x
+
+
+def _linear_source_positions(out_size: int, in_size, align_corners: bool,
+                             device=None) -> torch.Tensor:
+    """float32 source coordinates of 1-D linear resampling (torch
+    convention) for an ``in_size`` known only as a tensor:
+    ``i * (in-1)/(out-1)`` (0 when ``out == 1``) with ``align_corners``,
+    else ``max(0, (i+0.5) * in/out - 0.5)``."""
+    i = torch.arange(out_size, dtype=torch.float32, device=device)
+    in_f = torch.as_tensor(in_size, dtype=torch.float32, device=device)
+    if align_corners:
+        scale = ((in_f - 1.0) / float(out_size - 1) if out_size > 1
+                 else torch.zeros((), device=device))
+        return i * scale
+    return torch.clamp((i + 0.5) * (in_f / float(out_size)) - 0.5, min=0.0)
+
+
+def linear_gather_1d(x: torch.Tensor, out_size: int, axis: int,
+                     align_corners: bool, in_size=None) -> torch.Tensor:
+    """Resample one axis of ``x`` linearly (torch parity): two gathers and
+    ``x0 * (1 - w) + x1 * w``.  A static ``in_size`` (default the axis
+    length) takes float64 host index tables, as torch's CPU kernels do;
+    a tensor ``in_size`` float32 positions on the device."""
+    if in_size is None:
+        in_size = x.shape[axis]
+    if isinstance(in_size, torch.Tensor):
+        src = _linear_source_positions(out_size, in_size, align_corners,
+                                       x.device)
+        n = in_size.to(device=x.device, dtype=torch.int64)
+        i0 = torch.minimum(torch.floor(src).to(torch.int64), n - 1)
+        i1 = torch.minimum(i0 + 1, n - 1)
+        w = src - i0.to(torch.float32)
+    else:
+        n = int(in_size)
+        i = np.arange(out_size, dtype=np.float64)
+        if align_corners:
+            src = i * ((n - 1) / (out_size - 1) if out_size > 1 else 0.0)
+        else:
+            src = np.maximum((i + 0.5) * (n / out_size) - 0.5, 0.0)
+        i0 = np.clip(np.floor(src).astype(np.int64), 0, n - 1)
+        i1 = np.minimum(i0 + 1, n - 1)
+        w = torch.from_numpy((src - i0).astype(np.float32)).to(x.device)
+        i0, i1 = torch.from_numpy(i0).to(x.device), \
+            torch.from_numpy(i1).to(x.device)
+    shape = [1] * x.ndim
+    shape[axis] = out_size
+    w = w.reshape(shape).to(x.dtype)
+    return (torch.index_select(x, axis, i0) * (1.0 - w)
+            + torch.index_select(x, axis, i1) * w)
+
+
+def resize_linear(x: torch.Tensor, out_sizes: Sequence[int],
+                  axes: Sequence[int], align_corners: bool,
+                  in_sizes: Sequence = None) -> torch.Tensor:
+    """n-linear resize over ``axes`` as separable 1-D passes
+    (:func:`linear_gather_1d`; JAX ``ops/resize.py::resize_linear``)."""
+    if in_sizes is None:
+        in_sizes = [None] * len(axes)
+    for axis, out_size, in_size in zip(axes, out_sizes, in_sizes):
+        x = linear_gather_1d(x, out_size, axis, align_corners, in_size)
     return x
 
 

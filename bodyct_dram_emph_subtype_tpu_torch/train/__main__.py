@@ -13,22 +13,37 @@ classification strategy (weighted cross entropy, adaptive class
 re-weighting) for ``med3d``, ``med3d18``, ``med3d50`` and ``med3dtiny``.
 ``--input_pipeline device --pad_shape D,H,W`` trains and evaluates on raw
 int16 volumes padded to ``pad_shape``, preprocessed on the device (without
-``--pad_shape`` it raises ``ValueError``).  ``--mesh``, ``--multihost``,
-``--ngpus`` > 1, ``--remat`` other than ``none`` and ``--noise_rng rbg``
-raise ``NotImplementedError``; the plain ``resnet34``/``resnet50`` raise
-``ValueError`` (no lung mask: the JAX trainer cannot train them either).
-``--packed_decoder`` reaches the model
+``--pad_shape`` it raises ``ValueError``).
+
+Data parallelism (``parallel/mesh.py``): ``--ngpus N`` or ``--mesh
+data=N`` starts N ranks on this host, one per card (without either flag,
+every visible card); ``--multihost`` joins the process group that
+torchrun's environment describes (``torchrun --nproc_per_node 8 -m
+bodyct_dram_emph_subtype_tpu_torch.train --multihost ...``).  NCCL on the
+cards, gloo with ``--device cpu`` or when a host runs more ranks than it
+has cards.  ``--batch_size`` is per rank.  Rank 0 alone writes the
+checkpoints, CSVs, ``metrics.jsonl``, ``debug.log`` and the artifacts:
+``confusion_matrices/``, ``debug_input_data/`` (heatmap tiles),
+``tb_logs/`` (TensorBoard); ``--profile`` writes one ``torch.profiler``
+Chrome trace of epoch 0 per rank to ``profile/rank<r>.json``;
+``--debug_nans`` turns on anomaly detection and raises
+``FloatingPointError`` at the first non-finite loss or gradient.
+
+Refused with ``NotImplementedError``: a ``--mesh`` with a ``spatial`` or
+``model`` axis above 1, ``--grad_accum`` above 1 on more than one rank,
+``--remat`` other than ``none`` and ``--noise_rng rbg``; the plain
+``resnet34``/``resnet50`` raise ``ValueError`` (no lung mask: the JAX
+trainer cannot train them either).  ``--packed_decoder`` reaches the model
 (under conv mode ``roll`` its decoder convs then run on kernels A/D, as
 the JAX packed decoder's run on its roll kernels; outside ``roll`` on
-cuDNN, as JAX's run on XLA; without the flag the decoder runs on cuDNN),
-``--profile``/``--debug_nans`` are not
-ported and log so.  The conv mode comes from ``$BODYCT_CONV3D_MODE``
-(default ``roll``).  It runs on the CUDA card and refuses to start without
-one unless given ``--device cpu``, which runs every kernel site's plain
-version.
+cuDNN, as JAX's run on XLA; without the flag the decoder runs on cuDNN).
+The conv mode comes from ``$BODYCT_CONV3D_MODE`` (default ``roll``).  It
+runs on the CUDA card and refuses to start without one unless given
+``--device cpu``, which runs every kernel site's plain version.
 """
 import contextlib
 import logging
+import sys
 from argparse import ArgumentParser
 from pathlib import Path
 from typing import Optional, Sequence
@@ -39,13 +54,14 @@ def parse_size(text: str):
 
 
 @contextlib.contextmanager
-def logging_to(exp_path: Path):
-    """Root logging at INFO to ``exp_path/debug.log`` and the console
-    while the block runs (the reference's ``debug.log``)."""
+def logging_to(exp_path: Path, to_file: bool = True):
+    """Root logging at INFO to ``exp_path/debug.log`` (``to_file``: rank 0)
+    and the console while the block runs (the reference's ``debug.log``)."""
     exp_path.mkdir(parents=True, exist_ok=True)
     root = logging.getLogger()
-    handlers = [logging.FileHandler(exp_path / "debug.log"),
-                logging.StreamHandler()]
+    handlers = [logging.StreamHandler()]
+    if to_file:
+        handlers.append(logging.FileHandler(exp_path / "debug.log"))
     for handler in handlers:
         handler.setFormatter(logging.Formatter(
             "%(asctime)s [%(levelname)s] %(message)s"))
@@ -60,15 +76,51 @@ def logging_to(exp_path: Path):
             handler.close()
 
 
+def add_distributed_args(p: ArgumentParser) -> None:
+    p.add_argument("--multihost", action="store_true",
+                   help="join the process group of torchrun's environment "
+                        "(RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, "
+                        "MASTER_PORT)")
+
+
+@contextlib.contextmanager
+def distributed(module: str, args, argv):
+    """Run the block as this process's part of data parallelism: yields
+    ``(device, rank)``, or ``None`` after the ranks that ``--ngpus`` /
+    ``--mesh`` ask for have run ``module`` as child processes (raises
+    ``SystemExit`` with their exit code if one failed)."""
+    from ..parallel.mesh import (data_width, init_distributed, rank,
+                                 shutdown, spawn_ranks)
+    if not args.multihost:
+        world = data_width(getattr(args, "mesh", None), args.nchips,
+                           args.device)
+        if world > 1:
+            code = spawn_ranks(module, list(sys.argv[1:] if argv is None
+                                            else argv), world)
+            if code:
+                raise SystemExit(code)
+            yield None
+            return
+        yield args.device, 0
+        return
+    device = init_distributed(args.device)
+    try:
+        yield str(device), rank()
+    finally:
+        shutdown()
+
+
 def build_parser() -> ArgumentParser:
     p = ArgumentParser(prog="python -m bodyct_dram_emph_subtype_tpu_torch."
                             "train")
     p.add_argument("--model_arch", default="med3ddram50", type=str)
     p.add_argument("--lr", "--learning-rate", default=0.0001, type=float)
     p.add_argument("--ngpus", "--nchips", dest="nchips", default=None,
-                   type=int, help="more than 1 needs DDP (not ported)")
+                   type=int, help="data-parallel ranks on this host, one "
+                                  "per card (default: every visible card)")
     p.add_argument("--mesh", default=None, type=str,
-                   help="not ported (multi-device)")
+                   help="data=N (the spatial and model axes are not "
+                        "ported)")
     p.add_argument("--momentum", default=None, type=float,
                    help="ignored (reference parity: Adam uses lr only)")
     p.add_argument("--reload_only_weights", default=1, type=int)
@@ -100,9 +152,13 @@ def build_parser() -> ArgumentParser:
     p.add_argument("--pad_shape", default=None, type=parse_size,
                    help="D,H,W buffer of --input_pipeline device; a larger "
                         "scan raises ValueError")
-    p.add_argument("--multihost", action="store_true")
-    p.add_argument("--profile", action="store_true")
-    p.add_argument("--debug_nans", action="store_true")
+    add_distributed_args(p)
+    p.add_argument("--profile", action="store_true",
+                   help="torch.profiler trace of epoch 0 per rank, under "
+                        "<model_path>/subtyping_<arch>/profile")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="anomaly detection; FloatingPointError at the first "
+                        "non-finite loss or gradient")
     p.add_argument("--remat", default="none", type=str,
                    help="only 'none' is ported")
     p.add_argument("--noise_rng", default="threefry",
@@ -123,11 +179,18 @@ def build_parser() -> ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    from .loop import SubtypeTrainer, TrainerConfig
-    if args.multihost:
-        raise NotImplementedError("--multihost needs DDP, which is not "
-                                  "ported yet (ROADMAP section 1, 'DDP')")
-    config = TrainerConfig(
+    with distributed("bodyct_dram_emph_subtype_tpu_torch.train", args,
+                     argv) as place:
+        if place is not None:
+            train(args, *place)
+    return 0
+
+
+def make_config(args, device: Optional[str]):
+    """The :class:`~.loop.TrainerConfig` of the parsed flags, on
+    ``device``."""
+    from .loop import TrainerConfig
+    return TrainerConfig(
         model_arch=args.model_arch, lr=args.lr, max_epochs=args.max_epochs,
         batch_size=args.batch_size, num_samples=args.num_samples,
         target_size=tuple(args.target_size), workers=args.workers,
@@ -139,16 +202,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         mesh=args.mesh,
         remat=args.remat, noise_rng=args.noise_rng,
         grad_accum=args.grad_accum, packed_decoder=args.packed_decoder,
-        device=args.device)
+        profile=args.profile, debug_nans=args.debug_nans, device=device)
+
+
+def train(args, device: Optional[str], rank: int) -> None:
+    """``train.py``'s flow on this rank."""
+    from .loop import SubtypeTrainer
+    config = make_config(args, device)
     trainer = SubtypeTrainer(config)
-    with logging_to(config.exp_path):
+    with logging_to(config.exp_path, to_file=rank == 0):
         if args.momentum is not None or args.weight_decay is not None:
             logging.warning("--momentum/--weight_decay are ignored: the "
                             "optimizer is Adam(lr), as in the reference")
-        for flag in ("profile", "debug_nans"):
-            if getattr(args, flag):
-                logging.warning("--%s is not ported to the PyTorch package; "
-                                "ignored", flag)
         trainer.init_state()
         trainer.setup_checkpointing()
         trainer.try_resume(reload_only_weights=bool(args.reload_only_weights),
@@ -156,7 +221,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         trainer.fit()
         best_epoch = trainer.restore_best()
         trainer.evaluate("test", epoch=best_epoch)
-    return 0
+        trainer.close()
 
 
 if __name__ == "__main__":

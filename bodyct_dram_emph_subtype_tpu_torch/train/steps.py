@@ -44,6 +44,7 @@ from ..losses import (generate_regression_labels, interval_regression_loss,
 from ..ops.pallas_kernels import masked_sums
 from ..ops.preprocess import fused_preprocess
 from ..ops.resize import resize_linear_matmul, resize_nearest
+from ..parallel.mesh import rank
 from ..transforms.batch_augment import augment_batch, draw_augment_params
 from .state import set_lr
 
@@ -130,9 +131,17 @@ def _cls_losses(outs, inputs, cw_cle, cw_pse, num_data_shards: int):
             (logits[0].detach().argmax(-1), logits[1].detach().argmax(-1)))
 
 
+def _raise_non_finite(named):
+    """``FloatingPointError`` naming the first of the ``(name, tensor)``
+    pairs that holds a NaN or an infinity (reads the values back)."""
+    for name, t in named:
+        if t is not None and not bool(torch.isfinite(t).all()):
+            raise FloatingPointError(f"debug_nans: non-finite {name}")
+
+
 def _make_train_step(losses_fn, model, optimizer, num_data_shards, augment,
                      accum_steps, compute_dtype, device, fused_input,
-                     target_size):
+                     target_size, debug_nans=False):
     """The train step both strategies share: returns ``step(batch, lr,
     cle_class_weights, pse_class_weights, generator=None, mark=None) ->
     (metrics, preds)``.
@@ -145,16 +154,23 @@ def _make_train_step(losses_fn, model, optimizer, num_data_shards, augment,
     ``in_sizes`` (B, 3), preprocessed to ``target_size`` on the device;
     and ``cls_label``/``pse_label`` (B,).  ``generator``: the
     augmentation's ``torch.Generator`` (on ``device``; needed when
-    ``augment``).  ``mark(name)``, if given, is called as each phase
-    begins (``preprocess`` with ``fused_input``, ``augment``, ``forward``,
+    ``augment``): its seed and the global row index seed each row's draws
+    (:func:`~..transforms.batch_augment.draw_augment_params`).
+    ``mark(name)``, if given, is called as each phase begins
+    (``preprocess`` with ``fused_input``, ``augment``, ``forward``,
     ``backward``, ``optimizer``) and with ``done`` at the end — a hook for
-    timing.  ``metrics`` are the losses
+    timing.  ``debug_nans``: raise ``FloatingPointError`` naming the first
+    non-finite loss (before the backward) or parameter gradient (after
+    it); this reads values back from the device.  Under data parallelism
+    ``model`` is the DDP module, each row's augmentation draws are those of
+    its row of the global batch, and the losses are the global batch's
+    (``losses/losses.py``).  ``metrics`` are the losses
     as detached scalar tensors (the mean over microbatches), ``preds`` the
     predicted and true labels of the whole batch."""
     device = torch.device(device) if device is not None else \
         next(model.parameters()).device
 
-    def micro(batch, cw_cle, cw_pse, generator, mark):
+    def micro(batch, cw_cle, cw_pse, generator, mark, first_row):
         if fused_input:
             mark("preprocess")
         images, lungs, ems = _batch_inputs(batch, fused_input, target_size,
@@ -171,7 +187,7 @@ def _make_train_step(losses_fn, model, optimizer, num_data_shards, augment,
             if any(o > i for o, i in zip(mask_out, images.shape[1:4])):
                 mask_out = None
             draws = draw_augment_params(generator, images.shape[0],
-                                        tuple(images.shape[1:4]))
+                                        tuple(images.shape[1:4]), first_row)
             images, lungs, ems = augment_batch(images, lungs, ems, draws,
                                                mask_out)
         mark("forward")
@@ -181,8 +197,15 @@ def _make_train_step(losses_fn, model, optimizer, num_data_shards, augment,
         outs = model(x, inputs["lungs5"])
         losses, (pred_cle, pred_pse) = losses_fn(outs, inputs, cw_cle,
                                                  cw_pse, num_data_shards)
+        if debug_nans:
+            _raise_non_finite(losses.items())
         mark("backward")
-        losses["loss"].backward()
+        try:
+            losses["loss"].backward()
+        except RuntimeError as exc:     # anomaly mode's NaN in a backward
+            if debug_nans and "nan" in str(exc):
+                raise FloatingPointError(f"debug_nans: {exc}") from exc
+            raise
         preds = {"pred_cle_labels": pred_cle, "pred_pse_labels": pred_pse,
                  "cle_labels": cle_labels.to(torch.int32),
                  "pse_labels": pse_labels.to(torch.int32)}
@@ -204,9 +227,12 @@ def _make_train_step(losses_fn, model, optimizer, num_data_shards, augment,
                              f"{accum_steps}")
         mb = b // accum_steps
         outs = [micro({k: v[i * mb:(i + 1) * mb] for k, v in batch.items()},
-                      cw_cle, cw_pse, generator, mark)
+                      cw_cle, cw_pse, generator, mark, rank() * b + i * mb)
                 for i in range(accum_steps)]
         mark("optimizer")
+        if debug_nans:
+            _raise_non_finite((f"gradient of {n}", p.grad)
+                              for n, p in model.named_parameters())
         if accum_steps > 1:
             for p in model.parameters():
                 if p.grad is not None:
@@ -228,12 +254,12 @@ def make_reg_train_step(model: torch.nn.Module,
                         accum_steps: int = 1,
                         compute_dtype: torch.dtype = torch.float32,
                         device=None, fused_input: bool = False,
-                        target_size=(128, 224, 288)):
+                        target_size=(128, 224, 288), debug_nans=False):
     """The dRAM train step (:func:`_make_train_step`); ``metrics``:
     :data:`METRICS`."""
     return _make_train_step(_reg_losses, model, optimizer, num_data_shards,
                             augment, accum_steps, compute_dtype, device,
-                            fused_input, target_size)
+                            fused_input, target_size, debug_nans)
 
 
 def make_cls_train_step(model: torch.nn.Module,
@@ -242,12 +268,12 @@ def make_cls_train_step(model: torch.nn.Module,
                         accum_steps: int = 1,
                         compute_dtype: torch.dtype = torch.float32,
                         device=None, fused_input: bool = False,
-                        target_size=(128, 224, 288)):
+                        target_size=(128, 224, 288), debug_nans=False):
     """The CLS train step (:func:`_make_train_step`, JAX
     ``steps.py:226-308``); ``metrics``: :data:`CLS_METRICS`."""
     return _make_train_step(_cls_losses, model, optimizer, num_data_shards,
                             augment, accum_steps, compute_dtype, device,
-                            fused_input, target_size)
+                            fused_input, target_size, debug_nans)
 
 
 def make_eval_step(model: torch.nn.Module, mode: str = "reg",

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..ops.grid_sample import flip_crop_resize
@@ -32,33 +33,53 @@ def _uniform(gen: torch.Generator, shape, lo: float, hi: float
                                        device=gen.device)
 
 
+def _row_generator(seed: int, row: int, device) -> torch.Generator:
+    """The generator of global row ``row`` of a batch whose draws are
+    seeded by ``seed``."""
+    return torch.Generator(device).manual_seed(int(
+        np.random.SeedSequence([seed, row]).generate_state(1)[0]))
+
+
 def draw_augment_params(generator: torch.Generator, batch: int,
-                        shape: Sequence[int]) -> Dict[str, torch.Tensor]:
+                        shape: Sequence[int], first_row: int = 0
+                        ) -> Dict[str, torch.Tensor]:
     """Every random number of the chain for a (batch, *shape) volume batch,
     on ``generator``'s device: ``gates`` (B, 4) bool (noise, cutout, flip,
     crop; each p=.5), ``sigma`` (B,), ``eps`` (B, *shape) N(0, 1),
     ``centers``/``sizes`` (B, 10, 3), ``valid`` (B, 10) (the first
     U{1..10} boxes, if the cutout gate is on), ``flip_axis`` (B, 3) (1 or 2
     distinct random axes, if the flip gate is on), ``crop_center``/
-    ``crop_size`` (B, 3)."""
-    g, b, n = generator, batch, MAX_CUTOUT_BOXES
-    dev = g.device
-    gates = torch.rand((b, 4), generator=g, device=dev) < 0.5
-    n_boxes = torch.randint(1, n + 1, (b, 1), generator=g, device=dev)
-    n_axes = torch.randint(1, 3, (b, 1), generator=g, device=dev)
-    rank = torch.argsort(torch.rand((b, 3), generator=g, device=dev), dim=1)
-    return {
-        "gates": gates,
-        "sigma": _uniform(g, (b,), 0.03, 0.06),
-        "eps": torch.randn((b, *shape), generator=g, device=dev),
-        "centers": _uniform(g, (b, n, 3), 0.2, 0.8),
-        "sizes": _uniform(g, (b, n, 3), 0.01, 0.06),
-        "valid": (torch.arange(n, device=dev)[None] < n_boxes)
-        & gates[:, 1:2],
-        "flip_axis": (rank < n_axes) & gates[:, 2:3],
-        "crop_center": _uniform(g, (b, 3), 0.45, 0.55),
-        "crop_size": _uniform(g, (b, 3), 0.95, 1.0),
-    }
+    ``crop_size`` (B, 3).
+
+    Row ``i`` draws from a generator of its own, seeded from
+    ``generator``'s seed and its global row index ``first_row + i``: a
+    rank that holds rows ``[first_row, first_row + batch)`` of a global
+    batch draws for them what one process at the global batch draws, and
+    draws nothing for the other ranks' rows."""
+    seed, dev, n = generator.initial_seed(), generator.device, \
+        MAX_CUTOUT_BOXES
+    eps = torch.empty((batch, *shape), device=dev)
+    rows = []
+    for i in range(batch):
+        g = _row_generator(seed, first_row + i, dev)
+        gates = torch.rand(4, generator=g, device=dev) < 0.5
+        n_boxes = torch.randint(1, n + 1, (1,), generator=g, device=dev)
+        n_axes = torch.randint(1, 3, (1,), generator=g, device=dev)
+        order = torch.argsort(torch.rand(3, generator=g, device=dev))
+        torch.randn(tuple(shape), generator=g, out=eps[i])
+        rows.append({
+            "gates": gates,
+            "sigma": _uniform(g, (), 0.03, 0.06),
+            "centers": _uniform(g, (n, 3), 0.2, 0.8),
+            "sizes": _uniform(g, (n, 3), 0.01, 0.06),
+            "valid": (torch.arange(n, device=dev) < n_boxes) & gates[1],
+            "flip_axis": (order < n_axes) & gates[2],
+            "crop_center": _uniform(g, (3,), 0.45, 0.55),
+            "crop_size": _uniform(g, (3,), 0.95, 1.0),
+        })
+    draws = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+    draws["eps"] = eps
+    return draws
 
 
 def _augment_one(image: torch.Tensor, masks: Tuple[torch.Tensor, ...],

@@ -180,7 +180,50 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    12, D 6 and a test evaluation at A 12, C 1 per forward; (e, after
    phase 6b) one med3dtiny train step (float32, augment off) on the card
    against the CPU plain path, same weights and batch, in phase 6b's
-   bounds.
+   bounds;
+8. data parallelism on the card: two ranks share the one H100, each
+   started as ``chip_smoke.py --ddp-rank`` with torchrun's environment
+   (``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE`` and ``LOCAL_WORLD_SIZE`` 2,
+   ``MASTER_ADDR``, ``MASTER_PORT``) and the training CLI's flags with
+   ``--multihost``, which puts two local ranks on one card over gloo
+   (NCCL refuses two ranks on one device), through
+   ``train.__main__``'s ``distributed`` and ``make_config``: med3ddram,
+   bf16, packed decoder, 128x224x288, B=1 per rank, phase 6's archive,
+   ``sampler_seed`` 0, lr 1e-6, one epoch of 2 steps, augmentation on,
+   then the best epoch's test evaluation.  The dRAM heads are scaled as
+   in ``tests/test_torch_train_step.py`` (``condition_heads``: at the
+   seed's init the saturated maps make the coverage loss's clamp turn
+   rounding noise into whole gradient flips, 0.6-1.2 of ||g|| even
+   between the card and the CPU in float32).  Each rank's per-step
+   launches are A 22, D 11, F 1 (a rank that fails a check exits
+   non-zero, and so does this script).  Held against one process at B=2
+   with ``num_data_shards=2`` on the same weights, batches and
+   augmentation draws: each step's loss and components within 1e-3
+   relative (the first card run: 6.8e-5); the first step's gradients,
+   ||d|| / ||g|| per tensor (median and max), no more than twice the one
+   process's own bf16 noise floor (its bf16 step against its float32
+   step on the same batch; two independent bf16 roundings differ by about
+   sqrt(2) of one; measured in the same run, since the DDP spread, about
+   3.7e-2 median, lies inside bf16's own 4.9e-2 and no fixed bound
+   could tell a fault from rounding); the
+   median element of rank 0's checkpoint within ``0.05 * lr`` of the one
+   process's parameters (the max is printed, not held: Adam moves an
+   element whose gradient lies within noise of zero by up to lr either
+   way each step, so 2 lr per step is its reach, not a bound); the
+   test labels equal and the lesion fractions within 5e-3 (the bf16
+   bound); the CSVs, ``metrics.jsonl`` (one line per phase) and the one
+   checkpoint written once, by rank 0.  This proves the path; it is not a
+   timing (gloo stages the 64,789,730 float32 gradients, 259 MB, through
+   the host each step).  ``--ddp-only`` runs phases 1, 2 and 8 alone;
+   on a host with two or more cards the ranks take cards 0 and 1 and
+   NCCL, with the same checks;
+8b. ``--profile``: phase 6's setup (B=2, packed decoder, one epoch of 4
+   steps) with ``profile=True``: the Chrome trace
+   ``profile/rank0.json`` exists and holds each step's stage spans; the
+   device busy share of steps 2-4 (the union of the kernel intervals over
+   the window from the first to the last kernel launched inside those
+   steps' spans) and the 10 device kernels with the most time there, by
+   name.
 
 Kernel F (the lung-masked sums) runs once in every dRAM forward, eval
 and train, so each such train step and eval batch also counts one F
@@ -204,10 +247,13 @@ The line before the last is the per-kernel JSON summary; the last line is
 repository beside it, the script exits non-zero and prints no result.
 """
 import argparse
+import copy
 import json
 import logging
 import math
+import os
 import re
+import socket
 import shutil
 import statistics
 import subprocess
@@ -262,11 +308,16 @@ from bodyct_dram_emph_subtype_tpu_torch.ops.stem_kernel import (
     fused_stem_pool, fused_stem_pool_plain, stem_smem_bytes)
 from bodyct_dram_emph_subtype_tpu_torch.evaluate.__main__ import \
     main as evaluate_main
+from bodyct_dram_emph_subtype_tpu_torch.parallel.mesh import gather_objects
+from bodyct_dram_emph_subtype_tpu_torch.train.__main__ import (
+    build_parser, distributed, make_config)
 from bodyct_dram_emph_subtype_tpu_torch.train.loop import (
-    SubtypeTrainer, TrainerConfig, reweight_classes)
+    SubtypeTrainer, TrainerConfig, reweight_classes, step_seed)
 from bodyct_dram_emph_subtype_tpu_torch.train.state import make_optimizer
 from bodyct_dram_emph_subtype_tpu_torch.train.steps import (
-    make_cls_train_step, make_reg_train_step)
+    dense_map_size, make_cls_train_step, make_reg_train_step)
+from bodyct_dram_emph_subtype_tpu_torch.transforms.batch_augment import (
+    augment_batch, draw_augment_params)
 
 DEV = torch.device("cuda")
 B = 2
@@ -1692,6 +1743,35 @@ def check_eval(trainer, per_fwd, label):
     return metrics, launches
 
 
+def augment_costs(seed: int, steps: int):
+    """Phase 6's augmentation: the gates (noise, cutout, flip, crop) that
+    each step's rows draw (the trainer's generator seeds), and on one B=2
+    batch the ms of the draws and of the apply step with every gate off
+    and every gate on (3 boxes, 2 flip axes); CUDA events, median of 5."""
+    gates = [draw_augment_params(
+        torch.Generator(DEV).manual_seed(step_seed(seed, 0, n)), B,
+        TARGET)["gates"].int().tolist() for n in range(steps)]
+    gen = torch.Generator(DEV).manual_seed(step_seed(seed, 0, 0))
+    images = torch.randn((B, *TARGET), device=DEV)
+    masks = (torch.rand((B, *TARGET), device=DEV) > 0.5).float()
+    draws = draw_augment_params(gen, B, TARGET)
+    off = dict(draws, gates=torch.zeros_like(draws["gates"]),
+               valid=torch.zeros_like(draws["valid"]),
+               flip_axis=torch.zeros_like(draws["flip_axis"]))
+    on = dict(draws, gates=torch.ones_like(draws["gates"]),
+              valid=torch.zeros_like(draws["valid"]),
+              flip_axis=torch.zeros_like(draws["flip_axis"]))
+    on["valid"][:, :3] = True
+    on["flip_axis"][:, :2] = True
+    out = dense_map_size(TARGET)
+    return gates, {
+        "draws": median_ms(lambda: draw_augment_params(gen, B, TARGET)),
+        "apply, gates off": median_ms(
+            lambda: augment_batch(images, masks, masks, off, out)),
+        "apply, gates on": median_ms(
+            lambda: augment_batch(images, masks, masks, on, out))}
+
+
 def phase_train(work: Path):
     print("== phase 6: training path (trainer, med3ddram, bf16, B=2, "
           "packed decoder, augmentation on)")
@@ -1729,6 +1809,10 @@ def phase_train(work: Path):
             f"{clock.breakdown(i)['loader wait']:.1f}" for i in range(n)))
     print(f"peak device memory {peak / 2 ** 30:.2f} GiB "
           f"(torch.cuda.max_memory_allocated)")
+    gates, aug_ms = augment_costs(cfg.seed, n)
+    print(f"augmentation gates (noise, cutout, flip, crop) per step and "
+          f"row: {gates}; on one batch (ms): " + ", ".join(
+              f"{k} {v:.1f}" for k, v in aug_ms.items()))
     best = trainer.restore_best()
     check(best == 0, f"best epoch {best}")
     metrics, eval_launches = check_eval(trainer, PER_FORWARD,
@@ -2214,16 +2298,338 @@ def phase_cls(work: Path):
                    "default_step_ms": wall_d[-1]}
 
 
+DDP_WORLD = 2
+DDP_LR = 1e-6                    # phase 8's learning rate
+DDP_LOSS_RTOL = 1e-3             # phase 8: per-step loss, relative
+DDP_MEDIAN_LR = 0.05             # phase 8: median |d param| over lr
+# the decoder conv biases that feed a train BatchNorm, which removes them:
+# their gradients are rounding noise
+PRE_BN_BIAS = re.compile(r"us[12]\.conv_blocks\.\d\.0\.bias|us3\.0\.bias")
+
+
+def ddp_argv(work: Path):
+    """Phase 8's training-CLI flags over the archive in ``work``."""
+    csv = str(work / "merged.csv")
+    return ["--model_arch", "med3ddram", "--lr", str(DDP_LR),
+            "--max_epochs", "1",
+            "--batch_size", "1", "--num_samples", "1", "--workers", "4",
+            "--data_path", str(work), "--train_csv", csv, "--valid_csv", "",
+            "--test_csv", csv, "--model_path", str(work / "models_ddp"),
+            "--seed", "0", "--sampler_seed", "0", "--compute_dtype",
+            "bfloat16", "--packed_decoder", "--device", "cuda"]
+
+
+def condition_heads(model) -> None:
+    """Scale the dRAM heads as ``tests/test_torch_train_step.py`` does
+    (weights x0.05, bias -1.5: both maps near 0.2).  At the seed's init
+    the maps saturate or sum to about 1, where ``clamp(cle + pse, 0, 1)``
+    of the coverage loss turns rounding noise into whole gradient flips:
+    the one process on the card against the CPU then differs by
+    ||d|| / ||g|| of 0.6-1.2 even in float32, so no comparison of
+    gradients could see a fault."""
+    with torch.no_grad():
+        for fc in model.fcs:
+            fc.weight.mul_(0.05)
+            fc.bias.fill_(-1.5)
+
+
+def grad_spread(got, want):
+    """(median, max, arg max) over the tensors of ``||got - want|| /
+    ||want||``, without the decoder biases before a train BN."""
+    rel = {n: ((got[n] - g).norm() / g.norm().clamp_min(1e-30)).item()
+           for n, g in want.items() if not PRE_BN_BIAS.fullmatch(n)}
+    order = sorted(rel.values())
+    top = max(rel, key=rel.get)
+    return order[len(order) // 2], rel[top], top
+
+
+def bf16_grad_noise(trainer):
+    """The bf16 noise floor of phase 8's gradients: ``grad_spread`` of the
+    first train step of ``trainer``'s model (before it trains) in bf16
+    against the same step in float32, on a copy, same batch and draws."""
+    batch = next(iter(trainer._loader("train", 0)))
+    grads = []
+    for dtype in (torch.bfloat16, torch.float32):
+        model = copy.deepcopy(trainer.model)
+        step = make_reg_train_step(
+            model, make_optimizer(model.parameters(), DDP_LR),
+            num_data_shards=DDP_WORLD, compute_dtype=dtype, device=DEV,
+            target_size=TARGET)
+        gen = torch.Generator(DEV).manual_seed(step_seed(0, 0, 0))
+        step(batch, DDP_LR, trainer.cle_class_weights,
+             trainer.pse_class_weights, generator=gen)
+        grads.append({n: p.grad.float().cpu()
+                      for n, p in model.named_parameters()})
+        del model, step
+    torch.cuda.empty_cache()
+    return grad_spread(grads[0], grads[1])
+
+
+def keep_first_grads(trainer, path: Path) -> None:
+    """Save the parameters' gradients after ``trainer``'s first train
+    step to ``path`` (float32, on the CPU)."""
+    step = trainer._train_step
+
+    def first(*args, **kw):
+        out = step(*args, **kw)
+        if not path.exists():
+            torch.save({n: p.grad.float().cpu() for n, p in
+                        trainer.model.named_parameters()}, path)
+        return out
+
+    trainer._train_step = first
+
+
+def ddp_rank(work: Path) -> None:
+    """One rank of phase 8 (``--ddp-rank``): the training CLI's flow with
+    each step's losses and launches logged; writes ``ddp_rank<r>.json``."""
+    torch.backends.cudnn.allow_tf32 = False        # as phase 1 sets them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    argv = ddp_argv(work) + ["--multihost"]
+    args = build_parser().parse_args(argv)
+    with distributed("bodyct_dram_emph_subtype_tpu_torch.train", args,
+                     argv) as (device, rank):
+        trainer = SubtypeTrainer(make_config(args, device))
+        trainer.init_state()
+        trainer.setup_checkpointing()
+        check(not trainer.try_resume(), "phase 8 resumed")
+        condition_heads(trainer.model)
+        if rank == 0:
+            keep_first_grads(trainer, work / "ddp_grads_ranks.pt")
+        losses, clock, launches, fit_s, peak = fit_logged(trainer)
+        n = check_steps(losses, clock, PER_TRAIN_STEP, f"rank {rank}")
+        check(n == 2, f"rank {rank}: {n} train steps")
+        best = trainer.restore_best()
+        cuda_build.reset_launches()
+        metrics = trainer.evaluate("test", epoch=best)
+        torch.cuda.synchronize()
+        eval_launches = cuda_build.launches()
+        fractions = {}
+        for part in gather_objects(forward_fractions(trainer, "host")):
+            fractions.update(part)
+        (work / f"ddp_rank{rank}.json").write_text(json.dumps({
+            "losses": losses, "wall_ms": clock.wall_ms(),
+            "launches": dict(Counter(launches) + Counter(eval_launches)),
+            "metrics": metrics, "peak_gib": peak / 2 ** 30,
+            "fractions": {str(k): v for k, v in fractions.items()},
+            "backend": torch.distributed.get_backend(),
+            "device": str(device)}))
+
+
+def phase_ddp(work: Path):
+    print("== phase 8: data parallelism (2 ranks, --multihost, med3ddram, "
+          "bf16, B=1 per rank, packed decoder; gloo on one card, NCCL on "
+          "two) against one process at B=2, num_data_shards=2")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = str(sock.getsockname()[1])
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for r in range(DDP_WORLD):
+            env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                       WORLD_SIZE=str(DDP_WORLD),
+                       LOCAL_WORLD_SIZE=str(DDP_WORLD),
+                       MASTER_ADDR="localhost", MASTER_PORT=port)
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--ddp-rank", str(work)], env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks_s = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            print(out[-6000:])
+        check(p.returncode == 0, f"phase 8 rank {r} exited {p.returncode}")
+    ranks = [json.loads((work / f"ddp_rank{r}.json").read_text())
+             for r in range(DDP_WORLD)]
+    check(ranks[0]["losses"] == ranks[1]["losses"],
+          "the ranks' global losses differ")
+    check(ranks[1]["metrics"] == {}, "rank 1 reported epoch metrics")
+    print(f"2 ranks ({ranks[0]['backend']}; "
+          + ", ".join(r["device"] for r in ranks)
+          + f") ran in {ranks_s:.1f} s (start, build cache load, 2 "
+          f"steps, test evaluation); step ms (loader to loader) rank 0 "
+          + ", ".join(f"{t:.1f}" for t in ranks[0]["wall_ms"])
+          + ", rank 1 " + ", ".join(f"{t:.1f}" for t in ranks[1]["wall_ms"])
+          + f"; peak device memory per rank "
+          + ", ".join(f"{r['peak_gib']:.2f}" for r in ranks) + " GiB")
+    # the one-process reference: B=2 holds rank 0's and rank 1's rows
+    cfg = trainer_config(work, num_samples=1, packed_decoder=True,
+                         lr=DDP_LR, model_path=str(work / "models_ddp_ref"))
+    ref = SubtypeTrainer(cfg)
+    ref.init_state()
+    ref.setup_checkpointing()
+    condition_heads(ref.model)
+    ref._train_step = make_reg_train_step(
+        ref.model, ref.optimizer, num_data_shards=DDP_WORLD,
+        compute_dtype=torch.bfloat16, device=DEV, target_size=TARGET)
+    keep_first_grads(ref, work / "ddp_grads_one.pt")
+    floor = bf16_grad_noise(ref)
+    losses, clock, _, _, _ = fit_logged(ref)
+    check(len(losses) == 2, f"{len(losses)} reference steps")
+    worst = 0.0
+    for i, (got, want) in enumerate(zip(ranks[0]["losses"], losses)):
+        rel = {k: abs(got[k] - v) / max(abs(v), 1e-12)
+               for k, v in want.items()}
+        worst = max(worst, max(rel.values()))
+        print(f"step {i}: 2 ranks loss {got['loss']:.6f}, one process "
+              f"{want['loss']:.6f}; relative |d| " + ", ".join(
+                  f"{k} {v:.2e}" for k, v in rel.items()))
+    grads = [torch.load(work / f"ddp_grads_{n}.pt", weights_only=True)
+             for n in ("ranks", "one")]
+    med, worst_g, top = grad_spread(grads[0], grads[1])
+    print(f"first step's gradients, ||d|| / ||g|| per tensor (not the "
+          f"decoder biases before a train BN): DDP's mean against one "
+          f"process median {med:.2e}, max {worst_g:.2e} ({top}); the one "
+          f"process's bf16 against its float32 (the noise floor) median "
+          f"{floor[0]:.2e}, max {floor[1]:.2e} ({floor[2]})")
+    check(med <= 2 * floor[0] and worst_g <= 2 * floor[1],
+          "phase 8 gradients beyond twice the bf16 noise floor")
+    check(worst <= DDP_LOSS_RTOL, f"phase 8 losses differ by {worst:.2e}")
+    exp = work / "models_ddp" / "subtyping_med3ddram"
+    ckpts = sorted(p.name for p in (exp / "checkpoints").iterdir())
+    check(ckpts == ["epoch_0000.pt"], f"checkpoints {ckpts}")
+    saved = torch.load(exp / "checkpoints" / ckpts[0], map_location="cpu",
+                       weights_only=True)["model"]
+    lr = cfg.lr
+    d = torch.cat([(saved[k].float() - v.detach().float().cpu()).abs()
+                   .reshape(-1) for k, v in ref.model.named_parameters()])
+    print(f"parameters after 2 steps: median {d.median().item() / lr:.4f} "
+          f"lr (<= {DDP_MEDIAN_LR:g}), max|d| {d.max().item() / lr:.3f} lr "
+          f"(not held: Adam's reach is 2 lr per step), "
+          f"{(d > 0.5 * lr).float().mean().item():.2e} of the "
+          f"{d.numel()} elements beyond 0.5 lr")
+    check(d.median().item() <= DDP_MEDIAN_LR * lr,
+          "phase 8 parameters: median")
+    phases = [json.loads(line)["phase"] for line in
+              (exp / "metrics.jsonl").read_text().splitlines()]
+    check(phases == ["train", "test"], f"metrics.jsonl phases {phases}")
+    best = ref.restore_best()
+    ref.evaluate("test", epoch=best)
+    rows = {}
+    for name, root in (("ranks", exp), ("one", cfg.exp_path)):
+        with open(root / "predicts" / "test" / "0_predicts.csv") as f:
+            rows[name] = f.read().split()
+    check(len(rows["ranks"]) == 5 and rows["ranks"] == rows["one"],
+          f"test CSVs {rows}")
+    want = forward_fractions(ref, "host")
+    frac = max(abs(a - b) for k, v in want.items()
+               for a, b in zip(ranks[0]["fractions"][str(k)], v))
+    print(f"test labels equal over {len(want)} scans (the gathered, "
+          f"de-duplicated CSV of rank 0); lesion fractions |d| {frac:.2e} "
+          f"(<= {FRAC_BOUND:g}); rank 0 alone wrote the checkpoint, "
+          f"the CSVs and metrics.jsonl ({phases})")
+    check(frac <= FRAC_BOUND, "phase 8 lesion fractions")
+    launches = Counter()
+    for r in ranks:
+        launches.update(r["launches"])
+    return launches
+
+
+def profile_window(trace, steps=(1, 2, 3)):
+    """(busy share, window ms, {kernel name: total ms}) of the device over
+    the steps ``steps`` (0-based) of a profiled epoch: the kernels whose
+    launch lies inside those steps' stage spans, the window from the first
+    of them to start to the last to end, and the union of every kernel's
+    interval inside it."""
+    events = trace["traceEvents"]
+    spans = {}
+    for e in events:
+        if e.get("cat") == "user_annotation":
+            spans.setdefault(e["name"], []).append(e)
+    first, last = spans["augment"][steps[0]], spans["optimizer"][steps[-1]]
+    t0, t1 = first["ts"], last["ts"] + last["dur"]
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("cat") == "cuda_runtime" and t0 <= e["ts"] <= t1
+                and "correlation" in e.get("args", {})}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    mine = [e for e in kernels if e["args"].get("correlation") in launched]
+    check(mine, "phase 8b: no device kernel in the profiled steps")
+    w0 = min(e["ts"] for e in mine)
+    w1 = max(e["ts"] + e["dur"] for e in mine)
+    busy, end = 0.0, w0
+    totals = Counter()
+    for e in sorted(kernels, key=lambda e: e["ts"]):
+        a, b = max(e["ts"], w0), min(e["ts"] + e["dur"], w1)
+        if b <= a:
+            continue
+        totals[e["name"]] += (b - a) / 1e3
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / (w1 - w0), (w1 - w0) / 1e3, totals
+
+
+def phase_profile(work: Path):
+    print("== phase 8b: --profile on phase 6's setup (med3ddram, bf16, B=2, "
+          "packed decoder, one epoch of 4 steps)")
+    cfg = trainer_config(work, num_samples=2, packed_decoder=True,
+                         profile=True, model_path=str(work / "models_prof"))
+    trainer = SubtypeTrainer(cfg)
+    trainer.init_state()
+    trainer.setup_checkpointing()
+    t0 = time.perf_counter()
+    losses, clock, launches, fit_s, _ = fit_logged(trainer)
+    n = check_steps(losses, clock, PER_TRAIN_STEP, "profiled")
+    check(n == 4, f"{n} profiled steps")
+    path = cfg.exp_path / "profile" / "rank0.json"
+    check(path.exists(), f"no trace at {path}")
+    trace = json.loads(path.read_text())
+    names = Counter(e["name"] for e in trace["traceEvents"]
+                    if e.get("cat") == "user_annotation")
+    for stage in ("augment", "forward", "backward", "optimizer"):
+        check(names[stage] == n, f"trace spans {dict(names)}")
+    share, window_ms, totals = profile_window(trace)
+    wall = clock.wall_ms()
+    print(f"trace {path.name}: {path.stat().st_size / 2 ** 20:.1f} MiB, "
+          f"{len(trace['traceEvents'])} events, spans "
+          + ", ".join(f"{k} {v}" for k, v in sorted(names.items()))
+          + f"; profiled step ms (loader to loader) "
+          + ", ".join(f"{t:.1f}" for t in wall)
+          + f"; fit with the trace export {time.perf_counter() - t0:.1f} s")
+    print(f"device busy share of steps 2-4: {share:.3f} of a "
+          f"{window_ms:.1f} ms window (the union of kernel intervals)")
+    print("top 10 device kernels of steps 2-4 (total ms): ")
+    for name, ms in totals.most_common(10):
+        print(f"  {ms:8.2f}  {name[:110]}")
+    return Counter(launches), {"busy": share, "window_ms": window_ms}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--masked-sums-only", action="store_true",
         help="run phases 1, 2 and 3d only (kernel F); copied into another "
              "checkout, this times that checkout's F by the same method")
-    if parser.parse_args().masked_sums_only:
+    parser.add_argument(
+        "--ddp-only", action="store_true",
+        help="run phases 1, 2 and 8 only; on a host with two or more "
+             "cards phase 8's ranks take a card each and run NCCL")
+    parser.add_argument("--ddp-rank", type=Path, default=None,
+                        help=argparse.SUPPRESS)   # phase 8's ranks
+    flags = parser.parse_args()
+    if flags.ddp_rank is not None:
+        ddp_rank(flags.ddp_rank)
+        return
+    if flags.masked_sums_only:
         phase_environment()
         phase_build()
         phase_masked_sums()
+        return
+    if flags.ddp_only:
+        phase_environment()
+        phase_build()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            work = Path(tmp) / "train"
+            work.mkdir()
+            write_archive(work)
+            phase_ddp(work)
         return
     card = phase_environment()
     phase_build()
@@ -2268,6 +2674,9 @@ def main():
         work.mkdir()
         launches, cls = phase_cls(work)
         main_launches.update(launches)
+        main_launches.update(phase_ddp(Path(tmp) / "train"))
+        launches, profiled = phase_profile(Path(tmp) / "train")
+        main_launches.update(launches)
     for mode in ("roll", *MODES):
         phase_train_small(mode)
     phase_train_small("roll", "med3dtiny")
@@ -2306,8 +2715,11 @@ def main():
           f"preprocess {pre_ms:.2f} ms per batch) against the host "
           f"pipeline's {pipes['host']['step_ms']:.1f} ms (loader wait "
           f"{statistics.median(pipes['host']['waits'][1:]):.1f} ms); "
+          f"device busy share of profiled steps 2-4 (8b) "
+          f"{profiled['busy']:.3f} of {profiled['window_ms']:.1f} ms; "
           f"launches are the main paths' "
-          f"(phases 4, 4c, 4d, 4e, 6, 6c, 6d, 6e, 6f, 7); kernel ms per B=2 "
+          f"(phases 4, 4c, 4d, 4e, 6, 6c, 6d, 6e, 6f, 7, 8, 8b); kernel ms "
+          f"per B=2 "
           f"bf16 dRAM forward (A, B, "
           f"C, E: default or quad path; the conv-mode ops: their mode's "
           f"forward), train step (D) or device-path batch (F, float32 "

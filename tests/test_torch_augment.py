@@ -102,3 +102,15 @@ def test_drawn_parameters_fall_in_the_jax_ranges():
     eps = d["eps"]
     assert eps.shape == (b, 4, 5, 6)
     assert abs(eps.mean().item()) < 0.02 and abs(eps.std().item() - 1) < 0.02
+
+
+def test_rows_draw_the_same_numbers_at_any_offset():
+    """Row i's draws depend on the seed and its global row index only: rows
+    [1, 3) drawn alone equal rows 1-2 of the batch of 4 (a rank's rows of a
+    global batch)."""
+    full = draw_augment_params(torch.Generator().manual_seed(7), 4, SHAPE)
+    part = draw_augment_params(torch.Generator().manual_seed(7), 2, SHAPE,
+                               first_row=1)
+    assert set(part) == set(full)
+    for k, v in part.items():
+        assert torch.equal(v, full[k][1:3]), k

@@ -132,9 +132,11 @@ def test_cli_trains_checkpoints_resumes_and_tests(archive, tmp_path):
     assert third["param_groups"][0]["lr"] == pytest.approx(epoch_lr(LR, 2))
 
 
-@pytest.mark.parametrize("flag", [["--remat", "all"], ["--mesh", "data=2"],
-                                  ["--ngpus", "2"], ["--noise_rng", "rbg"],
-                                  ["--multihost"]])
+@pytest.mark.parametrize("flag", [["--remat", "all"],
+                                  ["--mesh", "data=1,spatial=2"],
+                                  ["--mesh", "model=2"],
+                                  ["--noise_rng", "rbg"],
+                                  ["--mesh", "data=2,spatial=2"]])
 def test_cli_refuses_what_is_not_ported(archive, tmp_path, flag):
     argv = _argv(archive, tmp_path / "m", 1) + flag
     with pytest.raises(NotImplementedError, match="ROADMAP"):
