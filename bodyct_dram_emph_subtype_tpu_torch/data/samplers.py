@@ -93,12 +93,20 @@ class SubtypingStratifiedSampler:
             indices.append(int(rng.choice(self.cle_label_groups[label])))
         return indices
 
+    def epoch_seed(self) -> int:
+        """The seed of one epoch's list: the fixed ``seed``, else the wall
+        clock, as the reference reseeds every epoch
+        (data_sampler.py:62-64)."""
+        return self.seed if self.seed is not None else int(time.time())
+
+    def epoch_indices(self, seed: Optional[int] = None) -> List[int]:
+        """One epoch's resampled list, drawn from ``seed`` (default
+        :meth:`epoch_seed`)."""
+        seed = self.epoch_seed() if seed is None else seed
+        return self.get_indices(np.random.RandomState(seed))
+
     def __iter__(self):
-        # the reference reseeds from the wall clock every epoch
-        # (data_sampler.py:62-64); a fixed seed makes runs reproducible
-        seed = self.seed if self.seed is not None else int(time.time())
-        rng = np.random.RandomState(seed)
-        return iter(self.get_indices(rng))
+        return iter(self.epoch_indices())
 
     def __len__(self):
         return self.num_samples
@@ -106,13 +114,16 @@ class SubtypingStratifiedSampler:
 
 def shard_indices(indices: Sequence[int], num_shards: int, shard_id: int,
                   shuffle: bool = True, epoch: int = 0,
-                  drop_last: bool = False) -> np.ndarray:
+                  drop_last: bool = False, return_padding: bool = False):
     """DistributedSampler-equivalent sharding of an index list.
 
     shuffle=True permutes the *positions* with a per-epoch seed (what
     ``DistributedSamplerWrapper(shuffle=True)`` does via its inner
     ``DistributedSampler``), pads by wrap-around to a multiple of
     ``num_shards``, then deals ``positions[shard_id::num_shards]``.
+    ``return_padding``: also return, for each dealt entry, whether it is
+    wrap-around padding (its position in the padded list is at or past
+    ``len(indices)``), as ``(dealt, padding)``.
     """
     indices = np.asarray(list(indices))
     n = len(indices)
@@ -126,4 +137,7 @@ def shard_indices(indices: Sequence[int], num_shards: int, shard_id: int,
         pad = (-n) % num_shards
         if pad:
             order = np.concatenate([order, order[:pad]])
-    return indices[order[shard_id::num_shards]]
+    dealt = indices[order[shard_id::num_shards]]
+    if return_padding:
+        return dealt, np.arange(shard_id, len(order), num_shards) >= n
+    return dealt

@@ -25,10 +25,8 @@ from argparse import ArgumentParser
 from pathlib import Path
 from typing import Optional, Sequence
 
-from ..train.__main__ import (add_distributed_args, distributed,
-                              logging_to, parse_size)
-
-WEIGHT_FILES = (".ckpt", ".pth", ".pt", ".npz")
+from ..parallel.mesh import add_distributed_args, distributed
+from ..train.__main__ import logging_to, parse_size
 
 
 def build_parser() -> ArgumentParser:
@@ -74,6 +72,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
 
 def evaluate(args, device, rank: int) -> dict:
+    from ..models.torch_import import WEIGHT_FILES
     from ..train.loop import TEST_PHASE, SubtypeTrainer, TrainerConfig
     config = TrainerConfig(
         model_arch=args.model_arch, batch_size=args.batch_size,

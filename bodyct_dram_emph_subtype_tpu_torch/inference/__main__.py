@@ -7,14 +7,29 @@
 Same flags and defaults as the repository's root ``processor.py`` (the
 reference ``processor.py:55-74``); ``--host_preprocess`` takes the host
 path for every scan; ``--gated_frac`` sizes the device path's gated CT
-stream (a scan over it falls back alone to the host path).  The port runs
-on one CUDA device (``--device cpu`` on request); the flags of paths it
-has not ported yet are accepted and refused with a message when set to
-anything but their defaults.
+stream (a scan over it falls back alone to the host path).  ``--ckp``: a
+``.ckpt``/``.pth``/``.pt``/``.npz`` weights file, or the port trainer's
+checkpoint directory (its newest epoch); a path that does not exist gives
+random weights from ``--seed``.
+
+Data parallelism (``parallel/mesh.py``): ``--ngpus N`` or ``--mesh
+data=N`` starts N ranks on this host, one per card (neither flag: every
+visible card; ``--device cpu``: one process unless asked, gloo CPU ranks
+when asked); ``--multihost`` joins torchrun's process group (``torchrun
+--nproc_per_node N -m bodyct_dram_emph_subtype_tpu_torch.inference
+--multihost ...``).  ``--batch_size`` is per rank.  Each rank scores its
+shard of the scans and writes their heatmaps; rank 0 writes the JSONs and
+prints the results and the run's statistics.  A ``--mesh`` with a
+``spatial`` or ``model`` axis above 1 raises ``NotImplementedError``.  It
+runs on the CUDA card and refuses to start without one unless given
+``--device cpu``.
 """
+import json
 import logging
 import re
 from argparse import ArgumentParser
+
+from ..parallel.mesh import add_distributed_args, distributed
 
 
 def _size(value):
@@ -27,9 +42,12 @@ def _size(value):
 def main(argv=None):
     parser = ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--ngpus", "--nchips", dest="nchips", default=None,
-                        type=int, help="devices; the port runs on one")
+                        type=int, help="data-parallel ranks on this host, "
+                                       "one per card (default: every "
+                                       "visible card)")
     parser.add_argument("--mesh", default=None, type=str,
-                        help="not ported: the port runs on one device")
+                        help="data=N (the spatial and model axes are not "
+                             "ported)")
     parser.add_argument("--model_arch", default="med3ddram", type=str)
     parser.add_argument("--workers", default=0, type=int)
     parser.add_argument("--batch_size", default=2, type=int)
@@ -39,7 +57,8 @@ def main(argv=None):
                         default="/input/images/pulmonary-lobes/", type=str)
     parser.add_argument("--output_path", default="/output", type=str)
     parser.add_argument("--ckp", default="best.ckpt", type=str,
-                        help="reference torch .ckpt/.pth weights")
+                        help="a .ckpt/.pth/.pt/.npz weights file or the "
+                             "trainer's checkpoint directory")
     parser.add_argument("--compute_dtype", default="bfloat16",
                         choices=["float32", "bfloat16"])
     parser.add_argument("--device_preprocess", action="store_true",
@@ -65,27 +84,32 @@ def main(argv=None):
     parser.add_argument("--seed", default=0, type=int,
                         help="seed of the random weights used when --ckp "
                              "does not exist")
+    add_distributed_args(parser)
     parser.add_argument("--local_rank", default=0, type=int,
                         help="this argument is not used and should be ignored")
     args = parser.parse_args(argv)
-    if (args.nchips or 1) != 1 or args.mesh:
-        parser.error("the PyTorch port runs on one device (--nchips 1, no "
-                     "--mesh)")
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s [%(levelname)s] %(message)s")
-    from .processor import run_inference
-
-    results = run_inference(
-        scan_path=args.scan_path, lobe_path=args.lobe_path,
-        output_path=args.output_path, model_arch=args.model_arch,
-        ckp_path=args.ckp, target_size=args.target_size,
-        batch_size=args.batch_size, workers=args.workers,
-        compute_dtype=args.compute_dtype,
-        device_preprocess=not args.host_preprocess,
-        pad_shape=args.pad_shape, gated_frac=args.gated_frac,
-        device=args.device, seed=args.seed)
-    print("results:", results)
+    with distributed("bodyct_dram_emph_subtype_tpu_torch.inference", args,
+                     argv) as place:
+        if place is None:
+            return
+        device, rank = place
+        from .processor import run_inference
+        stats = {}
+        results = run_inference(
+            scan_path=args.scan_path, lobe_path=args.lobe_path,
+            output_path=args.output_path, model_arch=args.model_arch,
+            ckp_path=args.ckp, target_size=args.target_size,
+            batch_size=args.batch_size, workers=args.workers,
+            compute_dtype=args.compute_dtype,
+            device_preprocess=not args.host_preprocess,
+            pad_shape=args.pad_shape, gated_frac=args.gated_frac,
+            device=device, seed=args.seed, stats=stats)
+        if rank == 0:
+            print("results:", results)
+            print("stats:", json.dumps(stats))
 
 
 if __name__ == "__main__":

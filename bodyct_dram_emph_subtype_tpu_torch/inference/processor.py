@@ -56,6 +56,10 @@ exceed the stream's budget.  A ``target_size`` whose voxel count breaks
 the bit-packing, or a ``pad_shape`` whose upload buffer has no gate block
 (``pick_gate_block`` returns 0), sends the whole run to the host path with
 a warning.  Results keep the cohort (glob) order.
+
+In a process group of W ranks each rank runs this pipeline over its
+shard of the scans and writes their heatmaps; the results are gathered
+and rank 0 writes the JSONs (``run_inference``).
 """
 from __future__ import annotations
 
@@ -78,14 +82,18 @@ from ..data.host_preprocess import (depth_indices_np, preprocess_sample,
                                     resize_nearest_np, window_moments_np)
 from ..data.loader import DataLoader
 from ..data.mha import write_arrays_to_mha
+from ..data.samplers import shard_indices
 from ..models.registry import get_model_by_name
-from ..models.torch_import import load_reference_checkpoint
+from ..models.torch_import import load_weights_file
+from ..ops import cuda_build
 from ..ops.packing import (WINDOW_LO, gate_blocks_np, gated_budget,
                            pack10_gated_host, pick_gate_block,
                            unpack10_gated_device)
 from ..ops.pallas_kernels import masked_sums
 from ..ops.preprocess import fused_preprocess_preselected
 from ..ops.resize import resize_linear_matmul_transpose
+from ..parallel.mesh import gather_objects, rank, world_size
+from ..train.checkpoint import CheckpointManager
 from ..train.steps import make_predict_step
 from ..utils.device import entry_device
 from ..utils.viz import windowing
@@ -291,11 +299,14 @@ def _predict(model, packed, gate_bits, lung_bits, in_sizes, moments,
 class _PostprocessPipeline:
     """Single consumer thread for the host postprocess (half->full
     upsample, un-crop, MHA/JSON writes), overlapping the next batch's
-    device work.  Errors re-raise in :meth:`submit` / :meth:`close`."""
+    device work.  Errors re-raise in :meth:`submit` / :meth:`close`.
+    ``owned``: the uids this rank finalizes."""
 
     def __init__(self, finalize: Callable[[str, Dict[str, Any]],
-                                          Dict[str, Any]]):
+                                          Dict[str, Any]],
+                 owned: Set[str]):
         self._finalize = finalize
+        self._owned = owned
         self._seen = set()
         self.results: List[Dict[str, Any]] = []
         self._q: "queue.Queue" = queue.Queue(maxsize=2)
@@ -316,8 +327,9 @@ class _PostprocessPipeline:
 
     def claim(self, uid: str) -> bool:
         """Worker-thread context: True the first time ``uid`` is seen, so
-        wrap-around duplicates are dropped before any host work."""
-        if uid in self._seen:
+        wrap-around duplicates are dropped before any host work; False for
+        a uid that another rank finalizes."""
+        if uid in self._seen or uid not in self._owned:
             return False
         self._seen.add(uid)
         return True
@@ -483,16 +495,28 @@ def build_model(model_arch: str = "med3ddram",
                 ckp_path: Optional[str] = "best.ckpt",
                 seed: int = 0,
                 compute_dtype: str = "float32") -> torch.nn.Module:
-    """An eval model with a reference checkpoint's weights when
-    ``ckp_path`` exists, else random weights drawn from ``seed``.  The
-    bfloat16 model has the packed decoder, as the JAX processor builds it
-    (processor.py:555-556)."""
+    """An eval model with the weights of ``ckp_path`` (JAX
+    ``processor.py:583-597``): a directory restores the newest
+    ``epoch_<n>.pt`` of the port trainer's checkpoints ("train ->
+    deploy", ``<model_path>/subtyping_<arch>/checkpoints``); a
+    ``.ckpt``/``.pth``/``.pt``/``.npz`` file loads greedily
+    (``load_weights_file``; any other suffix raises ``ValueError``); a
+    path that does not exist, or none, gives random weights drawn from
+    ``seed``, with a warning.  The bfloat16 model has the packed decoder,
+    as the JAX processor builds it (processor.py:555-556)."""
     model = get_model_by_name(
         model_arch, generator=torch.Generator().manual_seed(seed),
         packed_decoder=compute_dtype == "bfloat16")
-    if ckp_path and Path(ckp_path).is_file():
-        report = load_reference_checkpoint(model, ckp_path)
-        logger.info("loaded weights from %s: %s", ckp_path, report)
+    path = Path(ckp_path) if ckp_path else None
+    if path is not None and path.is_dir():
+        # is_dir first: CheckpointManager creates a directory it is given
+        payload = CheckpointManager(path).restore()
+        model.load_state_dict(payload["model"])
+        logger.info("restored the checkpoint of epoch %d from %s",
+                    payload["epoch"], path)
+    elif path is not None and path.exists():
+        report = load_weights_file(model, path)
+        logger.info("loaded weights from %s: %s", path, report)
     else:
         logger.warning("no checkpoint found at %s — random weights "
                        "(seed %d)", ckp_path, seed)
@@ -500,18 +524,18 @@ def build_model(model_arch: str = "med3ddram",
 
 
 def _device_path(model, dataset: SubtypingInference, make_loader,
-                 fetcher: _FetchStage, target_size, pad_shape,
-                 gated_frac: float, dtype: torch.dtype, device: torch.device,
-                 stats: Dict[str, Any]) -> List[int]:
-    """Every scan through the device program (``_predict``), batch by
-    batch, uploaded as the block-gated 10-bit stream (:func:`gate_plan`);
-    returns the dataset indices whose crops exceeded ``pad_shape``
-    in-plane or whose live blocks exceeded the budget, for the host
-    path."""
+                 subset: Sequence[int], fetcher: _FetchStage, target_size,
+                 pad_shape, gated_frac: float, dtype: torch.dtype,
+                 device: torch.device, stats: Dict[str, Any]) -> List[int]:
+    """The scans of ``subset`` through the device program (``_predict``),
+    batch by batch, uploaded as the block-gated 10-bit stream
+    (:func:`gate_plan`); returns the dataset indices whose crops exceeded
+    ``pad_shape`` in-plane or whose live blocks exceeded the budget, for
+    the host path."""
     n_vox_t = int(np.prod(target_size))
     up_shape, block, budget = gate_plan(target_size, pad_shape, gated_frac)
     view = _RawPredictView(dataset, up_shape, target_size, budget, block)
-    for batch in make_loader(view, range(len(view))):
+    for batch in make_loader(view, subset):
         t0 = time.perf_counter()
         packed, gate_bits = pack10_gated_host(
             batch["image_raw"], batch["gate_blocks"], budget, block)
@@ -600,8 +624,27 @@ def run_inference(scan_path: str, lobe_path: str, output_path: str,
     card: from the batch's first event, which may wait behind the previous
     batch, through host pinning and the copies to the device, then each
     device stage, then the copies back; the host path has no device
-    preprocess); ``postprocess`` is host time of the postprocess thread."""
+    preprocess); ``postprocess`` is host time of the postprocess thread.
+
+    Data parallelism (JAX ``nchips``/``mesh``, ``processor.py:605-676``):
+    in a process group of W ranks (``parallel/mesh.py::init_distributed``,
+    as the CLI's ``--ngpus``/``--mesh data=N``/``--multihost`` set it up)
+    rank r takes ``shard_indices`` of the sorted scan list (padded by
+    wrap-around to a multiple of W, positions r::W) and finalizes only the
+    scans it was dealt that are not that padding, so every scan's heatmaps
+    are written once; its own oversized scans fall back to the host path
+    on that rank.  After every rank's postprocess has ended the results
+    are gathered: every rank returns them merged (one per uid, in glob
+    order) and rank 0 alone writes the three JSONs.  Each rank builds the
+    model the same way (no weights are broadcast), so ranks may share a
+    card over gloo.  ``stats`` then holds this rank's counts (``scans``:
+    the scans it owns, ``finalized``: the uids it wrote, ``rank``,
+    ``world``, ``launches``: the CUDA kernel launches of this run), and
+    ``ranks``: every rank's ``rank``, ``pipeline_s``, ``scans``,
+    ``batches``, ``host_scans``, ``finalized``, ``fractions`` and
+    ``launches``, in rank order (one entry in a world of one)."""
     device = entry_device(device)
+    world, this_rank = world_size(), rank()
     dtype = {"float32": torch.float32,
              "bfloat16": torch.bfloat16}[compute_dtype]
     target_size = tuple(int(s) for s in target_size)
@@ -636,6 +679,14 @@ def run_inference(scan_path: str, lobe_path: str, output_path: str,
         model = build_model(model_arch, ckp_path, seed, compute_dtype)
     model = model.to(device).eval()
 
+    def uid(i: int) -> str:
+        return Path(dataset.scan_files[i]).stem
+
+    dealt, padding = shard_indices(range(len(dataset)), world, this_rank,
+                                   shuffle=False, return_padding=True)
+    mine = [int(i) for i in dealt]
+    owned = {int(i) for i, pad in zip(dealt, padding) if not pad}
+
     def make_loader(view, subset: Sequence[int]) -> DataLoader:
         indices = list(subset)
         if len(indices) % batch_size:
@@ -647,25 +698,29 @@ def run_inference(scan_path: str, lobe_path: str, output_path: str,
 
     if stats is None:
         stats = {}
-    stats.update(batches=0, scans=len(dataset), host_scans=[], fractions={},
+    stats.update(batches=0, scans=len(owned), host_scans=[], fractions={},
                  upload_bytes=0, pack_ms=0.0,
                  stage_ms={k: 0.0 for k in (*STAGES, "postprocess")})
 
+    launched = cuda_build.launches()
     t0 = time.perf_counter()
     pipeline = _PostprocessPipeline(functools.partial(
-        _finalize_scan, dataset=dataset, out_cle=out_cle, out_pse=out_pse))
+        _finalize_scan, dataset=dataset, out_cle=out_cle, out_pse=out_pse),
+        owned={uid(i) for i in owned})
     try:
         fetcher = _FetchStage(pipeline)
         try:
             with torch.inference_mode():
-                host_subset = list(range(len(dataset)))
+                host_subset = mine
                 if device_preprocess:
-                    host_subset = _device_path(
-                        model, dataset, make_loader, fetcher, target_size,
-                        pad_shape, gated_frac, dtype, device, stats)
+                    # an oversized scan falls back on its owner alone
+                    host_subset = [i for i in _device_path(
+                        model, dataset, make_loader, mine, fetcher,
+                        target_size, pad_shape, gated_frac, dtype, device,
+                        stats) if i in owned]
                 if host_subset:
-                    stats["host_scans"] = [Path(dataset.scan_files[i]).stem
-                                           for i in host_subset]
+                    stats["host_scans"] = [uid(i) for i in host_subset
+                                           if i in owned]
                     _host_path(model, make_loader(
                         _PredictView(dataset, target_size), host_subset),
                         fetcher, dtype, device, stats)
@@ -674,11 +729,27 @@ def run_inference(scan_path: str, lobe_path: str, output_path: str,
     finally:
         results = pipeline.close()
     stats["pipeline_s"] = time.perf_counter() - t0
+    stats.update(rank=this_rank, world=world,
+                 finalized=[r["entity"] for r in results],
+                 launches={k: v - launched[k]
+                           for k, v in cuda_build.launches().items()})
 
-    # the host-path scans were emitted after the device-path cohort:
-    # restore the dataset (glob) order so results[0] stays the first scan
-    order = {Path(f).stem: i for i, f in enumerate(dataset.scan_files)}
-    results.sort(key=lambda r: order.get(r["entity"], len(order)))
+    # every rank's files are written: gather the results, one per uid, and
+    # restore the dataset (glob) order (the host-path scans were emitted
+    # after the device-path cohort) so results[0] stays the first scan
+    parts = gather_objects((results, {k: stats[k] for k in (
+        "rank", "pipeline_s", "scans", "batches", "host_scans", "finalized",
+        "fractions", "launches")}))
+    stats["ranks"] = [part for _, part in parts]
+    merged = {}
+    for part, _ in parts:
+        for r in part:
+            merged.setdefault(r["entity"], r)
+    order = {uid(i): i for i in range(len(dataset))}
+    results = sorted(merged.values(),
+                     key=lambda r: order.get(r["entity"], len(order)))
+    if this_rank != 0:
+        return results
     with open(cle_json, "w") as f:
         f.write(json.dumps({
             "score": int(float(results[0]["metrics"]["cle_severity_score"])),

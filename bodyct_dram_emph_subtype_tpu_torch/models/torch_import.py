@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import logging
 import re
+from pathlib import Path
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -153,21 +154,48 @@ def state_dict_from_jax(variables: Mapping[str, Any]
     return out
 
 
-def load_reference_checkpoint(model: torch.nn.Module, path: str
-                              ) -> Dict[str, int]:
-    """Greedily load a reference ``.ckpt``/``.pth`` into ``model``:
-    ``model.`` prefixes stripped, unknown and shape-mismatched entries
-    skipped with a warning, missing ones reported.  The file is a pickle
-    written by the reference trainer (``torch.load`` with
+WEIGHT_FILES = (".ckpt", ".pth", ".pt", ".npz")
+
+
+def read_torch_state_dict(path) -> Mapping[str, Any]:
+    """The state dict of a torch weights file: a reference ``.ckpt``/
+    ``.pth`` (its Lightning ``state_dict`` entry) or the port trainer's
+    ``epoch_<n>.pt`` (its ``model`` entry, ``train/checkpoint.py``).  The
+    file is a pickle written by the reference trainer (``torch.load`` with
     ``weights_only=False``, as the reference itself loads it): load only
-    checkpoints from a trusted source.  The port trainer's own checkpoint
-    (``train/checkpoint.py``) loads its ``model`` entry."""
+    checkpoints from a trusted source."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(ckpt, dict) and "state_dict" in ckpt:
         ckpt = ckpt["state_dict"]
     elif isinstance(ckpt, dict) and isinstance(ckpt.get("model"), Mapping):
         ckpt = ckpt["model"]        # the port trainer's ``epoch_<n>.pt``
-    return load_state_dict_greedy(model, ckpt)
+    return ckpt
+
+
+def load_reference_checkpoint(model: torch.nn.Module, path: str
+                              ) -> Dict[str, int]:
+    """Greedily load a reference ``.ckpt``/``.pth`` (or the port trainer's
+    ``.pt``, :func:`read_torch_state_dict`) into ``model``: ``model.``
+    prefixes stripped, unknown and shape-mismatched entries skipped with a
+    warning, missing ones reported."""
+    return load_state_dict_greedy(model, read_torch_state_dict(path))
+
+
+def load_weights_file(model: torch.nn.Module, path) -> Dict[str, int]:
+    """Greedily load a weights file into ``model`` by its suffix (JAX
+    ``train/checkpoint.py::greedy_restore_variables``): ``.ckpt``/
+    ``.pth``/``.pt`` through :func:`load_reference_checkpoint`, ``.npz``
+    (flat arrays under the reference's keys) through
+    :func:`load_state_dict_greedy`; any other suffix raises
+    ``ValueError``."""
+    suffix = Path(path).suffix
+    if suffix == ".npz":
+        with np.load(path) as z:
+            return load_state_dict_greedy(model, {k: z[k] for k in z.files})
+    if suffix in WEIGHT_FILES:
+        return load_reference_checkpoint(model, str(path))
+    raise ValueError(f"unsupported weights file: {path} (expected one of "
+                     f"{', '.join(WEIGHT_FILES)})")
 
 
 def load_state_dict_greedy(model: torch.nn.Module,

@@ -23,13 +23,17 @@ under ``torch.distributed``:
   batch W*B with ``num_data_shards=W``;
 - :func:`cat_all_gather` is the epoch-end gather (JAX
   ``multihost_utils.process_allgather``), over a gloo group, since NCCL
-  cannot gather numpy arrays.
+  cannot gather numpy arrays; :func:`gather_objects` under it also
+  collects the deployment processor's per-rank results;
+- :func:`distributed` runs a CLI's body as one rank: the training,
+  evaluation and deployment CLIs share it and ``--multihost``.
 
 Only the 'data' axis is ported: a mesh with ``spatial`` or ``model`` above
 1 raises ``NotImplementedError`` (ROADMAP section 1).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import logging
@@ -39,6 +43,7 @@ import socket
 import subprocess
 import sys
 import time
+from argparse import ArgumentParser
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
@@ -191,6 +196,39 @@ def init_distributed(device: Optional[str] = None) -> torch.device:
     logger.info("rank %d of %d on %s (%s)", rank(), world_size(), dev,
                 backend)
     return dev
+
+
+def add_distributed_args(p: ArgumentParser) -> None:
+    p.add_argument("--multihost", action="store_true",
+                   help="join the process group of torchrun's environment "
+                        "(RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, "
+                        "MASTER_PORT)")
+
+
+@contextlib.contextmanager
+def distributed(module: str, args, argv):
+    """Run the block as this process's part of data parallelism (the
+    training, evaluation and deployment CLIs): yields ``(device, rank)``,
+    or ``None`` after the ranks that ``--ngpus`` / ``--mesh`` ask for have
+    run ``module`` as child processes (raises ``SystemExit`` with their
+    exit code if one failed)."""
+    if not args.multihost:
+        world = data_width(getattr(args, "mesh", None), args.nchips,
+                           args.device)
+        if world > 1:
+            code = spawn_ranks(module, list(sys.argv[1:] if argv is None
+                                            else argv), world)
+            if code:
+                raise SystemExit(code)
+            yield None
+            return
+        yield args.device, 0
+        return
+    device = init_distributed(args.device)
+    try:
+        yield str(device), rank()
+    finally:
+        shutdown()
 
 
 def shutdown() -> None:

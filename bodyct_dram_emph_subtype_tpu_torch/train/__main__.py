@@ -43,10 +43,11 @@ runs on the CUDA card and refuses to start without one unless given
 """
 import contextlib
 import logging
-import sys
 from argparse import ArgumentParser
 from pathlib import Path
 from typing import Optional, Sequence
+
+from ..parallel.mesh import add_distributed_args, distributed  # noqa: F401
 
 
 def parse_size(text: str):
@@ -74,40 +75,6 @@ def logging_to(exp_path: Path, to_file: bool = True):
         for handler in handlers:
             root.removeHandler(handler)
             handler.close()
-
-
-def add_distributed_args(p: ArgumentParser) -> None:
-    p.add_argument("--multihost", action="store_true",
-                   help="join the process group of torchrun's environment "
-                        "(RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, "
-                        "MASTER_PORT)")
-
-
-@contextlib.contextmanager
-def distributed(module: str, args, argv):
-    """Run the block as this process's part of data parallelism: yields
-    ``(device, rank)``, or ``None`` after the ranks that ``--ngpus`` /
-    ``--mesh`` ask for have run ``module`` as child processes (raises
-    ``SystemExit`` with their exit code if one failed)."""
-    from ..parallel.mesh import (data_width, init_distributed, rank,
-                                 shutdown, spawn_ranks)
-    if not args.multihost:
-        world = data_width(getattr(args, "mesh", None), args.nchips,
-                           args.device)
-        if world > 1:
-            code = spawn_ranks(module, list(sys.argv[1:] if argv is None
-                                            else argv), world)
-            if code:
-                raise SystemExit(code)
-            yield None
-            return
-        yield args.device, 0
-        return
-    device = init_distributed(args.device)
-    try:
-        yield str(device), rank()
-    finally:
-        shutdown()
 
 
 def build_parser() -> ArgumentParser:

@@ -68,11 +68,10 @@ from ..data.loader import (DataLoader, DeviceUploader, default_collate,
 from ..data.samplers import SubtypingStratifiedSampler, shard_indices
 from ..models.registry import (PLAIN_FACTORIES, get_model_by_name,
                                resolve_arch)
-from ..models.torch_import import (load_reference_checkpoint,
-                                   load_state_dict_greedy)
+from ..models.torch_import import WEIGHT_FILES, load_weights_file
 from ..ops.resize import resize_linear
 from ..parallel.mesh import (barrier, cat_all_gather, check_replicas_equal,
-                             data_width, rank, world_size)
+                             data_width, gather_objects, rank, world_size)
 from ..utils.device import entry_device
 from ..utils.metrics_eval import classification_report
 from ..utils.viz import (draw_mask_tile_singleview_heatmap,
@@ -195,6 +194,18 @@ def reweight_classes(current, y_true, y_pred) -> np.ndarray:
     return new / new.sum() if new.sum() > 0 else current
 
 
+def resampled_list(sampler: SubtypingStratifiedSampler) -> List[int]:
+    """One epoch's resampled list, the same on every rank.  Its seed is
+    the sampler's fixed seed, else the wall clock of rank 0, which every
+    rank takes (over the gloo group): ranks whose clocks read different
+    seconds would otherwise deal their shards from different lists (JAX
+    deals one list per host to its data axis, ``loop.py:306-310``)."""
+    seed = sampler.epoch_seed()
+    if sampler.seed is None and world_size() > 1:
+        seed = gather_objects(seed)[0]
+    return sampler.epoch_indices(seed)
+
+
 def step_seed(seed: int, epoch: int, step: int) -> int:
     """The augmentation generator's seed of one train step."""
     return int(np.random.SeedSequence([seed, epoch, step])
@@ -294,14 +305,8 @@ class SubtypeTrainer:
         if self.model is None or self.ckpt is None:
             raise RuntimeError("call init_state() and setup_checkpointing() "
                                "first")
-        if ckp is not None and Path(ckp).suffix in (".ckpt", ".pth", ".pt",
-                                                    ".npz"):
-            if Path(ckp).suffix == ".npz":
-                with np.load(ckp) as z:
-                    report = load_state_dict_greedy(
-                        self.model, {k: z[k] for k in z.files})
-            else:
-                report = load_reference_checkpoint(self.model, ckp)
+        if ckp is not None and Path(ckp).suffix in WEIGHT_FILES:
+            report = load_weights_file(self.model, ckp)
             logger.info("greedy weights reload from %s: %s", ckp, report)
             return True
         latest = self.ckpt.latest_epoch()
@@ -357,7 +362,7 @@ class SubtypeTrainer:
         collate = (pinned_collate if self.device.type == "cuda"
                    else default_collate)
         if phase == TRAIN_PHASE:
-            indices = shard_indices(list(iter(self.sampler)), self.world,
+            indices = shard_indices(resampled_list(self.sampler), self.world,
                                     self.rank, shuffle=True, epoch=epoch)
             return DataLoader(view, indices=indices,
                               batch_size=cfg.batch_size,

@@ -76,7 +76,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    launches (no B or C) in every train step, the eval launch counts, a
    checkpoint that ``try_resume`` reloads; ms per step, volumes/s, peak
    device memory and one step split into loader wait, augment, forward,
-   backward and optimizer (CUDA events);
+   backward and optimizer (CUDA events); then "train -> deploy":
+   ``build_model(ckp_path=<the trainer's checkpoints directory>)``
+   restores the newest epoch, and its lesion fractions on phase 4's scan0
+   are bit-equal to ``run_inference`` of the trainer's restored model;
 6b. one med3ddramtiny train step (float32, augment off) on the card with
    its kernels against the CPU plain path, same weights and batch: loss
    |d| <= 1e-4 relative; each gradient ||d||/||g|| <= 5e-3 and max|d| <=
@@ -125,6 +128,22 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    launches per batch as phase 4 (2 device-path batches + 1 host), and
    every scan's fractions and heatmaps hold phase 4d's bf16 bounds
    against phase 4's device path;
+4f. the processor as two ranks: phase 4's weights saved as ``.npz``, then
+   the CLI (``python -m bodyct_dram_emph_subtype_tpu_torch.inference
+   --ngpus 2 --ckp <npz> --compute_dtype bfloat16 --batch_size 2``) in a
+   child process, whose ranks ``spawn_ranks`` starts (on one card they
+   share ``cuda:0`` over gloo; on a host with two or more cards they take
+   ``cuda:0`` and ``cuda:1`` over NCCL); rank 0 prints the run's
+   statistics, which hold every rank's.  Three scans on two ranks: rank 0
+   scores scan0 and scan2, rank 1 scan1 and its padding, scan0, which it
+   does not write.  Checks: the output contract, ``results.json``'s order
+   and the score JSONs equal to phase 4's, the ranks' finalized scans the
+   three uids with no overlap, fractions and heatmaps in phase 4d's bf16
+   bounds against phase 4 (the measured max printed), each rank's
+   launches phase 4's per-batch counts times its batches.  Printed: the
+   launch's wall (process start-up, the library load and the model build
+   inside it), each rank's ``pipeline_s``, scans/s by the slowest rank's
+   pipeline and by the wall, the host's cores;
 6c. two trainer steps in conv mode ``pallas`` (med3ddram, bf16, B=2, the
    unpacked decoder, phase 6's archive): 31 kernel-A launches in every
    step, no D, B or C, finite losses; step ms and peak device memory;
@@ -214,9 +233,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    bound); the CSVs, ``metrics.jsonl`` (one line per phase) and the one
    checkpoint written once, by rank 0.  This proves the path; it is not a
    timing (gloo stages the 64,789,730 float32 gradients, 259 MB, through
-   the host each step).  ``--ddp-only`` runs phases 1, 2 and 8 alone;
-   on a host with two or more cards the ranks take cards 0 and 1 and
-   NCCL, with the same checks;
+   the host each step).  ``--ddp-only`` runs phases 1, 2, 4, 4f and 8
+   alone; on a host with two or more cards the ranks of 4f and 8 take
+   cards 0 and 1 and NCCL, with the same checks;
 8b. ``--profile``: phase 6's setup (B=2, packed decoder, one epoch of 4
    steps) with ``profile=True``: the Chrome trace
    ``profile/rank0.json`` exists and holds each step's stage spans; the
@@ -1612,6 +1631,87 @@ def phase_gated_overflow(model, scan_dir: Path, lobe_dir: Path, work: Path,
     return Counter(launches)
 
 
+def printed_stats(text: str):
+    """The ``stats:`` JSON that the processor CLI's rank 0 printed."""
+    lines = [ln for ln in text.splitlines() if ln.startswith("stats: ")]
+    check(len(lines) == 1, f"{len(lines)} stats lines")
+    return json.loads(lines[0].removeprefix("stats: "))
+
+
+def phase_processor_ranks(model, scan_dir: Path, lobe_dir: Path, work: Path,
+                          default_fractions):
+    print("== phase 4f: the processor as two ranks (the CLI with --ngpus 2, "
+          "--ckp <phase 4's weights as .npz>, med3ddram, bf16, batch 2 per "
+          "rank)")
+    npz = work / "weights_4f.npz"
+    np.savez(npz, **{k: v.detach().cpu().numpy()
+                     for k, v in model.state_dict().items()})
+    out = work / "out_ranks"
+    argv = [sys.executable, "-m", "bodyct_dram_emph_subtype_tpu_torch."
+            "inference", "--scan_path", str(scan_dir), "--lobe_path",
+            str(lobe_dir), "--output_path", str(out), "--model_arch",
+            "med3ddram", "--ckp", str(npz), "--compute_dtype", "bfloat16",
+            "--batch_size", str(B), "--workers", "2", "--target_size",
+            ",".join(map(str, TARGET)), "--ngpus", "2"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True, timeout=600,
+                          cwd=Path(__file__).resolve().parent)
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        print(proc.stdout[-4000:], proc.stderr[-6000:])
+    check(proc.returncode == 0, f"phase 4f exited {proc.returncode}")
+    stats = printed_stats(proc.stdout)
+    check(proc.stdout.count("results: ") == 1, "results printed twice")
+    ranks = stats["ranks"]
+    uids = [f"scan{i}" for i in range(3)]
+    results = json.loads((out / "results.json").read_text())
+    shape = read_mha(scan_dir / "scan0.mha").array.shape
+    check_outputs(out, results, uids, shape)
+    check([r["entity"] for r in results] == [r["entity"] for r in json.loads(
+        (work / "out" / "results.json").read_text())], "results.json order")
+    for fname in ("centrilobular-emphysema-score.json",
+                  "araseptal-emphysema-score.json"):
+        check((out / fname).read_text() == (work / "out" / fname)
+              .read_text(), f"phase 4f {fname} differs from phase 4's")
+    finalized = [u for r in ranks for u in r["finalized"]]
+    check(sorted(finalized) == uids, f"finalized {finalized}")
+    fractions = {u: f for r in ranks for u, f in r["fractions"].items()}
+    frac = max(abs(a - b) for u in uids for a, b in
+               zip(fractions[u], default_fractions[u]))
+    heat = {u: heatmap_delta(out, work / "out", u) for u in uids}
+    worst = max(h[2] for hs in heat.values() for h in hs.values())
+    check(frac < FRAC_BOUND, f"phase 4f fractions |d| {frac}")
+    check(all(h[0] < 1.5e-2 and h[1] < 5e-3 for hs in heat.values()
+              for h in hs.values()), f"phase 4f heatmaps {heat}")
+    launches = Counter()
+    for r in ranks:
+        want = {k: PER_BATCH.get(k, 0) * r["batches"] for k in r["launches"]}
+        check(r["batches"] > 0 and r["launches"] == want,
+              f"rank {r['rank']}: launches {r['launches']} for "
+              f"{r['batches']} batches")
+        launches.update(r["launches"])
+    slowest = max(r["pipeline_s"] for r in ranks)
+    print(f"2 ranks ({stats['world']} in the group; {torch.cuda.device_count()}"
+          f" visible card(s), {os.cpu_count()} host cores): rank 0 finalized "
+          f"{ranks[0]['finalized']}, rank 1 {ranks[1]['finalized']} (and ran "
+          f"scan0 as its padding); per rank " + "; ".join(
+              f"rank {r['rank']}: {r['batches']} batch(es), pipeline "
+              f"{r['pipeline_s']:.2f} s, launches " + ", ".join(
+                  f"{k} {v}" for k, v in r["launches"].items() if v)
+              for r in ranks))
+    print(f"against phase 4 (one process): results.json's order and the "
+          f"score JSONs equal; fractions max|d| {frac:.3e} (< {FRAC_BOUND:g}); heatmaps "
+          f"max {worst} counts, " + "; ".join(
+              f"{u} {n} mean|d| {h[0]:.2e} flips {h[1]:.2e}"
+              for u, hs in heat.items() for n, h in hs.items()))
+    rate = 3 / slowest
+    print(f"phase 4f: 3 scans, launch wall {wall:.2f} s ({3 / wall:.3f} "
+          f"scans/s; process start-up, the kernel library load and the "
+          f"model build lie inside it), slowest rank's pipeline "
+          f"{slowest:.2f} s ({rate:.3f} scans/s)")
+    return launches, rate, wall
+
+
 def write_archive(root: Path, shape=(180, 320, 320), fmt="npz",
                   shapes=None):
     """Synthetic training archive of 4 scans: int16 CT with a lung
@@ -1772,7 +1872,39 @@ def augment_costs(seed: int, steps: int):
             lambda: augment_batch(images, masks, masks, on, out))}
 
 
-def phase_train(work: Path):
+def train_to_deploy(trainer, scan_dir: Path, lobe_dir: Path, work: Path):
+    """The processor given the trainer's checkpoint directory restores its
+    newest epoch: lesion fractions bit-equal to ``run_inference`` of the
+    trainer's restored model on one scan.  Returns the launches."""
+    ckpts = trainer.config.exp_path / "checkpoints"
+    newest = trainer.ckpt.latest_epoch()
+    deployed = build_model("med3ddram", ckp_path=str(ckpts), seed=1,
+                           compute_dtype="bfloat16")
+    saved = trainer.ckpt.restore(newest)["model"]
+    check(all(torch.equal(v, saved[k])
+              for k, v in deployed.state_dict().items()),
+          "build_model did not restore the newest epoch")
+    fractions, launches = {}, Counter()
+    for name, m in (("deployed", deployed), ("trainer", trainer.model)):
+        st = {}
+        cuda_build.reset_launches()
+        run_inference(str(scan_dir), str(lobe_dir),
+                      str(work / f"out_{name}"), target_size=TARGET,
+                      compute_dtype="bfloat16", batch_size=B, workers=2,
+                      model=m, device=DEV, stats=st)
+        torch.cuda.synchronize()
+        launches.update(cuda_build.launches())
+        fractions[name] = st["fractions"]["scan0"]
+    check(fractions["deployed"] == fractions["trainer"],
+          f"train -> deploy fractions {fractions}")
+    print(f"train -> deploy: build_model(ckp_path=<checkpoints>) restored "
+          f"epoch {newest}; scan0's fractions {fractions['deployed']} "
+          f"bit-equal to run_inference of the trainer's model")
+    del deployed
+    return launches
+
+
+def phase_train(work: Path, deploy_scans=None):
     print("== phase 6: training path (trainer, med3ddram, bf16, B=2, "
           "packed decoder, augmentation on)")
     t0 = time.perf_counter()
@@ -1833,7 +1965,9 @@ def phase_train(work: Path):
           "resumed weights differ from the checkpoint")
     print("checkpoint epoch_0000.pt written; try_resume reloads weights, "
           "Adam state and epoch 1")
-    total = {k: train_launches[k] + eval_launches[k] for k in train_launches}
+    total = Counter(train_launches) + Counter(eval_launches)
+    if deploy_scans is not None:
+        total += train_to_deploy(trainer, *deploy_scans, work)
     return total, {"step_ms": med, "volumes_s": B / med * 1e3,
                    "peak_gib": peak / 2 ** 30, "split": split}
 
@@ -2609,8 +2743,8 @@ def main():
              "checkout, this times that checkout's F by the same method")
     parser.add_argument(
         "--ddp-only", action="store_true",
-        help="run phases 1, 2 and 8 only; on a host with two or more "
-             "cards phase 8's ranks take a card each and run NCCL")
+        help="run phases 1, 2, 4, 4f and 8 only; on a host with two or "
+             "more cards the ranks of 4f and 8 take a card each (NCCL)")
     parser.add_argument("--ddp-rank", type=Path, default=None,
                         help=argparse.SUPPRESS)   # phase 8's ranks
     flags = parser.parse_args()
@@ -2626,6 +2760,12 @@ def main():
         phase_environment()
         phase_build()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            model, scan_dir, lobe_dir, _, _, _, _, fractions, _ = \
+                phase_main_path(Path(tmp))
+            phase_processor_ranks(model, scan_dir, lobe_dir, Path(tmp),
+                                  fractions)
+            del model
+            torch.cuda.empty_cache()
             work = Path(tmp) / "train"
             work.mkdir()
             write_archive(work)
@@ -2653,11 +2793,15 @@ def main():
         main_launches.update(launches)
         main_launches.update(phase_gated_overflow(model, scan_dir, lobe_dir,
                                                   Path(tmp), fractions))
+        launches, ranks_rate, ranks_wall = phase_processor_ranks(
+            model, scan_dir, lobe_dir, Path(tmp), fractions)
+        main_launches.update(launches)
         del model
         torch.cuda.empty_cache()
         work = Path(tmp) / "train"
         work.mkdir()
-        train_launches, train = phase_train(work)
+        train_launches, train = phase_train(
+            work, (Path(tmp) / "ct1", Path(tmp) / "lobes1"))
         main_launches.update(train_launches)
         launches, ops, pallas_train = phase_train_pallas(work)
         main_launches.update(launches)
@@ -2697,7 +2841,9 @@ def main():
           f"{gated['bytes_per_scan'] / 1e6:.2f} MB per scan, parent "
           f"{gated['parent_bytes_per_scan'] / 1e6:.2f}; packing "
           f"{gated['pack_ms']:.1f} ms per batch), host path "
-          f"{host_rate:.3f} scans/s; training "
+          f"{host_rate:.3f} scans/s, two ranks on {torch.cuda.device_count()}"
+          f" card(s) (4f) {ranks_rate:.3f} scans/s by the slowest rank's "
+          f"pipeline ({3 / ranks_wall:.3f} by the launch's wall); training "
           f"{train['step_ms']:.1f} ms per B=2 bf16 step "
           f"({train['volumes_s']:.3f} volumes/s, peak "
           f"{train['peak_gib']:.2f} GiB); pallas-mode training "
@@ -2718,7 +2864,8 @@ def main():
           f"device busy share of profiled steps 2-4 (8b) "
           f"{profiled['busy']:.3f} of {profiled['window_ms']:.1f} ms; "
           f"launches are the main paths' "
-          f"(phases 4, 4c, 4d, 4e, 6, 6c, 6d, 6e, 6f, 7, 8, 8b); kernel ms "
+          f"(phases 4, 4c, 4d, 4e, 4f summed over its ranks, 6 with its "
+          f"train -> deploy check, 6c, 6d, 6e, 6f, 7, 8, 8b); kernel ms "
           f"per B=2 "
           f"bf16 dRAM forward (A, B, "
           f"C, E: default or quad path; the conv-mode ops: their mode's "

@@ -119,17 +119,21 @@ print(json.dumps({"mods": mods,
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert len(out["mods"]) >= 20
-    # the classification, device-pipeline and data-parallel slices'
-    # modules are among them
+    # the classification, device-pipeline, data-parallel and tools
+    # slices' modules are among them
     port = "bodyct_dram_emph_subtype_tpu_torch."
     assert {port + m for m in ("evaluate", "evaluate.__main__",
                                "models.resnet3d", "models.registry",
                                "data.datasets", "train.steps",
                                "train.loop", "ops.packing", "ops.preprocess",
                                "data.loader", "data.host_preprocess",
-                               "inference.processor", "parallel",
-                               "parallel.mesh", "utils.viz",
-                               "ops.resize")} <= set(out["mods"])
+                               "inference.processor", "inference.__main__",
+                               "parallel", "parallel.mesh", "utils.viz",
+                               "ops.resize", "tools", "tools.build_cache",
+                               "tools.convert_checkpoint",
+                               "tools.compute_label_statistics",
+                               "tools.compute_computation_complexity")
+            } <= set(out["mods"])
     assert out["jax"] == [] and out["ref"] == []
     assert out["same"] and out["launches"] == 0 and not out["built"]
 

@@ -59,9 +59,9 @@ def _shared_weights():
     return jax.tree.map(np.asarray, dict(init(jax.random.PRNGKey(0), x, x)))
 
 
-def _assert_matches_jax(tres, jres, tout, jout):
+def _assert_matches_jax(tres, jres, tout, jout, want=("case1", "case2")):
     uids = [r["entity"] for r in jres]
-    assert [r["entity"] for r in tres] == uids == ["case1", "case2"]
+    assert [r["entity"] for r in tres] == uids == list(want)
     for t, j in zip(tres, jres):
         assert set(t["metrics"]) == set(j["metrics"])
         for name in ("cle", "pse"):
@@ -73,7 +73,8 @@ def _assert_matches_jax(tres, jres, tout, jout):
     for fname in SCORE_JSONS:
         assert json.loads((tout / fname).read_text()) == \
             json.loads((jout / fname).read_text())
-    assert len(json.loads((tout / "results.json").read_text())) == 2
+    assert [r["entity"] for r in
+            json.loads((tout / "results.json").read_text())] == uids
     for sub in HEATMAPS:
         for uid in uids:
             t = read_mha(tout / "images" / sub / f"{uid}.mha")
@@ -208,8 +209,10 @@ def test_cli_writes_the_output_contract(cases):
             {"score", "percentage"}
     for sub in HEATMAPS:
         assert (out / "images" / sub / "case2.mha").exists()
-    with pytest.raises(SystemExit):
-        main(["--nchips", "2"])
+    # a spatial axis is not ported (the data axis is,
+    # tests/test_torch_processor_ddp.py)
+    with pytest.raises(NotImplementedError, match="spatial"):
+        main(["--mesh", "data=1,spatial=2", "--device", "cpu"])
 
 
 def test_cli_host_preprocess(cases):
@@ -260,3 +263,101 @@ def test_entry_points_need_a_card_unless_asked(cases, monkeypatch, entry):
                           target_size=(16, 24, 32))
         else:
             SubtypeTrainer(TrainerConfig(model_arch="med3ddramtiny"))
+
+
+# --------------------------------------------- --ckp: what build_model loads
+def _port_results(root, scans, lobes, name, **kw):
+    """The port's ``run_inference`` of ``med3ddramtiny`` into
+    ``root/name``; returns (results, fractions, output directory)."""
+    stats, out = {}, root / name
+    res = run_inference(str(scans), str(lobes), str(out),
+                        model_arch="med3ddramtiny", target_size=TARGET,
+                        batch_size=2, workers=1, device="cpu", stats=stats,
+                        **kw)
+    return res, stats["fractions"], out
+
+
+def _same_outputs(a, b):
+    """Two port runs wrote the same results and the same heatmaps, bit for
+    bit."""
+    assert a[0] == b[0] and a[1] == b[1]
+    for sub in HEATMAPS:
+        for uid in a[1]:
+            x = read_mha(a[2] / "images" / sub / f"{uid}.mha").array
+            y = read_mha(b[2] / "images" / sub / f"{uid}.mha").array
+            assert np.array_equal(x, y)
+
+
+def test_ckp_directory_restores_the_newest_epoch(cases, caplog):
+    """A checkpoint directory of the port trainer (two epochs) restores its
+    newest epoch ("train -> deploy", JAX ``processor.py:583-590``): the
+    results equal those of that epoch's model passed in."""
+    from bodyct_dram_emph_subtype_tpu_torch.train.checkpoint import \
+        CheckpointManager
+    from bodyct_dram_emph_subtype_tpu_torch.train.state import \
+        make_optimizer as torch_optimizer
+    root, scans, lobes = cases
+    mgr = CheckpointManager(root / "checkpoints")
+    models = [get_model_by_name("med3ddramtiny",
+                                generator=torch.Generator().manual_seed(s))
+              for s in (1, 2)]
+    for epoch, model in enumerate(models):
+        mgr.save(epoch, model, torch_optimizer(model.parameters(), 1e-4),
+                 np.ones(6) / 6, np.ones(3) / 3)
+    with caplog.at_level(logging.INFO,
+                         logger="bodyct_dram_emph_subtype_tpu_torch"):
+        got = _port_results(root, scans, lobes, "from_dir",
+                            ckp_path=str(root / "checkpoints"))
+    assert any("epoch 1" in r.getMessage() for r in caplog.records)
+    _same_outputs(got, _port_results(root, scans, lobes, "newest",
+                                     model=models[1].eval()))
+    assert got[1] != _port_results(root, scans, lobes, "oldest",
+                                   model=models[0].eval())[1]
+
+
+def test_ckp_npz_matches_jax_processor(cases):
+    """A ``.npz`` of ``state_dict_from_jax(variables)`` loads greedily
+    (JAX ``train/checkpoint.py:72-79``): the results equal the JAX
+    processor's with those variables, in the bounds of
+    :func:`_assert_matches_jax`."""
+    root, scans, lobes = cases
+    variables = _shared_weights()
+    npz = root / "weights.npz"
+    np.savez(npz, **{k: v.numpy() for k, v in
+                     state_dict_from_jax(variables).items()})
+    jout = root / "jax_out"
+    jres = jax_run_inference(
+        str(scans), str(lobes), str(jout), model_arch="med3ddramtiny",
+        ckp_path=None, target_size=TARGET, batch_size=1, workers=1,
+        nchips=1, state=TrainState.create(variables, make_optimizer()))
+    tres, _, tout = _port_results(root, scans, lobes, "torch_out",
+                                  ckp_path=str(npz))
+    _assert_matches_jax(tres, jres, tout, jout)
+
+
+def test_ckp_unknown_suffix_raises(tmp_path):
+    """An existing weights file of another suffix raises ``ValueError``, as
+    JAX ``greedy_restore_variables`` does."""
+    from bodyct_dram_emph_subtype_tpu_torch.inference import build_model
+    path = tmp_path / "weights.txt"
+    path.write_text("not weights")
+    with pytest.raises(ValueError, match="unsupported weights file"):
+        build_model("med3ddramtiny", ckp_path=str(path))
+
+
+@pytest.mark.parametrize("name", ["missing.ckpt", "missing_checkpoints"])
+def test_ckp_missing_path_warns_and_uses_the_seed(tmp_path, caplog, name):
+    """A path that does not exist (a file or a directory name) warns and
+    gives the seed's random weights; no directory is created."""
+    from bodyct_dram_emph_subtype_tpu_torch.inference import build_model
+    path = tmp_path / name
+    with caplog.at_level(logging.WARNING,
+                         logger="bodyct_dram_emph_subtype_tpu_torch"):
+        model = build_model("med3ddramtiny", ckp_path=str(path), seed=3)
+    assert any("random weights (seed 3)" in r.getMessage()
+               for r in caplog.records)
+    assert not path.exists()
+    want = get_model_by_name("med3ddramtiny",
+                             generator=torch.Generator().manual_seed(3))
+    got = model.state_dict()
+    assert all(torch.equal(got[k], v) for k, v in want.state_dict().items())
