@@ -39,16 +39,25 @@ rounds its output, and the residual add runs in the compute dtype
 (blocks.py:544): the JAX package's unpacked rounding chain.  Eval
 BatchNorm is folded to a per-channel float32 ``mul``/``add`` (eps 1e-5,
 ``packed.py:355-361``); training BatchNorm is :func:`batch_norm_train`.
+
+Activation checkpointing (:func:`checkpointed`, the counterpart of flax
+``nn.remat``) recomputes a module's training forward in the backward
+pass; :func:`batch_norm_train` updates the running statistics in the
+first forward only, as flax applies a rematted ``batch_stats`` update
+once.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
+import threading
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..ops.flat_conv import flat_conv3d, supports_flat_conv
 from ..ops.pallas_conv import pallas_conv3d, supports_pallas_conv3d
@@ -162,6 +171,37 @@ def conv3d_apply(x: torch.Tensor, conv: nn.Conv3d,
     return y
 
 
+# set while a checkpointed forward is recomputed in the backward pass; the
+# backward of CUDA tensors runs on autograd's device threads, so the flag
+# is the recomputing thread's own
+_REMAT = threading.local()
+
+
+@contextlib.contextmanager
+def _recomputing():
+    prev = getattr(_REMAT, "active", False)
+    _REMAT.active = True
+    try:
+        yield
+    finally:
+        _REMAT.active = prev
+
+
+def _remat_contexts():
+    return contextlib.nullcontext(), _recomputing()
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are dropped after the forward and recomputed when the
+    backward needs them.  The recompute runs with :func:`batch_norm_train`'s
+    running-statistics update off, so each BatchNorm updates once per
+    forward.  The blocks draw no random numbers, so no RNG state is kept."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, context_fn=_remat_contexts,
+        preserve_rng_state=False)
+
+
 def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm3d) -> torch.Tensor:
     """Train-mode BatchNorm over (B, D, H, W) of NDHWC ``x``, as the JAX
     package's ``_PackedBN`` and flax ``nn.BatchNorm`` compute it: float32
@@ -177,7 +217,10 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm3d) -> torch.Tensor:
     SyncBatchNorm): the float32 sums of ``x`` and ``x^2`` and the voxel
     count go through the differentiable :func:`~..parallel.mesh.all_sum`
     (the identity in a world of one), so every rank updates its running
-    statistics with the same values."""
+    statistics with the same values.  Inside a recompute of
+    :func:`checkpointed` the moments (and their ``all_sum``, which every
+    rank issues again in the same order) are computed anew, but the running
+    statistics are left alone: the first forward updated them."""
     xf = x.float()
     dims = tuple(range(x.ndim - 1))
     c = xf.shape[-1]
@@ -186,10 +229,11 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm3d) -> torch.Tensor:
     sums = all_sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims), count]))
     mean = sums[:c] / sums[-1]
     var = sums[c:2 * c] / sums[-1] - mean * mean
-    with torch.no_grad():
-        bn.running_mean.mul_(1.0 - bn.momentum).add_(bn.momentum * mean)
-        bn.running_var.mul_(1.0 - bn.momentum).add_(bn.momentum * var)
-        bn.num_batches_tracked += 1
+    if not getattr(_REMAT, "active", False):
+        with torch.no_grad():
+            bn.running_mean.mul_(1.0 - bn.momentum).add_(bn.momentum * mean)
+            bn.running_var.mul_(1.0 - bn.momentum).add_(bn.momentum * var)
+            bn.num_batches_tracked += 1
     mul = bn.weight.float() * torch.rsqrt(var + bn.eps)
     add = bn.bias.float() - mean * mul
     return (xf * mul + add).to(x.dtype)

@@ -1,9 +1,9 @@
-"""The quad stem switch: the eval stem + pool on kernel E.
+"""The quad and pair stem switches of the eval forward.
 
 Counterpart of ``bodyct_dram_emph_subtype_tpu/models/experimental.py``
-(the quad stem; the pair stem, which runs only kernel 3, is not ported)
-and of the gate ``stem_quad_supported`` with the size floor
-``_ROLL_MIN_ELEMS`` it reads (``models/packed.py:139-160, 295``).
+(``set_quad_stem_enable``, ``use_quad_stem``, ``set_pair_stem_enable``,
+``use_pair_stem``) and of the gate ``stem_quad_supported`` with the size
+floor ``_ROLL_MIN_ELEMS`` it reads (``models/packed.py:139-160, 295``).
 
 Off by default, as in the JAX package.  :func:`set_quad_stem_enable`
 switches it on; :func:`use_quad_stem` then takes it in an eval forward
@@ -13,6 +13,16 @@ in one launch of kernel E (``ops/stem_kernel.py::fused_stem_pool``) where
 ``supports_fused_stem`` holds, else cuDNN conv, BN, ReLU and kernel C
 (``experimental.py:146-150``), and layer1 then runs as ``fused_layer1``.
 The quad-lane stem layout is a TPU layout: the port's stem stays NDHWC.
+
+The pair stem, off by default too (:func:`set_pair_stem_enable`), is a
+TPU layout of the same route: the JAX stem conv writes the W-pair packed
+activation that its pool + layer1 kernel reads (``ops/layer1_kernel.py``
+``:370`` into ``:388``).  :func:`use_pair_stem` copies JAX's gate
+(``experimental.py:68-89``) but for the VMEM budget of
+``supports_fused_pool_layer``, which the port's kernels do not have; the
+gate reads no size floor.  Where it holds, the port's forward takes its
+default route (stem conv, BN, ReLU, ``fused_pool_layer1``: kernel C and
+2 x A per block), with the same launches and the same numbers.
 """
 from __future__ import annotations
 
@@ -23,6 +33,7 @@ import torch
 from ..ops.maxpool_kernel import supports_maxpool_quads
 
 _QUAD_STEM_ENABLE = False
+_PAIR_STEM_ENABLE = False
 
 # The JAX package's floor (per-sample packed elements) for its kernel
 # paths; here only the quad-stem gate reads it.  Tests patch it to 0 for
@@ -34,6 +45,12 @@ def set_quad_stem_enable(on: bool) -> None:
     """Switch the quad stem -> pool path on or off."""
     global _QUAD_STEM_ENABLE
     _QUAD_STEM_ENABLE = bool(on)
+
+
+def set_pair_stem_enable(on: bool) -> None:
+    """Switch the pair stem -> fused pool + layer1 path on or off."""
+    global _PAIR_STEM_ENABLE
+    _PAIR_STEM_ENABLE = bool(on)
 
 
 def stem_quad_supported(shape: Sequence[int], features: int = 64,
@@ -63,3 +80,21 @@ def use_quad_stem(x_shape: Sequence[int], train: bool, packed_decoder: bool,
     if not _QUAD_STEM_ENABLE:
         return False
     return stem_quad_supported(tuple(x_shape), 64, dtype.itemsize)
+
+
+def use_pair_stem(x_shape: Sequence[int], train: bool, packed_decoder: bool,
+                  dtype: torch.dtype, n_blocks: int) -> bool:
+    """Gate of the pair stem path: eval, conv mode ``roll``, a packed
+    decoder, the switch on, a 1-channel 5-D input with ``d % 4``, ``h % 4``
+    and ``w % 8`` all 0.  ``dtype`` and ``n_blocks`` (layer1's depth) fed
+    JAX's VMEM budget, which is not ported; they are kept so that the call
+    reads as JAX's."""
+    from . import blocks
+    if train or not packed_decoder or blocks.get_conv3d_mode() != "roll":
+        return False
+    if not _PAIR_STEM_ENABLE:
+        return False
+    if len(x_shape) != 5 or x_shape[-1] != 1:
+        return False
+    _, d, h, w, _ = x_shape
+    return not (d % 4 or h % 4 or w % 8)

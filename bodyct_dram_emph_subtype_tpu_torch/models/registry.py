@@ -145,6 +145,7 @@ def resolve_arch(name: str, conf_dir: Optional[str] = None
 def get_model_by_name(name: str, conf_dir: Optional[str] = None,
                       **overrides):
     """Build a model by arch name (:func:`resolve_arch`); ``overrides``
-    go to the model's constructor (e.g. ``generator=``)."""
+    go to the model's constructor (e.g. ``generator=``,
+    ``packed_decoder=``, ``remat=``, as the JAX registry passes them)."""
     target, kwargs = resolve_arch(name, conf_dir)
     return _FACTORIES[target](**{**kwargs, **overrides})

@@ -88,8 +88,27 @@ on kernel A through ``blocks.conv3d_apply`` — :func:`mode_conv_sites`
 lists them.  There the packed decoder's convs go to cuDNN
 (``packed.py:318-328``).
 
-The JAX package's W-pair packing, space-to-depth stem, pair stem and
-``remat_scopes`` are TPU layouts and knobs and are not ported.
+With the pair stem on (``set_pair_stem_enable``; eval, ``roll``,
+``packed_decoder``) the route is the default one: the JAX pair stem
+changes only the TPU layout of the stem activation that its pool + layer1
+kernel reads (``ops/layer1_kernel.py:370`` into ``:388``), so in the
+logical layout it is the stem conv, BN, ReLU and ``fused_pool_layer1``
+(C + 2 x A per block).  For a Bottleneck arch JAX's pair path still builds
+a BasicBlock layer1 and fails on the model's variables; the port raises
+``ValueError``.
+
+Activation checkpointing (``remat``, :func:`remat_scopes`; JAX
+``resnet3d.py:40-53, 187-196, 285-311``): in the training forward each
+residual block of a named layer, and for ``decoder`` the us1 and us2
+stages (not us3, not the stem), run under ``blocks.checkpointed``, one
+block or stage at a time.  The backward recomputes their forward, so the
+``roll_conv_packed`` sites inside them launch kernel A once more
+(:func:`train_remat_sites`); values, gradients and the BatchNorm
+running statistics are those of the run without it.  The eval forward
+ignores ``remat``.
+
+The JAX package's W-pair packing and space-to-depth stem are TPU layouts
+and are not ported.
 """
 from __future__ import annotations
 
@@ -105,11 +124,27 @@ from ..ops.roll_conv import roll_conv_heads_sigmoid
 from ..ops.stem_kernel import fused_stem_pool, supports_fused_stem
 from . import blocks
 from .blocks import (BasicBlock, UpsampleConvBlock, affine, batch_norm_train,
-                     bn_affine, conv3d_ndhwc, decoder_kernels, decoder_stage,
-                     init_weights, kernel_dhwio, max_pool3d_ndhwc,
-                     mode_conv_op)
-from .experimental import (set_quad_stem_enable,  # noqa: F401 (re-export)
+                     bn_affine, checkpointed, conv3d_ndhwc, decoder_kernels,
+                     decoder_stage, init_weights, kernel_dhwio,
+                     max_pool3d_ndhwc, mode_conv_op)
+from .experimental import (set_pair_stem_enable,  # noqa: F401 (re-export)
+                           set_quad_stem_enable, use_pair_stem,
                            use_quad_stem)
+
+REMAT_SCOPES = frozenset({"layer1", "layer2", "layer3", "layer4", "decoder"})
+
+
+def remat_scopes(remat) -> frozenset:
+    """The scopes that ``remat`` checkpoints (JAX ``resnet3d.py:40-53``):
+    ``True``/``"all"`` every residual layer and the decoder;
+    ``False``/``None``/``"none"`` nothing; otherwise a comma list of
+    scopes from {layer1..layer4, decoder}, stripped."""
+    if remat is True or remat == "all":
+        return REMAT_SCOPES
+    if not remat or remat == "none":
+        return frozenset()
+    return frozenset(s.strip() for s in str(remat).split(",") if s.strip())
+
 
 def train_roll_sites(layers: Sequence[int] = (3, 4, 6, 3),
                      block: Type[nn.Module] = BasicBlock,
@@ -149,11 +184,24 @@ def train_roll_site_shapes(batch: int, size: Sequence[int],
             for name, div, c, o in sites]
 
 
-def train_roll_launches(sites: Sequence[Tuple[str, int, int, int]]
-                        ) -> Dict[str, int]:
+def train_remat_sites(sites: Sequence[Tuple[str, int, int, int]], remat
+                      ) -> Tuple[Tuple[str, int, int, int], ...]:
+    """The ``sites`` whose forward the backward recomputes under
+    ``remat``: those in a checkpointed layer, and us1/us2's for
+    ``decoder`` (us3 is never checkpointed)."""
+    scopes = remat_scopes(remat)
+    return tuple(s for s in sites if s[0].split(".")[0] in scopes
+                 or ("decoder" in scopes and s[0].startswith(("us1.",
+                                                               "us2."))))
+
+
+def train_roll_launches(sites: Sequence[Tuple[str, int, int, int]],
+                        remat=None) -> Dict[str, int]:
     """Kernel launches of one train step's ``roll_conv_packed`` sites: A
-    forward + A dgrad and one D each."""
-    return {"conv3x3x3_affine": 2 * len(sites),
+    forward + A dgrad and one D each, and one more A forward per site that
+    ``remat`` recomputes (:func:`train_remat_sites`)."""
+    return {"conv3x3x3_affine": (2 * len(sites)
+                                 + len(train_remat_sites(sites, remat))),
             "conv3x3x3_wgrad": len(sites)}
 
 
@@ -282,9 +330,10 @@ class _Trunk(nn.Module):
     activations, NDHWC in ``x.dtype``."""
 
     def __init__(self, block: Type[nn.Module], layers: Sequence[int],
-                 shortcut_type: str = "A"):
+                 shortcut_type: str = "A", remat=False):
         super().__init__()
         self.block = block
+        self.remat = remat
         self.conv1 = nn.Conv3d(1, 64, 7, 2, 3, bias=False)
         self.bn1 = nn.BatchNorm3d(64)
         self.inplanes = 64
@@ -306,16 +355,36 @@ class _Trunk(nn.Module):
                  for _ in range(1, blocks)]
         return nn.Sequential(*mods)
 
+    def _layer(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """Layer ``name`` on ``x``; in training, each block checkpointed
+        where ``remat`` names the layer."""
+        layer = getattr(self, name)
+        if not (self.training and name in remat_scopes(self.remat)):
+            return layer(x)
+        for blk in layer:
+            x = checkpointed(blk, x)
+        return x
+
     def trunk(self, x: torch.Tensor, packed_decoder: bool = False):
-        """``packed_decoder``: the Seg model's, which gates the quad stem
-        (``ResNet`` passes none, as the JAX model gives its trunk no quad
-        stem)."""
+        """``packed_decoder``: the Seg model's, which gates the quad and
+        pair stems (``ResNet`` passes none, as the JAX model gives its
+        trunk neither)."""
         if self.training or blocks.get_conv3d_mode() != "roll":
             bn = batch_norm_train if self.training else affine
             stem = torch.relu(bn(conv3d_ndhwc(x, self.conv1), self.bn1))
-            x1 = self.layer1(max_pool3d_ndhwc(stem))
-            return stem, x1, self.layer4(self.layer3(self.layer2(x1)))
-        if use_quad_stem(x.shape, False, packed_decoder, x.dtype):
+            x1 = self._layer("layer1", max_pool3d_ndhwc(stem))
+            x4 = self._layer("layer4", self._layer(
+                "layer3", self._layer("layer2", x1)))
+            return stem, x1, x4
+        quad = use_quad_stem(x.shape, False, packed_decoder, x.dtype)
+        if (not quad and self.block is not BasicBlock
+                and use_pair_stem(x.shape, False, packed_decoder, x.dtype,
+                                  len(self.layer1))):
+            raise ValueError(
+                "the pair stem fuses the pool with a BasicBlock layer1; "
+                "a Bottleneck arch cannot take it (the JAX pair path fails "
+                "on its variables)")
+        if quad:
             stem, pooled = self._quad_stem(x)
             x1 = (fused_layer1(pooled, *_stack_params(self.layer1))
                   if self.block is BasicBlock else self.layer1(pooled))
@@ -370,8 +439,9 @@ class _SegNet(_Trunk):
     def __init__(self, block: Type[nn.Module], layers: Sequence[int],
                  heads: Sequence[int],
                  generator: Optional[torch.Generator] = None,
-                 packed_decoder: bool = False, shortcut_type: str = "A"):
-        super().__init__(block, layers, shortcut_type)
+                 packed_decoder: bool = False, shortcut_type: str = "A",
+                 remat=False):
+        super().__init__(block, layers, shortcut_type, remat)
         self.packed_decoder = packed_decoder
         exp = block.expansion
         self.us1 = UpsampleConvBlock(512 * exp + 64 * exp, (64, 64))
@@ -386,10 +456,15 @@ class _SegNet(_Trunk):
         self.eval()
 
     def _up2(self, x: torch.Tensor) -> torch.Tensor:
-        """The trunk, us1 and us2: the decoder's 64-channel output."""
+        """The trunk, us1 and us2: the decoder's 64-channel output.  In
+        training us1 and us2 are checkpointed where ``remat`` names the
+        decoder."""
         stem, x1, x4 = self.trunk(x, self.packed_decoder)
-        xup1 = self.us1(x4, x1, self.packed_decoder)
-        return self.us2(xup1, stem, self.packed_decoder)
+        run = (checkpointed if self.training
+               and "decoder" in remat_scopes(self.remat)
+               else lambda stage, *args: stage(*args))
+        xup1 = run(self.us1, x4, x1, self.packed_decoder)
+        return run(self.us2, xup1, stem, self.packed_decoder)
 
     def _us3(self, xup2: torch.Tensor) -> torch.Tensor:
         conv, bn, _ = self.us3
@@ -410,9 +485,10 @@ class ResNetSegReg(_SegNet):
     def __init__(self, block: Type[nn.Module] = BasicBlock,
                  layers: Sequence[int] = (3, 4, 6, 3),
                  generator: Optional[torch.Generator] = None,
-                 packed_decoder: bool = False, shortcut_type: str = "A"):
+                 packed_decoder: bool = False, shortcut_type: str = "A",
+                 remat=False):
         super().__init__(block, layers, (1, 1), generator, packed_decoder,
-                         shortcut_type)
+                         shortcut_type, remat)
 
     def _decoder_heads(self, xup2: torch.Tensor) -> torch.Tensor:
         if self.training or not decoder_kernels(self.packed_decoder):
@@ -454,9 +530,10 @@ class ResNetSegCls(_SegNet):
                  layers: Sequence[int] = (3, 4, 6, 3),
                  n_classes: Sequence[int] = (6, 3),
                  generator: Optional[torch.Generator] = None,
-                 packed_decoder: bool = False, shortcut_type: str = "A"):
+                 packed_decoder: bool = False, shortcut_type: str = "A",
+                 remat=False):
         super().__init__(block, layers, tuple(n_classes), generator,
-                         packed_decoder, shortcut_type)
+                         packed_decoder, shortcut_type, remat)
 
     def forward(self, x: torch.Tensor, lungs: Optional[torch.Tensor] = None
                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
@@ -476,8 +553,8 @@ class ResNet(_Trunk):
     def __init__(self, block: Type[nn.Module] = BasicBlock,
                  layers: Sequence[int] = (3, 4, 6, 3), n_classes: int = 6,
                  generator: Optional[torch.Generator] = None,
-                 shortcut_type: str = "A"):
-        super().__init__(block, layers, shortcut_type)
+                 shortcut_type: str = "A", remat=False):
+        super().__init__(block, layers, shortcut_type, remat)
         self.fc = nn.Conv3d(512 * block.expansion, n_classes, 1, bias=True)
         if generator is None:
             generator = torch.Generator().manual_seed(0)

@@ -1,9 +1,14 @@
-"""Host (numpy) morphology and bounding-box crops for the deployment path.
+"""Binary morphology and bounding boxes: the device ops and the host
+(numpy) ones the deployment path uses.
 
-Numpy copies of ``bodyct_dram_emph_subtype_tpu/ops/morphology.py``'s
-``binary_dilate_np`` and ``find_crops_np``: the reference dilates the lung
-twice with the full 3x3x3 structure (``dataset.py:68-71``) and crops to
-the lung bounding box padded by ``border`` millimetres (``utils.py:53-63``).
+Counterpart of ``bodyct_dram_emph_subtype_tpu/ops/morphology.py``: the
+reference dilates the lung twice with the full 3x3x3 structure
+(``dataset.py:68-71``) and crops to the lung bounding box padded by
+``border`` millimetres (``utils.py:53-63``).  On a tensor, a dilation with
+the full box structure is one max-pool and the bounding box two
+reductions per axis (:func:`binary_dilate`, :func:`mask_bbox`,
+:func:`pad_bbox_mm`); ``binary_dilate_np`` and ``find_crops_np`` are the
+host copies.
 """
 from __future__ import annotations
 
@@ -11,6 +16,51 @@ import math
 from typing import Sequence, Tuple
 
 import numpy as np
+import torch
+import torch.nn.functional as F
+
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+
+
+def binary_dilate(mask: torch.Tensor, iterations: int = 1) -> torch.Tensor:
+    """Binary dilation of a 1-3-D ``mask`` with the full 3^ndim structure,
+    ``iterations`` times (``scipy.ndimage.binary_dilation(mask,
+    generate_binary_structure(ndim, ndim), iterations)``): one max-pool
+    with a (2N+1)-box window.  Returns bool."""
+    if iterations <= 0:
+        return mask
+    x = mask.to(torch.float32)[None, None]
+    out = _MAX_POOL[mask.ndim](x, 2 * iterations + 1, 1, iterations)
+    return out[0, 0] > 0.5
+
+
+def mask_bbox(mask: torch.Tensor) -> torch.Tensor:
+    """(ndim, 2) int32 [start, stop) bounds of the nonzero region of
+    ``mask`` (``scipy.ndimage.find_objects`` of one object; an empty mask
+    gives [n, 0) on each axis)."""
+    m = mask > 0
+    bounds = []
+    for axis in range(m.ndim):
+        line = m.any(dim=tuple(a for a in range(m.ndim) if a != axis)) \
+            if m.ndim > 1 else m
+        n = line.shape[0]
+        idx = torch.arange(n, dtype=torch.int32, device=m.device)
+        bounds.append(torch.stack([
+            torch.where(line, idx, n).min(),
+            torch.where(line, idx + 1, 0).max()]))
+    return torch.stack(bounds).to(torch.int32)
+
+
+def pad_bbox_mm(bbox: torch.Tensor, shape: Sequence[int],
+                spacing: Sequence[float], border_mm: float) -> torch.Tensor:
+    """``bbox`` padded by ``ceil(border_mm / spacing)`` voxels per axis and
+    clipped to ``shape`` (``find_crops``, ``utils.py:56-59``)."""
+    pads = torch.tensor([int(math.ceil(border_mm / float(sp)))
+                         for sp in spacing], dtype=torch.int32,
+                        device=bbox.device)
+    limit = torch.tensor(list(shape), dtype=torch.int32, device=bbox.device)
+    return torch.stack([torch.clamp_min(bbox[:, 0] - pads, 0),
+                        torch.minimum(bbox[:, 1] + pads, limit)], dim=-1)
 
 
 def binary_dilate_np(mask: np.ndarray, iterations: int = 1) -> np.ndarray:

@@ -1,10 +1,11 @@
-"""Torch-parity resampling, the parts the deployment path and the
-trainer's heatmap tiles need.
+"""Torch-parity resampling: the deployment path's, the trainer's heatmap
+tiles' and the transform framework's.
 
 Counterpart of ``bodyct_dram_emph_subtype_tpu/ops/resize.py``.  Linear
 resizes are dense interpolation-matrix products (two taps per output
-column, float64-derived tables), or for the tiles the JAX package's
-gather-and-lerp ``resize_linear``; nearest and depth-linspace selections
+column, float64-derived tables), or for the tiles and the ``Interpolate``
+transform (:func:`interpolate_volume`) the JAX package's gather-and-lerp
+``resize_linear``; nearest and depth-linspace selections
 use EXACT integer index math.  ``F.interpolate`` is deliberately not
 used: float index floors flip at exact-integer crossings and moved whole
 mask rows and CT slices in the reference before its round 4 (DEVNOTES
@@ -12,7 +13,7 @@ mask rows and CT slices in the reference before its round 4 (DEVNOTES
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -156,9 +157,14 @@ def nearest_gather_1d(x: torch.Tensor, out_size: int, axis: int,
 
 
 def resize_nearest(x: torch.Tensor, out_sizes: Sequence[int],
-                   axes: Sequence[int]) -> torch.Tensor:
-    for axis, out_size in zip(axes, out_sizes):
-        x = nearest_gather_1d(x, out_size, axis)
+                   axes: Sequence[int], in_sizes: Sequence = None
+                   ) -> torch.Tensor:
+    """n-dim torch 'nearest' resize over ``axes``; ``in_sizes``: the true
+    extents (default the axes' lengths)."""
+    if in_sizes is None:
+        in_sizes = [None] * len(axes)
+    for axis, out_size, in_size in zip(axes, out_sizes, in_sizes):
+        x = nearest_gather_1d(x, out_size, axis, in_size)
     return x
 
 
@@ -176,3 +182,39 @@ def depth_linspace_indices(original_d, new_d: int,
         i = torch.arange(new_d, dtype=torch.int64, device=device)
         return (i * (int(original_d) - 1)) // (new_d - 1)
     return torch.zeros(1, dtype=torch.int64, device=device)
+
+
+def interpolate_volume(vol: torch.Tensor, target_size: Tuple[int, int, int],
+                       is_mask: bool, only_in_plane: bool = True,
+                       align_corners: bool = True,
+                       in_sizes: Sequence[int] = None) -> torch.Tensor:
+    """The reference ``Interpolate`` transform on a (..., D, H, W) volume
+    (``spatial_transforms.py:55-97``): in-plane bilinear (images, float32)
+    or nearest (masks, in ``vol``'s dtype) to (H, W), then the depth slices
+    of :func:`depth_linspace_indices`; with ``only_in_plane=False`` a
+    trilinear or nearest resize of all three axes.  ``in_sizes``: the true
+    (D, H, W) extents, default the volume's."""
+    d_new, h_new, w_new = target_size
+    d_in, h_in, w_in = vol.shape[-3:] if in_sizes is None else in_sizes
+    if not is_mask:
+        vol = vol.to(torch.float32)
+    if only_in_plane:
+        out = (resize_nearest(vol, (h_new, w_new), (-2, -1), (h_in, w_in))
+               if is_mask else
+               resize_linear(vol, (h_new, w_new), (-2, -1), align_corners,
+                             (h_in, w_in)))
+        return torch.index_select(
+            out, out.ndim - 3, depth_linspace_indices(d_in, d_new,
+                                                      vol.device))
+    if is_mask:
+        return resize_nearest(vol, target_size, (-3, -2, -1),
+                              (d_in, h_in, w_in))
+    return resize_linear(vol, target_size, (-3, -2, -1), align_corners,
+                         (d_in, h_in, w_in))
+
+
+def upsample_trilinear(x: torch.Tensor, out_sizes: Sequence[int],
+                       spatial_axes: Sequence[int] = (-4, -3, -2),
+                       align_corners: bool = True) -> torch.Tensor:
+    """Trilinear resize of the three spatial axes (NDHWC by default)."""
+    return resize_linear(x, out_sizes, spatial_axes, align_corners)

@@ -102,8 +102,7 @@ def data_width(mesh=None, nchips: Optional[int] = None,
             raise NotImplementedError(
                 f"mesh {spec}: only the 'data' axis is ported; spatial "
                 f"H-sharding and tensor parallelism are queued in ROADMAP "
-                f"section 1 ('Spatial sharding, tensor parallelism and "
-                f"remat')")
+                f"section 1 ('Spatial sharding and tensor parallelism')")
         return spec.data
     if nchips is not None:
         return int(nchips)

@@ -38,10 +38,18 @@ the global batch's augmentation, and the epoch end gathers every rank's
 outputs; rank 0 alone writes the checkpoint, the CSVs, ``metrics.jsonl``
 and the artifacts (JAX ``loop.py:274-322, 516-556``).
 
+``remat`` (activation checkpointing, ``models/resnet3d.py::remat_scopes``:
+``all``, ``none`` or a list of {layer1..layer4, decoder}) reaches the
+model; the backward then recomputes those blocks' forward, and the
+BatchNorm running statistics are still updated once per step.  Its
+default is ``none``, where the JAX trainer's is ``all``: JAX chose
+``all`` to fit batch 2 in a TPU v5e's 16 GB (JAX ``loop.py:145-146``),
+while a B=2 bf16 step of med3ddram peaks at 9.11 GiB on an 80 GB H100
+without it, and remat changes no value, only memory and time.
+
 Not ported yet; each raises ``NotImplementedError`` naming its ROADMAP
 item: a mesh with a ``spatial`` or ``model`` axis above 1, ``grad_accum``
-above 1 on more than one rank, remat other than ``none`` and the ``rbg``
-noise source.  The plain ``ResNet`` archs (``resnet34``, ``resnet50``) are
+above 1 on more than one rank and the ``rbg`` noise source.  The plain ``ResNet`` archs (``resnet34``, ``resnet50``) are
 refused with a ``ValueError``: they take no lung mask, so the JAX trainer
 cannot train them either.  An artifact whose package (``cv2``,
 ``matplotlib``, ``seaborn``, ``tensorboard``) is missing is skipped with
@@ -115,7 +123,9 @@ class TrainerConfig:
     input_pipeline: str = "host"         # or "device": fused preprocess
     pad_shape: Optional[Tuple[int, int, int]] = None  # device-pipeline buffer
     mesh: Optional[str] = None
-    remat: str = "none"
+    remat: str = "none"                  # activation checkpointing scopes
+    # (JAX's default "all" fits a TPU v5e's 16 GB; B=2 needs no remat on
+    # an 80 GB card, and remat moves no value)
     noise_rng: str = "threefry"
     grad_accum: int = 1
     packed_decoder: bool = False         # decoder convs on kernels A/D
@@ -158,13 +168,7 @@ def check_supported(cfg: TrainerConfig) -> None:
             f"grad_accum {cfg.grad_accum} on {world} ranks: the JAX step's "
             f"micro-batches are slices of the global batch, which would "
             f"move rows between ranks (ROADMAP section 1, 'Spatial "
-            f"sharding, tensor parallelism and remat')")
-    if cfg.remat != "none":
-        raise NotImplementedError(
-            f"remat={cfg.remat!r}: activation checkpointing is not ported "
-            f"(ROADMAP section 1); B=2 fits an 80 GB card without it, and a "
-            f"naive torch.utils.checkpoint would update each train "
-            f"BatchNorm's running statistics twice")
+            f"sharding and tensor parallelism')")
     if cfg.noise_rng != "threefry":
         raise NotImplementedError(
             f"noise_rng={cfg.noise_rng!r}: the TPU hardware-RNG noise source "
@@ -247,7 +251,8 @@ class SubtypeTrainer:
         cfg = self.config
         self.model = get_model_by_name(
             cfg.model_arch, generator=torch.Generator().manual_seed(cfg.seed),
-            packed_decoder=cfg.packed_decoder).to(self.device)
+            packed_decoder=cfg.packed_decoder, remat=cfg.remat
+        ).to(self.device)
         self.optimizer = make_optimizer(self.model.parameters(), cfg.lr)
         self.train_module = self.model
         if self.world > 1:

@@ -107,7 +107,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    against the default path's on the same weights and scans within the
    bf16 bounds of ``tests/test_composed_oracle.py:246-262`` (fractions
    |d| < 5e-3, map mean |d| < 1.5e-2, flip rate (|d| > 0.5) < 5e-3); the
-   mode and the switch are restored afterwards;
+   mode and the switch are restored afterwards; then the pair stem
+   (``set_pair_stem_enable(True)``): ``use_pair_stem`` holds at
+   128x224x288, and phase 4's B=2 bf16 forward is bit-equal to the default
+   route, at the default forward's launches (C 1, A 16, B 1, F 1);
 4d. the host-preprocess path (``run_inference(device_preprocess=False)``,
    med3ddram, bf16, batch 2) over phase 4's scans: output contract, per
    batch A 16, B 1, C 1, F 2, every scan in ``stats["host_scans"]``, and
@@ -176,6 +179,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    step) at the eval launch counts; and the device-pipeline model's
    forward on both pipelines' test inputs: labels equal, lesion fractions
    within 5e-3.
+6g. activation checkpointing: phase 6's weights (its epoch-0 checkpoint)
+   and its archive's first two train batches (med3ddram, bf16, B=2, packed
+   decoder, augmentation off): two steps under ``remat="none"`` and two
+   under ``remat="all"``, each step from the same state (the first from
+   phase 6's, the second from the one the first step without remat left:
+   cuDNN's and the pool's backward need not be bit-reproducible, and Adam
+   turns a near-zero gradient's noise into up to 2 lr of a weight): per
+   step A 22 / D 11 / F 1
+   against A 32 / D 11 / F 1 (the backward recomputes layer1's 6 and
+   us1/us2's 4 kernel-A forwards; us3 is not checkpointed), losses within
+   1e-6 relative, the BN running statistics and ``num_batches_tracked``
+   equal after the first step (updated once), the first step's
+   gradients at a cosine above 0.999 and a norm within 5e-3 (JAX
+   ``tests/test_models.py``'s remat bounds; cuDNN's backward need not be
+   deterministic, so bit-equality is held on the CPU, in tier-1); ms per
+   step and peak device memory of both; then one step each of med3d (CLS:
+   A 32, D 11) and med3ddram50 (A 14, D 5, F 1) under ``remat="all"``;
 
 7. the classification strategy (med3d, resnet34segcls, n_classes (6, 3),
    bf16, B=2, 128x224x288): (a) med3d's eval us3 (conv 64 -> 32 + BN +
@@ -231,11 +251,24 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    way each step, so 2 lr per step is its reach, not a bound); the
    test labels equal and the lesion fractions within 5e-3 (the bf16
    bound); the CSVs, ``metrics.jsonl`` (one line per phase) and the one
-   checkpoint written once, by rank 0.  This proves the path; it is not a
-   timing (gloo stages the 64,789,730 float32 gradients, 259 MB, through
-   the host each step).  ``--ddp-only`` runs phases 1, 2, 4, 4f and 8
+   checkpoint written once, by rank 0.  Before its steps each rank runs
+   the first step again on a DDP copy of its model under ``remat="all"``
+   (same state, batch and draws; A 32, D 11, F 1): losses within 1e-6
+   relative of the step without remat (train BN's ``all_sum`` is issued
+   again in the backward, between DDP's gradient buckets, over gloo or
+   NCCL).  This proves the path; it is not a timing (gloo stages the
+   64,789,730 float32 gradients, 259 MB, through the host each step).  ``--ddp-only`` runs phases 1, 2, 4, 4f and 8
    alone; on a host with two or more cards the ranks of 4f and 8 take
    cards 0 and 1 and NCCL, with the same checks;
+9. the per-sample transform chains: scan0 of phase 6's archive
+   (180x320x320 int16 and its lung and emphysema masks) through
+   ``build_pipeline(TARGET, train=False)`` and ``train=True`` on the card
+   and on the CPU with the same seed (the first whose four random members
+   all apply): the same drawn parameters on both devices; the eval chain's
+   image within 1e-5 of the CPU's, the train chain's within 1e-4 with the
+   CPU's noise field applied on the card (the two generators draw
+   different fields), masks bit-equal; the card's ms per sample (upload
+   included), with the card's name and power limit;
 8b. ``--profile``: phase 6's setup (B=2, packed decoder, one epoch of 4
    steps) with ``profile=True``: the Chrome trace
    ``profile/rank0.json`` exists and holds each step's stage spans; the
@@ -335,6 +368,7 @@ from bodyct_dram_emph_subtype_tpu_torch.train.loop import (
 from bodyct_dram_emph_subtype_tpu_torch.train.state import make_optimizer
 from bodyct_dram_emph_subtype_tpu_torch.train.steps import (
     dense_map_size, make_cls_train_step, make_reg_train_step)
+from bodyct_dram_emph_subtype_tpu_torch.transforms import build_pipeline
 from bodyct_dram_emph_subtype_tpu_torch.transforms.batch_augment import (
     augment_batch, draw_augment_params)
 
@@ -385,11 +419,13 @@ def per_forward(packed_decoder=True, quad=False, block=BasicBlock,
             "masked_sums": int(kind == "reg")}
 
 
-def per_train_step(sites, kind="reg"):
-    """Launches per train step with ``sites`` of ``roll_conv_packed`` (and
-    the dRAM forward's one F call)."""
+def per_train_step(sites, kind="reg", remat=None):
+    """Launches per train step with ``sites`` of ``roll_conv_packed``
+    (``remat``: one more A per recomputed site) and the dRAM forward's one
+    F call."""
     return {**{k: 0 for k in cuda_build.KERNELS},
-            **train_roll_launches(sites), "masked_sums": int(kind == "reg")}
+            **train_roll_launches(sites, remat),
+            "masked_sums": int(kind == "reg")}
 
 
 # the bf16 processor's forward (packed decoder): A 16, B 1, C 1, F 1
@@ -415,6 +451,13 @@ GRAD_L2_BOUND, GRAD_PEAK_BOUND = 5e-3, 2e-2      # phases 6b, 7e
 CLS_POOLED_BOUND = 2.5e-2
 # phase 6 (packed decoder): A 22, D 11, F 1
 PER_TRAIN_STEP = per_train_step(TRAIN_ROLL_SITES)
+# phase 6g, 8: the same under remat "all": A 32 (11 forward, 10 recomputed:
+# layer1's 6 and us1/us2's 4; us3 is not checkpointed, 11 dgrad), D 11
+REMAT_PER_TRAIN_STEP = per_train_step(TRAIN_ROLL_SITES, remat="all")
+REMAT_LOSS_RTOL = 1e-6               # phases 6g, 8: remat against none
+REMAT_GRAD_COS, REMAT_GRAD_NORM = 0.999, 5e-3   # JAX tests/test_models.py
+# phase 9: the transform chains on the card against the CPU
+CHAIN_EVAL_ATOL, CHAIN_TRAIN_ATOL = 1e-5, 1e-4
 # the trainers' default (unpacked decoder; phase 6d): layer1's 6 sites
 # in training (A 12, D 6), and A 12, C 1, no B in an eval forward
 DEFAULT_TRAIN_SITES = train_roll_sites(LAYERS, packed_decoder=False)
@@ -1402,6 +1445,31 @@ def phase_modes(model, scan_dir: Path, lobe_dir: Path, work: Path,
               f"{stats['pipeline_s']:.2f} s pipeline ok")
     print("bounds: fractions < 5e-3, map mean < 1.5e-2, flip rate < 5e-3; "
           "mode and quad stem restored to roll / off")
+    # the pair stem: in the logical layout the default route itself
+    check(not experimental.use_pair_stem(x.shape, False, True, x.dtype,
+                                         LAYERS[0]), "pair stem on by default")
+    experimental.set_pair_stem_enable(True)
+    try:
+        check(experimental.use_pair_stem(x.shape, False,
+                                         model.packed_decoder, x.dtype,
+                                         LAYERS[0]),
+              f"use_pair_stem false at {tuple(x.shape)}")
+        cuda_build.reset_launches()
+        with torch.inference_mode():
+            dense, regs = model(x, lung)
+        torch.cuda.synchronize()
+        launches = cuda_build.launches()
+    finally:
+        experimental.set_pair_stem_enable(False)
+    totals.update(launches)
+    check(launches == PER_FORWARD, f"pair stem: launches {launches}")
+    check(all(torch.equal(a, b) for a, b in zip(list(dense) + list(regs),
+                                                list(d_ref) + list(r_ref))),
+          "pair stem: the forward differs from the default route")
+    print(f"pair stem on: use_pair_stem true at {tuple(x.shape)}; the "
+          f"forward bit-equal to the default route (maps and fractions); "
+          f"launches " + ", ".join(f"{k} {v}" for k, v in launches.items()
+                                   if v) + " (the default forward's)")
     return totals, op_totals
 
 
@@ -2152,6 +2220,229 @@ def phase_train50(work: Path):
         {"step_ms": wall[-1], "peak_gib": peak / 2 ** 30}
 
 
+def _to_cpu(obj):
+    """``obj`` (tensors in dicts and lists) with every tensor copied to
+    the CPU."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().clone()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
+def remat_steps(arch, remat, batches, state=None, second=None):
+    """Train steps of ``arch`` (bf16, B=2, packed decoder, augmentation
+    off, lr 1e-4) under ``remat``, one per batch of ``batches``, from
+    ``state`` (else the seed's weights); ``second``: the (model,
+    optimizer) state dicts to start the second step from.  Per step: the
+    losses, the launches (counts set to 0 just before it and read just
+    after), ms (host clock to a synchronize); after the first step its
+    gradients (float32), its buffers and the (model, optimizer) state, on
+    the CPU; peak device memory from the model's build."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = get_model_by_name(arch, packed_decoder=True, remat=remat).to(DEV)
+    if state is not None:
+        model.load_state_dict(state)
+    kind = "reg" if "dram" in arch else "cls"
+    make = make_reg_train_step if kind == "reg" else make_cls_train_step
+    opt = make_optimizer(model.parameters(), 1e-4)
+    step = make(model, opt, augment=False, compute_dtype=torch.bfloat16,
+                device=DEV, target_size=TARGET)
+    cw = (np.ones(6, np.float32) / 6, np.ones(3, np.float32) / 3)
+    out = {"losses": [], "launches": [], "ms": []}
+    for i, batch in enumerate(batches):
+        if i == 1 and second is not None:
+            model.load_state_dict(second[0])
+            opt.load_state_dict(second[1])
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        metrics, _ = step(batch, 1e-4, *cw)
+        torch.cuda.synchronize()
+        out["ms"].append(1e3 * (time.perf_counter() - t0))
+        out["launches"].append(cuda_build.launches())
+        out["losses"].append({k: float(v) for k, v in metrics.items()})
+        check(all(math.isfinite(v) for v in out["losses"][-1].values()),
+              f"{arch} remat {remat} step {i} losses")
+        if i == 0:
+            out["grads"] = {n: p.grad.detach().float().cpu()
+                            for n, p in model.named_parameters()}
+            out["buffers"] = _to_cpu(dict(model.named_buffers()))
+            out["after_first"] = (_to_cpu(model.state_dict()),
+                                  _to_cpu(opt.state_dict()))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model, step, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_remat(work: Path):
+    print("== phase 6g: activation checkpointing (remat), med3ddram, bf16, "
+          "B=2, packed decoder, augmentation off, phase 6's archive and "
+          "weights")
+    cfg = trainer_config(work, num_samples=2, packed_decoder=True,
+                         model_path=str(work / "models"))
+    trainer = SubtypeTrainer(cfg)
+    trainer.init_state()
+    trainer.setup_checkpointing()
+    check(trainer.try_resume(), "phase 6g: phase 6's checkpoint is missing")
+    state = {k: v.detach().clone() for k, v in
+             trainer.model.state_dict().items()}
+    batches = []
+    for batch in trainer._loader("train", 0):
+        batches.append(batch)
+        if len(batches) == 2:
+            break
+    del trainer
+    torch.cuda.empty_cache()
+    # each step from the same state: the first from phase 6's, the second
+    # from the state the first step without remat left (the backward's
+    # cuDNN and pooling gradients need not be bit-reproducible, and Adam
+    # turns a near-zero gradient's noise into up to 2 lr of a weight)
+    runs = {"none": remat_steps("med3ddram", "none", batches, state)}
+    runs["all"] = remat_steps("med3ddram", "all", batches, state,
+                              second=runs["none"]["after_first"])
+    total = Counter()
+    for remat, want in (("none", PER_TRAIN_STEP),
+                        ("all", REMAT_PER_TRAIN_STEP)):
+        for i, launches in enumerate(runs[remat]["launches"]):
+            check(launches == want,
+                  f"remat {remat} step {i} launches {launches}")
+            total.update(launches)
+    worst = 0.0
+    for i, (got, want) in enumerate(zip(runs["all"]["losses"],
+                                        runs["none"]["losses"])):
+        rel = max(abs(got[k] - v) / max(abs(v), 1e-12)
+                  for k, v in want.items())
+        worst = max(worst, rel)
+        print(f"step {i}: loss {want['loss']:.6f} (none), "
+              f"{got['loss']:.6f} (all); max relative |d| over the "
+              f"components {rel:.2e}")
+    check(worst <= REMAT_LOSS_RTOL, f"remat losses differ by {worst:.2e}")
+    a, b = runs["all"]["buffers"], runs["none"]["buffers"]
+    check(all(torch.equal(a[k], v) for k, v in b.items()),
+          "BN running statistics after step 1 differ")
+    start = {int(v) for k, v in state.items()
+             if k.endswith("num_batches_tracked")}
+    tracked = {int(v) for k, v in a.items()
+               if k.endswith("num_batches_tracked")}
+    check(len(start) == 1 and tracked == {start.pop() + 1},
+          f"num_batches_tracked after step 1: {tracked}")
+    g_all = torch.cat([g.reshape(-1) for g in runs["all"]["grads"].values()])
+    g_none = torch.cat([runs["none"]["grads"][n].reshape(-1)
+                        for n in runs["all"]["grads"]])
+    cos = F.cosine_similarity(g_all.double(), g_none.double(), dim=0).item()
+    norm = abs(g_all.norm().item() / g_none.norm().item() - 1.0)
+    peak_d = (g_all - g_none).abs().max().item()
+    print(f"first step's gradients (all against none): cosine {cos:.9f} "
+          f"(> {REMAT_GRAD_COS}), norm ratio - 1 {norm:.2e} (< "
+          f"{REMAT_GRAD_NORM:g}), max|d| {peak_d:.3e}; BN running "
+          f"statistics after step 1 equal, num_batches_tracked "
+          f"{tracked.pop()} (phase 6's + 1: updated once)")
+    check(cos > REMAT_GRAD_COS and norm < REMAT_GRAD_NORM,
+          "remat gradients")
+    for remat in ("none", "all"):
+        r = runs[remat]
+        print(f"remat {remat}: launches per step " + ", ".join(
+            f"{k} {v}" for k, v in r["launches"][0].items() if v)
+            + "; ms per step " + ", ".join(f"{t:.1f}" for t in r["ms"])
+            + f"; peak device memory {r['peak_gib']:.2f} GiB")
+    out = {remat: {"step_ms": runs[remat]["ms"][-1],
+                   "peak_gib": runs[remat]["peak_gib"]}
+           for remat in runs}
+    del runs
+    for arch, sites, kind in (("med3d", TRAIN_ROLL_SITES, "cls"),
+                              ("med3ddram50", SITES50, "reg")):
+        r = remat_steps(arch, "all", batches[:1])
+        want = per_train_step(sites, kind, remat="all")
+        check(r["launches"][0] == want,
+              f"{arch} remat all launches {r['launches'][0]}")
+        total.update(r["launches"][0])
+        print(f"{arch} under remat all: one step, launches " + ", ".join(
+            f"{k} {v}" for k, v in want.items() if v)
+            + f"; {r['ms'][0]:.1f} ms (its first step), peak "
+            f"{r['peak_gib']:.2f} GiB")
+        out[arch] = {"step_ms": r["ms"][0], "peak_gib": r["peak_gib"]}
+    return total, out
+
+
+def phase_transforms(work: Path, card: str):
+    print("== phase 9: the per-sample transform chains (build_pipeline) on "
+          "the card against the CPU, one scan of phase 6's archive")
+    arrays = np.load(work / "scan0.npz")
+    ct, lung = arrays["image"], arrays["lung_mask"].astype(bool)
+    sample = {"image": ct, "lung_mask": lung, "em_mask": (ct < -950) & lung,
+              "uid": "scan0"}
+    print(f"scan0: {ct.shape} {ct.dtype}, lung and emphysema masks")
+    # the first seed whose Compose deals the four random members (noise,
+    # cut-out, flip, crop) seeds that each pass their p = 0.5 gate
+    seed = next(s for s in range(1000) if all(
+        np.random.RandomState(int(m)).random_sample() < 0.5
+        for m in np.random.RandomState(s).randint(0, 2 ** 31 - 1,
+                                                  size=8)[4:]))
+    out = {}
+    for train in (False, True):
+        label = "train" if train else "eval"
+        cpu_chain = build_pipeline(TARGET, train, device="cpu")
+        want = cpu_chain(dict(sample), rng=seed)
+        chain = build_pipeline(TARGET, train)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = chain(dict(sample), rng=seed)
+        torch.cuda.synchronize()
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        check(got["image"].device.type == "cuda", f"{label}: not on the card")
+        for a, b in zip(chain.transforms, cpu_chain.transforms):
+            check(a.params.keys() == b.params.keys() and all(
+                np.array_equal(np.asarray(v), np.asarray(b.params[k]))
+                for k, v in a.params.items()),
+                f"{label}: {type(a).__name__} drew other parameters")
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            chain(dict(sample), rng=seed)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        if train:
+            # the card's generator draws another noise field than the
+            # CPU's: apply the CPU's on the card, every parameter frozen
+            check(all(t.params for t in chain.transforms[4:]),
+                  "a random member did not apply")
+            noise = chain.transforms[4]
+            noise.params["eps"] = torch.randn(
+                TARGET, generator=torch.Generator().manual_seed(
+                    noise.params["noise_seed"]))
+            for t in chain.transforms:
+                t.freeze_param = True
+            got = chain(dict(sample))
+        bound = CHAIN_TRAIN_ATOL if train else CHAIN_EVAL_ATOL
+        d = (got["image"].cpu() - want["image"]).abs().max().item()
+        check(got["image"].dtype == want["image"].dtype == torch.float32
+              and tuple(got["image"].shape) == TARGET, f"{label}: image")
+        check(d <= bound, f"{label} chain: image |d| {d:.2e}")
+        for k in ("lung_mask", "em_mask"):
+            check(torch.equal(got[k].cpu(), want[k]),
+                  f"{label} chain: {k} differs")
+        check(got["uid"] == "scan0", f"{label}: uid")
+        params = "; ".join(
+            f"{type(t).__name__} " + ", ".join(
+                f"{k}={np.round(np.asarray(v, float), 4).tolist()}"
+                for k, v in t.params.items()
+                if k in ("sigma", "n_masks", "combs", "crop_center",
+                         "crop_size"))
+            for t in chain.transforms[4:]) if train else "none drawn"
+        print(f"{label} chain (seed {seed}): image |d| {d:.2e} against the "
+              f"CPU (<= {bound:g}), masks bit-equal; parameters equal on "
+              f"both devices ({params}); card ms per sample "
+              + ", ".join(f"{t:.1f}" for t in times)
+              + f" (the first call {first_ms:.1f}); {card}")
+        out[label] = statistics.median(times)
+    return out
+
+
 def pipeline_run(work: Path, pipeline: str):
     """Phase 6f's trainer over the ragged archive in ``work`` (med3ddram,
     bf16, B=2, packed decoder, one epoch of 4 steps) on ``pipeline``, then
@@ -2514,6 +2805,37 @@ def keep_first_grads(trainer, path: Path) -> None:
     trainer._train_step = first
 
 
+def ddp_remat_step(trainer, device):
+    """Phase 8's first train step again under remat "all", from the same
+    state, on a DDP copy of ``trainer``'s model: the same batch and
+    augmentation draws.  Returns (its losses, its launches, which must be
+    ``REMAT_PER_TRAIN_STEP``)."""
+    model = get_model_by_name("med3ddram", packed_decoder=True,
+                              remat="all").to(device)
+    model.load_state_dict(trainer.model.state_dict())
+    ddp = torch.nn.parallel.DistributedDataParallel(
+        model, broadcast_buffers=False,
+        device_ids=[device] if torch.distributed.get_backend() == "nccl"
+        else None)
+    step = make_reg_train_step(
+        ddp, make_optimizer(model.parameters(), DDP_LR),
+        num_data_shards=DDP_WORLD, compute_dtype=torch.bfloat16,
+        device=device, target_size=TARGET)
+    batch = next(iter(trainer._loader("train", 0)))
+    gen = torch.Generator(device).manual_seed(
+        step_seed(trainer.config.seed, 0, 0))
+    cuda_build.reset_launches()
+    metrics, _ = step(batch, DDP_LR, trainer.cle_class_weights,
+                      trainer.pse_class_weights, generator=gen)
+    torch.cuda.synchronize()
+    launches = cuda_build.launches()
+    check(launches == REMAT_PER_TRAIN_STEP,
+          f"phase 8 remat step launches {launches}")
+    del ddp, model, step
+    torch.cuda.empty_cache()
+    return {k: float(v) for k, v in metrics.items()}, launches
+
+
 def ddp_rank(work: Path) -> None:
     """One rank of phase 8 (``--ddp-rank``): the training CLI's flow with
     each step's losses and launches logged; writes ``ddp_rank<r>.json``."""
@@ -2528,9 +2850,14 @@ def ddp_rank(work: Path) -> None:
         trainer.setup_checkpointing()
         check(not trainer.try_resume(), "phase 8 resumed")
         condition_heads(trainer.model)
+        remat_loss, remat_launches = ddp_remat_step(trainer, device)
         if rank == 0:
             keep_first_grads(trainer, work / "ddp_grads_ranks.pt")
         losses, clock, launches, fit_s, peak = fit_logged(trainer)
+        rel = max(abs(remat_loss[k] - v) / max(abs(v), 1e-12)
+                  for k, v in losses[0].items())
+        check(rel <= REMAT_LOSS_RTOL,
+              f"rank {rank}: remat all loss differs by {rel:.2e}")
         n = check_steps(losses, clock, PER_TRAIN_STEP, f"rank {rank}")
         check(n == 2, f"rank {rank}: {n} train steps")
         best = trainer.restore_best()
@@ -2543,8 +2870,11 @@ def ddp_rank(work: Path) -> None:
             fractions.update(part)
         (work / f"ddp_rank{rank}.json").write_text(json.dumps({
             "losses": losses, "wall_ms": clock.wall_ms(),
-            "launches": dict(Counter(launches) + Counter(eval_launches)),
+            "launches": dict(Counter(launches) + Counter(eval_launches)
+                             + Counter(remat_launches)),
             "metrics": metrics, "peak_gib": peak / 2 ** 30,
+            "remat_loss": remat_loss, "remat_rel": rel,
+            "remat_launches": remat_launches,
             "fractions": {str(k): v for k, v in fractions.items()},
             "backend": torch.distributed.get_backend(),
             "device": str(device)}))
@@ -2585,6 +2915,13 @@ def phase_ddp(work: Path):
     check(ranks[0]["losses"] == ranks[1]["losses"],
           "the ranks' global losses differ")
     check(ranks[1]["metrics"] == {}, "rank 1 reported epoch metrics")
+    print("the first step again under remat all on each rank (DDP, same "
+          "state, batch and draws): loss " + ", ".join(
+              f"rank {r} {x['remat_loss']['loss']:.6f} (relative |d| "
+              f"{x['remat_rel']:.2e})" for r, x in enumerate(ranks))
+          + f" (<= {REMAT_LOSS_RTOL:g}); launches " + ", ".join(
+              f"{k} {v}" for k, v in ranks[0]["remat_launches"].items()
+              if v))
     print(f"2 ranks ({ranks[0]['backend']}; "
           + ", ".join(r["device"] for r in ranks)
           + f") ran in {ranks_s:.1f} s (start, build cache load, 2 "
@@ -2810,6 +3147,9 @@ def main():
         main_launches.update(launches)
         launches, train50 = phase_train50(work)
         main_launches.update(launches)
+        launches, remat = phase_remat(work)
+        main_launches.update(launches)
+        chains = phase_transforms(work, card)
         work = Path(tmp) / "device_pipeline"
         work.mkdir()
         launches, pipes, pre_ms = phase_device_pipeline(work)
@@ -2852,6 +3192,13 @@ def main():
           f"routing {default_train['step_ms']:.1f} ms (peak "
           f"{default_train['peak_gib']:.2f} GiB); med3ddram50 "
           f"{train50['step_ms']:.1f} ms (peak {train50['peak_gib']:.2f} GiB); "
+          f"remat (6g, second step, augmentation off) none "
+          f"{remat['none']['step_ms']:.1f} ms (peak "
+          f"{remat['none']['peak_gib']:.2f} GiB), all "
+          f"{remat['all']['step_ms']:.1f} ms (peak "
+          f"{remat['all']['peak_gib']:.2f} GiB); transform chains (9) "
+          f"{chains['eval']:.1f} ms eval, {chains['train']:.1f} ms train "
+          f"per sample; "
           f"med3d (CLS) {cls['step_ms']:.1f} ms ({cls['volumes_s']:.3f} "
           f"volumes/s, peak {cls['peak_gib']:.2f} GiB), default routing "
           f"{cls['default_step_ms']:.1f} ms; device input pipeline (6f, "
@@ -2865,7 +3212,7 @@ def main():
           f"{profiled['busy']:.3f} of {profiled['window_ms']:.1f} ms; "
           f"launches are the main paths' "
           f"(phases 4, 4c, 4d, 4e, 4f summed over its ranks, 6 with its "
-          f"train -> deploy check, 6c, 6d, 6e, 6f, 7, 8, 8b); kernel ms "
+          f"train -> deploy check, 6c, 6d, 6e, 6g, 6f, 7, 8, 8b); kernel ms "
           f"per B=2 "
           f"bf16 dRAM forward (A, B, "
           f"C, E: default or quad path; the conv-mode ops: their mode's "

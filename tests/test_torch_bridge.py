@@ -119,8 +119,8 @@ print(json.dumps({"mods": mods,
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert len(out["mods"]) >= 20
-    # the classification, device-pipeline, data-parallel and tools
-    # slices' modules are among them
+    # the classification, device-pipeline, data-parallel, tools and
+    # transform-framework slices' modules are among them
     port = "bodyct_dram_emph_subtype_tpu_torch."
     assert {port + m for m in ("evaluate", "evaluate.__main__",
                                "models.resnet3d", "models.registry",
@@ -132,7 +132,11 @@ print(json.dumps({"mods": mods,
                                "ops.resize", "tools", "tools.build_cache",
                                "tools.convert_checkpoint",
                                "tools.compute_label_statistics",
-                               "tools.compute_computation_complexity")
+                               "tools.compute_computation_complexity",
+                               "transforms", "transforms.base",
+                               "transforms.intensity", "transforms.spatial",
+                               "ops.morphology", "ops.intensity",
+                               "ops.grid_sample")
             } <= set(out["mods"])
     assert out["jax"] == [] and out["ref"] == []
     assert out["same"] and out["launches"] == 0 and not out["built"]

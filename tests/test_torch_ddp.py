@@ -47,6 +47,10 @@ ranks runs every case below and saves what it saw for the tests to read.
     flipped at one such input at a time (the smallest ``MAX_TIE_TRIALS``
     first; the values stay as they are), and the step passes if one flip
     brings it inside every bound.
+- **Remat**: the reg case without augmentation once more under
+  ``remat="all"`` (activation checkpointing: train BN's ``all_sum`` is
+  issued again in the backward): on each rank bit-equal to its run
+  without remat.
 - **Eval epoch**: ``SubtypeTrainer.evaluate`` of a 5-scan test set (odd,
   so both ranks pad by wrap-around) on two ranks: rank 0's gathered,
   de-duplicated CSV and metrics equal one process's; rank 1 returns
@@ -220,6 +224,17 @@ def _rank_main(work: Path) -> None:
             if r:
                 del rec["grads"]
         results[(kind, augment)] = steps
+    # the reg case without augmentation again under remat "all"
+    model = get_model_by_name(ARCH["reg"], packed_decoder=True, remat="all")
+    model.load_state_dict(spec["reg"]["weights"])
+    ddp = torch.nn.parallel.DistributedDataParallel(
+        model, broadcast_buffers=False)
+    rows = {k: v[r:r + 1] for k, v in spec["reg"]["batch"].items()}
+    results["remat"] = [
+        {"metrics": rec["metrics"], "preds": rec["preds"],
+         "grad_sha": _sha(rec["grads"]), "params": _sha(rec["params"]),
+         "buffers": _sha(rec["buffers"])}
+        for rec in run_steps(ddp, model, "reg", rows, False, shards=2)]
     cfg = json.loads((work / "eval.json").read_text())
     trainer = SubtypeTrainer(TrainerConfig(**cfg))
     results["eval"] = trainer.evaluate("test", epoch=0)
@@ -442,6 +457,21 @@ def test_two_ranks_equal_one_process(world, kind, augment):
     _assert_ranks_replicas(ranks, case, one)
     _passing(check, lambda flips: _one_process(world, kind, augment, flips),
              one)
+
+
+def test_two_ranks_remat_all_equal_no_remat(world):
+    """Each rank's two steps under ``remat="all"`` equal its steps without
+    remat bit for bit: losses, labels, gradients, parameters and
+    BatchNorm buffers (train BN's ``all_sum`` runs again in the recompute,
+    between DDP's gradient buckets, in the same order on both ranks)."""
+    for r in world["ranks"]:
+        for got, want in zip(r["remat"], r[("reg", False)]):
+            assert got["metrics"] == want["metrics"]
+            for k, v in want["preds"].items():
+                assert torch.equal(got["preds"][k], v), k
+            assert got["grad_sha"] == want["grad_sha"]
+            assert got["params"] == want["params"]
+            assert got["buffers"] == _sha(want["buffers"])
 
 
 def _adam_keeping_grads():

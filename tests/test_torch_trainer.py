@@ -132,8 +132,25 @@ def test_cli_trains_checkpoints_resumes_and_tests(archive, tmp_path):
     assert third["param_groups"][0]["lr"] == pytest.approx(epoch_lr(LR, 2))
 
 
-@pytest.mark.parametrize("flag", [["--remat", "all"],
-                                  ["--mesh", "data=1,spatial=2"],
+def test_cli_trains_with_remat_all(archive, tmp_path):
+    """``--remat all`` trains: one epoch (two augmented steps) equal bit
+    for bit to the run without it, BatchNorm counts included."""
+    runs = {}
+    for remat in ("none", "all"):
+        out = tmp_path / remat
+        assert main(_argv(archive, out, 1) + ["--remat", remat]) == 0
+        runs[remat] = CheckpointManager(
+            out / "subtyping_med3ddramtiny" / "checkpoints").restore(0)
+    want, got = runs["none"], runs["all"]
+    assert got["metrics"] == want["metrics"]
+    assert all(np.isfinite(v) for v in got["metrics"].values())
+    assert got["model"].keys() == want["model"].keys()
+    for k, v in want["model"].items():
+        assert torch.equal(got["model"][k], v), k
+    assert int(got["model"]["bn1.num_batches_tracked"]) == 2
+
+
+@pytest.mark.parametrize("flag", [["--mesh", "data=1,spatial=2"],
                                   ["--mesh", "model=2"],
                                   ["--noise_rng", "rbg"],
                                   ["--mesh", "data=2,spatial=2"]])
