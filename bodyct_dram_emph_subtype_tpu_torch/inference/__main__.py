@@ -12,15 +12,18 @@ stream (a scan over it falls back alone to the host path).  ``--ckp``: a
 checkpoint directory (its newest epoch); a path that does not exist gives
 random weights from ``--seed``.
 
-Data parallelism (``parallel/mesh.py``): ``--ngpus N`` or ``--mesh
-data=N`` starts N ranks on this host, one per card (neither flag: every
-visible card; ``--device cpu``: one process unless asked, gloo CPU ranks
-when asked); ``--multihost`` joins torchrun's process group (``torchrun
+The mesh (``parallel/mesh.py``): ``--ngpus N`` or ``--mesh data=N``
+starts N ranks on this host, one per card (neither flag: every visible
+card; ``--device cpu``: one process unless asked, gloo CPU ranks when
+asked); ``--mesh data=D,spatial=S,model=M`` starts D*S*M ranks, the S*M
+ranks of a spatial and model group scoring the same scans, each on its H
+slab of the model input (``parallel/spatial.py``) and its slice of the
+conv output channels (``parallel/tensor.py``), the group's first rank
+writing their files; ``--multihost`` joins torchrun's process group (``torchrun
 --nproc_per_node N -m bodyct_dram_emph_subtype_tpu_torch.inference
---multihost ...``).  ``--batch_size`` is per rank.  Each rank scores its
-shard of the scans and writes their heatmaps; rank 0 writes the JSONs and
-prints the results and the run's statistics.  A ``--mesh`` with a
-``spatial`` or ``model`` axis above 1 raises ``NotImplementedError``.  It
+--multihost ...``).  ``--batch_size`` is per data rank.  Each data index
+scores its shard of the scans and writes their heatmaps; rank 0 writes
+the JSONs and prints the results and the run's statistics.  It
 runs on the CUDA card and refuses to start without one unless given
 ``--device cpu``.
 """
@@ -46,8 +49,9 @@ def main(argv=None):
                                        "one per card (default: every "
                                        "visible card)")
     parser.add_argument("--mesh", default=None, type=str,
-                        help="data=N (the spatial and model axes are not "
-                             "ported)")
+                        help="data=D,spatial=S,model=M: D data-parallel "
+                             "ranks times S H slabs of the model input times "
+                             "M slices of the conv output channels")
     parser.add_argument("--model_arch", default="med3ddram", type=str)
     parser.add_argument("--workers", default=0, type=int)
     parser.add_argument("--batch_size", default=2, type=int)

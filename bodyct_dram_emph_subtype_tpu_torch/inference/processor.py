@@ -57,12 +57,16 @@ the bit-packing, or a ``pad_shape`` whose upload buffer has no gate block
 (``pick_gate_block`` returns 0), sends the whole run to the host path with
 a warning.  Results keep the cohort (glob) order.
 
-In a process group of W ranks each rank runs this pipeline over its
-shard of the scans and writes their heatmaps; the results are gathered
-and rank 0 writes the JSONs (``run_inference``).
+In a process group of W ranks each data index runs this pipeline over
+its shard of the scans and writes their heatmaps; the results are
+gathered and rank 0 writes the JSONs (``run_inference``).  On a spatial
+axis the ranks of a group score the same scans, each its H slab of the
+model input (``parallel/spatial.py``), and the group's first rank writes
+their files.
 """
 from __future__ import annotations
 
+import copy
 import functools
 import json
 import logging
@@ -92,7 +96,9 @@ from ..ops.packing import (WINDOW_LO, gate_blocks_np, gated_budget,
 from ..ops.pallas_kernels import masked_sums
 from ..ops.preprocess import fused_preprocess_preselected
 from ..ops.resize import resize_linear_matmul_transpose
-from ..parallel.mesh import gather_objects, rank, world_size
+from ..parallel import spatial, tensor
+from ..parallel.mesh import coords, gather_objects, is_leader, mesh, rank, \
+    world_size
 from ..train.checkpoint import CheckpointManager
 from ..train.steps import make_predict_step
 from ..utils.device import entry_device
@@ -272,7 +278,7 @@ def _predict(model, packed, gate_bits, lung_bits, in_sizes, moments,
     lungs5 = pre["lung_mask"][..., None]
     ess5 = pre["em_mask"][..., None]
     clock.mark()
-    dense, _ = model(x, lungs5)
+    dense, _ = spatial.forward_slabs(model, x, lungs5)
     clock.mark()
     half = dense[0].shape[1:4]
     ess_w = resize_linear_matmul_transpose(ess5, half, (1, 2, 3),
@@ -626,23 +632,29 @@ def run_inference(scan_path: str, lobe_path: str, output_path: str,
     device stage, then the copies back; the host path has no device
     preprocess); ``postprocess`` is host time of the postprocess thread.
 
-    Data parallelism (JAX ``nchips``/``mesh``, ``processor.py:605-676``):
-    in a process group of W ranks (``parallel/mesh.py::init_distributed``,
-    as the CLI's ``--ngpus``/``--mesh data=N``/``--multihost`` set it up)
-    rank r takes ``shard_indices`` of the sorted scan list (padded by
-    wrap-around to a multiple of W, positions r::W) and finalizes only the
-    scans it was dealt that are not that padding, so every scan's heatmaps
-    are written once; its own oversized scans fall back to the host path
-    on that rank.  After every rank's postprocess has ended the results
-    are gathered: every rank returns them merged (one per uid, in glob
-    order) and rank 0 alone writes the three JSONs.  Each rank builds the
-    model the same way (no weights are broadcast), so ranks may share a
-    card over gloo.  ``stats`` then holds this rank's counts (``scans``:
-    the scans it owns, ``finalized``: the uids it wrote, ``rank``,
+    Data parallelism (JAX ``nchips``/``mesh``, ``processor.py:605-676``): in a
+    process group of W ranks (``parallel/mesh.py::init_distributed``, as the
+    CLI's ``--ngpus``/``--mesh data=N``/``--multihost`` set it up) rank r takes
+    ``shard_indices`` of the sorted scan list (padded by wrap-around to a
+    multiple of W, positions r::W) and finalizes only the scans it was dealt
+    that are not that padding, so every scan's heatmaps are written once; its
+    own oversized scans fall back to the host path on that rank.  After every
+    rank's postprocess has ended the results are gathered: every rank returns
+    them merged (one per uid, in glob order) and rank 0 alone writes the three
+    JSONs.  Each rank builds the model the same way (no weights are broadcast),
+    so ranks may share a card over gloo.  On a mesh with a spatial axis
+    (``--mesh data=D,spatial=S``) the ranks of a spatial group take data index
+    d's shard (``shard_indices`` over D), each unpacks and preprocesses the
+    whole batch and runs the forward on its H slab; the dense maps are gathered
+    to every rank of the group, and its first rank alone postprocesses and
+    writes the files.  On a model axis each rank runs its channel slice of the
+    weights (``parallel/tensor.py``, JAX ``processor.py:599-603``) and its
+    group scores the same scans.  ``stats`` then holds this rank's counts
+    (``scans``: the scans it owns, ``finalized``: the uids it wrote, ``rank``,
     ``world``, ``launches``: the CUDA kernel launches of this run), and
-    ``ranks``: every rank's ``rank``, ``pipeline_s``, ``scans``,
-    ``batches``, ``host_scans``, ``finalized``, ``fractions`` and
-    ``launches``, in rank order (one entry in a world of one)."""
+    ``ranks``: every rank's ``rank``, ``pipeline_s``, ``scans``, ``batches``,
+    ``host_scans``, ``finalized``, ``fractions`` and ``launches``, in rank
+    order (one entry in a world of one)."""
     device = entry_device(device)
     world, this_rank = world_size(), rank()
     dtype = {"float32": torch.float32,
@@ -677,15 +689,21 @@ def run_inference(scan_path: str, lobe_path: str, output_path: str,
         device_preprocess = False
     if model is None:
         model = build_model(model_arch, ckp_path, seed, compute_dtype)
-    model = model.to(device).eval()
+    elif tensor.size() > 1:
+        model = copy.deepcopy(model)         # sliced below, not the caller's
+    # on a model axis, this rank's channel slice (JAX processor.py:599-603)
+    model = tensor.shard_model(model.to(device).eval())
 
     def uid(i: int) -> str:
         return Path(dataset.scan_files[i]).stem
 
-    dealt, padding = shard_indices(range(len(dataset)), world, this_rank,
-                                   shuffle=False, return_padding=True)
+    dealt, padding = shard_indices(range(len(dataset)), mesh().data,
+                                   coords()[0], shuffle=False,
+                                   return_padding=True)
     mine = [int(i) for i in dealt]
-    owned = {int(i) for i, pad in zip(dealt, padding) if not pad}
+    # the data index's scans; its spatial group's first rank writes them
+    ours = {int(i) for i, pad in zip(dealt, padding) if not pad}
+    owned = ours if is_leader() else set()
 
     def make_loader(view, subset: Sequence[int]) -> DataLoader:
         indices = list(subset)
@@ -717,10 +735,10 @@ def run_inference(scan_path: str, lobe_path: str, output_path: str,
                     host_subset = [i for i in _device_path(
                         model, dataset, make_loader, mine, fetcher,
                         target_size, pad_shape, gated_frac, dtype, device,
-                        stats) if i in owned]
+                        stats) if i in ours]
                 if host_subset:
                     stats["host_scans"] = [uid(i) for i in host_subset
-                                           if i in owned]
+                                           if i in ours]
                     _host_path(model, make_loader(
                         _PredictView(dataset, target_size), host_subset),
                         fetcher, dtype, device, stats)

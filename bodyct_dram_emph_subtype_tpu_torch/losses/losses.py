@@ -17,7 +17,13 @@ Counterpart of ``bodyct_dram_emph_subtype_tpu/losses/losses.py``
 Under data parallelism each loss is the JAX package's global-batch loss
 (a data mesh reduces over the whole batch): every sum and count that
 spans the batch is this rank's partial sum through
-:func:`~..parallel.mesh.all_sum` (the identity in a world of one).
+:func:`~..parallel.mesh.all_sum` (the identity in a world of one), over
+the group that it spans.  Sums over the batch's voxels (``dice_coef``,
+``masked_balanced_bce``'s numerator and denominator) take
+``spatial.voxel_axis()``: the ``replica`` group (data x spatial) on H
+slabs.  Per-row quantities (``masked_balanced_bce``'s ``rows``,
+``interval_regression_loss``, ``weighted_cross_entropy``) are the same on
+every rank of a spatial group, so they sum over the ``data`` group alone.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel import spatial
 from ..parallel.mesh import all_sum
 
 BETA = 0.7338
@@ -39,7 +46,8 @@ def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     log_probs = F.log_softmax(logits, dim=-1)
     nll = -torch.gather(log_probs, -1, labels[:, None].long())[:, 0]
     w = class_weights[labels.long()]
-    num, den = all_sum(torch.stack([torch.sum(nll * w), torch.sum(w)]))
+    num, den = all_sum(torch.stack([torch.sum(nll * w), torch.sum(w)]),
+                       "data")
     return num / den
 
 
@@ -67,7 +75,7 @@ def interval_regression_loss(outs: torch.Tensor, reg_targets: torch.Tensor,
     k = (0.5 * (data[:, 2] - data[:, 1])) ** 2
     unhinged = (data[:, 0] - (data[:, 2] + data[:, 1]) / 2.0) ** 2 - k
     loss = 10.0 * torch.relu(unhinged) * weight_factors
-    return all_sum(torch.sum(loss))
+    return all_sum(torch.sum(loss), "data")
 
 
 def dice_coef(y: torch.Tensor, y_hat: torch.Tensor,
@@ -77,7 +85,7 @@ def dice_coef(y: torch.Tensor, y_hat: torch.Tensor,
     y_hat_flat = y_hat.reshape(-1)
     inter, sum_y, sum_y_hat = all_sum(torch.stack([
         torch.sum(y_hat_flat * y_flat), torch.sum(y_flat),
-        torch.sum(y_hat_flat)]))
+        torch.sum(y_hat_flat)]), spatial.voxel_axis())
     return (2.0 * inter + smooth) / (sum_y + sum_y_hat + smooth)
 
 
@@ -92,8 +100,9 @@ def masked_balanced_bce(y: torch.Tensor, y_hat: torch.Tensor, mask=None,
     ``1 - t.sum()/t.shape[0]`` (the batch size) clamped to [0.3, 0.7]."""
     t = y.float()
     p = y_hat
-    rows = torch.full((), float(t.shape[0]), device=t.device)
-    sum_t, rows = all_sum(torch.stack([torch.sum(t), rows]))
+    sum_t = all_sum(torch.sum(t), spatial.voxel_axis())
+    rows = all_sum(torch.full((), float(t.shape[0]), device=t.device),
+                   "data")
     alpha = torch.clamp(1.0 - sum_t / rows, 0.3, 0.7)
     pt = p * t + (1.0 - p) * (1.0 - t)
     w = alpha * t + (1.0 - alpha) * (1.0 - t)
@@ -103,7 +112,8 @@ def masked_balanced_bce(y: torch.Tensor, y_hat: torch.Tensor, mask=None,
                       + log_ptc * w * (1.0 - mask))
     else:
         nll = -smoothness * log_ptc * w
-    num, den = all_sum(torch.stack([torch.sum(nll), torch.sum(w)]))
+    num, den = all_sum(torch.stack([torch.sum(nll), torch.sum(w)]),
+                       spatial.voxel_axis())
     return num / den
 
 

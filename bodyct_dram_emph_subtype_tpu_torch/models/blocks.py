@@ -45,6 +45,19 @@ Activation checkpointing (:func:`checkpointed`, the counterpart of flax
 pass; :func:`batch_norm_train` updates the running statistics in the
 first forward only, as flax applies a rematted ``batch_stats`` update
 once.
+
+On H slabs (``parallel/spatial.py``, inside ``spatial.sharded``) every op
+with an extent along H runs through ``spatial.halo_apply``: the convs of
+:func:`conv3d_ndhwc`, :func:`conv3d_apply` and :func:`roll_conv_bias`,
+the pool of :func:`max_pool3d_ndhwc`, and :func:`decoder_stage`'s kernel;
+:class:`UpsampleConvBlock` upsamples with the global interpolation rows,
+and train BatchNorm sums over ``spatial.voxel_axis()``.
+
+On a model axis (``parallel/tensor.py``) a sliced conv computes its
+O-slice from the whole input; its BatchNorm, ReLU and residual add run on
+the slice, and each block's and stage's output is gathered back
+(``tensor.gather_if``), so every module takes and returns whole
+channels.
 """
 from __future__ import annotations
 
@@ -64,6 +77,7 @@ from ..ops.pallas_conv import pallas_conv3d, supports_pallas_conv3d
 from ..ops.resize import resize_linear_matmul
 from ..ops.roll_conv import roll_conv_affine_relu, roll_conv_packed
 from ..ops.tap_conv import supports_tap_conv3d, tap_conv3d
+from ..parallel import spatial, tensor
 from ..parallel.mesh import all_sum
 
 CONV3D_MODES = ("direct", "d2sum", "d2cat", "pallas", "tapmm", "packw",
@@ -138,13 +152,23 @@ def kernel_dhwio(conv: nn.Conv3d) -> torch.Tensor:
     return conv.weight.permute(2, 3, 4, 1, 0)
 
 
+def _halo_conv(op, x: torch.Tensor, conv: nn.Conv3d, *extras):
+    """``op(x, *extras)`` on this rank's H slab with ``conv``'s H halo
+    (``spatial.halo_apply``; the call itself off slabs)."""
+    return spatial.halo_apply(op, x, conv.kernel_size[1], conv.stride[1],
+                              conv.dilation[1], conv.padding[1], extras)
+
+
 def conv3d_ndhwc(x: torch.Tensor, conv: nn.Conv3d) -> torch.Tensor:
     """``conv`` (its stride, padding, dilation) on NDHWC ``x`` via cuDNN,
     rounded to ``x.dtype``, then its bias added in ``x.dtype``; returns
     contiguous NDHWC."""
-    y = F.conv3d(x.permute(0, 4, 1, 2, 3), conv.weight.to(x.dtype), None,
-                 conv.stride, conv.padding, conv.dilation)
-    y = y.permute(0, 2, 3, 4, 1).contiguous()
+    def op(x):
+        y = F.conv3d(x.permute(0, 4, 1, 2, 3), conv.weight.to(x.dtype), None,
+                     conv.stride, conv.padding, conv.dilation)
+        return y.permute(0, 2, 3, 4, 1).contiguous()
+
+    y = _halo_conv(op, x, conv)
     if conv.bias is not None:
         y = y + conv.bias.to(x.dtype)
     return y
@@ -165,7 +189,8 @@ def conv3d_apply(x: torch.Tensor, conv: nn.Conv3d,
                           conv.stride, conv.dilation[0], x.element_size())
     if op is None:
         return conv3d_ndhwc(x, conv)
-    y = op(x, kernel_dhwio(conv).to(x.dtype), dilation=conv.dilation[0])
+    y = _halo_conv(lambda x: op(x, kernel_dhwio(conv).to(x.dtype),
+                                dilation=conv.dilation[0]), x, conv)
     if conv.bias is not None:
         y = y + conv.bias.to(x.dtype)
     return y
@@ -212,21 +237,22 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm3d) -> torch.Tensor:
     ``F.batch_norm(training=True)`` would store the unbiased n/(n-1)
     variance.
 
-    The moments are the global batch's, as the JAX package's BatchNorm
-    reduces over a data mesh (JAX ``blocks.py:268-276``, the reference's
-    SyncBatchNorm): the float32 sums of ``x`` and ``x^2`` and the voxel
-    count go through the differentiable :func:`~..parallel.mesh.all_sum`
-    (the identity in a world of one), so every rank updates its running
-    statistics with the same values.  Inside a recompute of
-    :func:`checkpointed` the moments (and their ``all_sum``, which every
-    rank issues again in the same order) are computed anew, but the running
+    The moments are the global batch's, as the JAX package's BatchNorm reduces
+    over a data mesh (JAX ``blocks.py:268-276``, the reference's
+    SyncBatchNorm): the float32 sums of ``x`` and ``x^2`` and the voxel count
+    go through the differentiable :func:`~..parallel.mesh.all_sum` over
+    ``spatial.voxel_axis()`` (the identity in a world of one), so every rank
+    updates its running statistics with the same values.  Inside a recompute of
+    :func:`checkpointed` the moments (and their ``all_sum``, which every rank
+    issues again in the same order) are computed anew, but the running
     statistics are left alone: the first forward updated them."""
     xf = x.float()
     dims = tuple(range(x.ndim - 1))
     c = xf.shape[-1]
     count = torch.full((1,), xf.numel() // c, dtype=xf.dtype,
                        device=xf.device)      # a fill: no host copy
-    sums = all_sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims), count]))
+    sums = all_sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims), count]),
+                   spatial.voxel_axis())
     mean = sums[:c] / sums[-1]
     var = sums[c:2 * c] / sums[-1] - mean * mean
     if not getattr(_REMAT, "active", False):
@@ -251,7 +277,8 @@ def roll_conv_bias(x: torch.Tensor, conv: nn.Conv3d) -> torch.Tensor:
     """Training 3x3x3 stride-1 conv through ``roll_conv_packed``: output
     rounded to ``x.dtype`` first, then the conv bias added in that dtype
     (``packed.py:318-330``)."""
-    y = roll_conv_packed(x, kernel_dhwio(conv).to(x.dtype))
+    y = _halo_conv(lambda x: roll_conv_packed(
+        x, kernel_dhwio(conv).to(x.dtype)), x, conv)
     if conv.bias is not None:
         y = y + conv.bias.to(x.dtype)
     return y
@@ -259,8 +286,11 @@ def roll_conv_bias(x: torch.Tensor, conv: nn.Conv3d) -> torch.Tensor:
 
 def max_pool3d_ndhwc(x: torch.Tensor) -> torch.Tensor:
     """k3 s2 p1 max-pool of NDHWC ``x`` (cuDNN; the training pool)."""
-    y = F.max_pool3d(x.permute(0, 4, 1, 2, 3), 3, 2, 1)
-    return y.permute(0, 2, 3, 4, 1).contiguous()
+    def op(x):
+        y = F.max_pool3d(x.permute(0, 4, 1, 2, 3), 3, 2, 1)
+        return y.permute(0, 2, 3, 4, 1).contiguous()
+
+    return spatial.halo_apply(op, x, 3, 2, 1, 1)
 
 
 def affine(y: torch.Tensor, bn: nn.BatchNorm3d,
@@ -334,12 +364,16 @@ def _shortcut(block: nn.Module, inplanes: int, planes: int, stride: int,
         block.downsample = DownsampleB(inplanes, planes, stride)
 
 
-def _residual(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    if not block.use_downsample:
-        return x
-    if block.shortcut_type == "B":
+def _residual(block: nn.Module, x: torch.Tensor,
+              last: nn.Conv3d) -> torch.Tensor:
+    """The shortcut of ``block`` on ``x``, cut to the O-slice of its last
+    conv ``last`` where that is sliced (shortcut 'B''s conv is sliced with
+    it)."""
+    if block.use_downsample and block.shortcut_type == "B":
         return block.downsample(x)
-    return downsample_shortcut_a(x, block.planes, block.stride)
+    if block.use_downsample:
+        x = downsample_shortcut_a(x, block.planes, block.stride)
+    return tensor.channel_slice(x) if tensor.sliced(last) else x
 
 
 class BasicBlock(nn.Module):
@@ -373,9 +407,11 @@ class BasicBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bn = batch_norm_train if self.training else affine
-        out = torch.relu(bn(self._conv(x, self.conv1), self.bn1))
+        out = tensor.gather_if(
+            torch.relu(bn(self._conv(x, self.conv1), self.bn1)), self.conv1)
         out = bn(self._conv(out, self.conv2), self.bn2)
-        return torch.relu(out + _residual(self, x))
+        return tensor.gather_if(
+            torch.relu(out + _residual(self, x, self.conv2)), self.conv2)
 
     def fused_params(self):
         """(kernels, muls, adds) of both convs for ``fused_layer1``."""
@@ -404,15 +440,22 @@ class Bottleneck(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bn = batch_norm_train if self.training else affine
-        out = torch.relu(bn(conv3d_apply(x, self.conv1), self.bn1))
-        out = torch.relu(bn(conv3d_apply(out, self.conv2), self.bn2))
+        out = tensor.gather_if(torch.relu(
+            bn(conv3d_apply(x, self.conv1), self.bn1)), self.conv1)
+        out = tensor.gather_if(torch.relu(
+            bn(conv3d_apply(out, self.conv2), self.bn2)), self.conv2)
         out = bn(conv3d_apply(out, self.conv3), self.bn3)
-        return torch.relu(out + _residual(self, x))
+        return tensor.gather_if(
+            torch.relu(out + _residual(self, x, self.conv3)), self.conv3)
 
 
 def crop_concat(t1: torch.Tensor, t2: torch.Tensor) -> torch.Tensor:
     """Center-crop ``t2`` spatially to ``t1`` and concat channels
-    (``med3d.py:39-48``; offset = ceil((b-a)/2) per axis).  NDHWC."""
+    (``med3d.py:39-48``; offset = ceil((b-a)/2) per axis).  NDHWC.  On H
+    slabs no crop may cross a slab: H must match."""
+    if spatial.active() and t1.shape[2] != t2.shape[2]:
+        raise ValueError(f"crop_concat on H slabs of {t1.shape[2]} and "
+                         f"{t2.shape[2]} rows would cross a slab")
     slices = [slice(None)]
     for a, b in zip(t1.shape[1:4], t2.shape[1:4]):
         off = -((a - b) // 2)
@@ -447,16 +490,18 @@ def decoder_stage(x: torch.Tensor, conv: nn.Conv3d, bn: nn.BatchNorm3d,
         bn_fn = batch_norm_train if training else affine
         y = (roll_conv_bias(x, conv) if kernels
              else decoder_conv(x, conv, packed))
-        return torch.relu(bn_fn(y, bn))
+        return tensor.gather_if(torch.relu(bn_fn(y, bn)), conv)
     mul, add = bn_affine(bn)
-    return roll_conv_affine_relu(x, kernel_dhwio(conv), mul,
-                                 conv.bias.float() * mul + add)
+    return tensor.gather_if(_halo_conv(lambda x: roll_conv_affine_relu(
+        x, kernel_dhwio(conv), mul, conv.bias.float() * mul + add), x, conv),
+        conv)
 
 
 class UpsampleConvBlock(nn.Module):
     """x2 trilinear (align_corners=True) upsample as interpolation-matrix
     products + crop-concat + conv-BN-ReLU stages (``med3d.py:50-89``),
-    each a :func:`decoder_stage`."""
+    each a :func:`decoder_stage`.  On H slabs the upsample reads one halo
+    row on each side and takes the whole axis's interpolation rows."""
 
     def __init__(self, in_chs: int, base_chs: Sequence[int] = (64, 64),
                  scale_factor: int = 2):
@@ -474,8 +519,12 @@ class UpsampleConvBlock(nn.Module):
                 packed: bool = False) -> torch.Tensor:
         s = self.scale_factor
         d, h, w = inputs.shape[1:4]
-        up = resize_linear_matmul(inputs, (d * s, h * s, w * s), (1, 2, 3),
-                                  align_corners=True).to(inputs.dtype)
+        lo = 0
+        if spatial.active():
+            inputs, lo, _ = spatial.halo_extend(inputs, 1, 1)
+        up = resize_linear_matmul(
+            inputs, (d * s, h * s, w * s), (1, 2, 3), align_corners=True,
+            windows=spatial.h_windows(h, h * s, lo)).to(inputs.dtype)
         x = crop_concat(up, cats.to(inputs.dtype)).contiguous()
         for conv, bn, _ in self.conv_blocks:
             x = decoder_stage(x, conv, bn, packed, self.training)

@@ -26,11 +26,16 @@ default route (stem conv, BN, ReLU, ``fused_pool_layer1``: kernel C and
 """
 from __future__ import annotations
 
+import logging
 from typing import Sequence
 
 import torch
 
 from ..ops.maxpool_kernel import supports_maxpool_quads
+from ..parallel import spatial, tensor
+
+logger = logging.getLogger(__name__)
+_MESH_WARNED = []
 
 _QUAD_STEM_ENABLE = False
 _PAIR_STEM_ENABLE = False
@@ -70,14 +75,29 @@ def stem_quad_supported(shape: Sequence[int], features: int = 64,
                                   itemsize)
 
 
+def _off_on_mesh() -> bool:
+    """True on H slabs (``parallel/spatial.py``) or a model axis
+    (``parallel/tensor.py``), where both stems are off with one warning,
+    as JAX's gate turns its fast path off on a spatial or model mesh
+    (``parallel/mesh.py:129-133``, ``experimental.py:61-62``)."""
+    if not spatial.active() and tensor.size() == 1:
+        return False
+    if not _MESH_WARNED:
+        _MESH_WARNED.append(True)
+        logger.warning("quad and pair stems off on a spatial or model "
+                       "axis: the default stem route runs")
+    return True
+
+
 def use_quad_stem(x_shape: Sequence[int], train: bool, packed_decoder: bool,
                   dtype: torch.dtype) -> bool:
     """Gate of the quad stem path: eval, conv mode ``roll``, a packed
-    decoder, the switch on, and :func:`stem_quad_supported`."""
+    decoder, the switch on, no spatial or model axis, and
+    :func:`stem_quad_supported`."""
     from . import blocks
     if train or not packed_decoder or blocks.get_conv3d_mode() != "roll":
         return False
-    if not _QUAD_STEM_ENABLE:
+    if not _QUAD_STEM_ENABLE or _off_on_mesh():
         return False
     return stem_quad_supported(tuple(x_shape), 64, dtype.itemsize)
 
@@ -85,14 +105,14 @@ def use_quad_stem(x_shape: Sequence[int], train: bool, packed_decoder: bool,
 def use_pair_stem(x_shape: Sequence[int], train: bool, packed_decoder: bool,
                   dtype: torch.dtype, n_blocks: int) -> bool:
     """Gate of the pair stem path: eval, conv mode ``roll``, a packed
-    decoder, the switch on, a 1-channel 5-D input with ``d % 4``, ``h % 4``
-    and ``w % 8`` all 0.  ``dtype`` and ``n_blocks`` (layer1's depth) fed
-    JAX's VMEM budget, which is not ported; they are kept so that the call
-    reads as JAX's."""
+    decoder, the switch on, no spatial or model axis, a 1-channel 5-D input
+    with ``d % 4``, ``h % 4`` and ``w % 8`` all 0.  ``dtype`` and
+    ``n_blocks`` (layer1's depth) fed JAX's VMEM budget, which is not
+    ported; they are kept so that the call reads as JAX's."""
     from . import blocks
     if train or not packed_decoder or blocks.get_conv3d_mode() != "roll":
         return False
-    if not _PAIR_STEM_ENABLE:
+    if not _PAIR_STEM_ENABLE or _off_on_mesh():
         return False
     if len(x_shape) != 5 or x_shape[-1] != 1:
         return False

@@ -107,6 +107,19 @@ block or stage at a time.  The backward recomputes their forward, so the
 running statistics are those of the run without it.  The eval forward
 ignores ``remat``.
 
+On H slabs (``parallel/spatial.py``, inside ``spatial.sharded``) every
+route above runs on this rank's slab with its halos (``models/blocks.py``,
+``ops/layer1_kernel.py``): the kernels' launches per rank are those of one
+process.  The heads' kernel B takes a one-row halo, the lesion fractions
+sum their partial sums over the spatial group, and ``ResNetSegCls`` and
+``ResNet`` sum their volume means over it.  On a model axis
+(``parallel/tensor.py``) every conv whose O divides by M runs its O-slice
+and each stage's output is gathered; kernel B runs whole on every model
+rank with us3's weights and BatchNorm gathered.  The quad and pair stems
+are off on either axis, with one warning, as JAX's gate turns its fast
+path off on a spatial or model mesh (``mesh.py:129-133``,
+``experimental.py:61-62``).
+
 The JAX package's W-pair packing and space-to-depth stem are TPU layouts
 and are not ported.
 """
@@ -117,10 +130,11 @@ from typing import Dict, List, Optional, Sequence, Tuple, Type
 import torch
 import torch.nn as nn
 
-from ..ops.layer1_kernel import fused_layer1, fused_pool_layer1
+from ..ops.layer1_kernel import fused_layer1, fused_pool_layer1, pool_k3s2p1
 from ..ops.masked_pool import lung_masked_fraction
-from ..ops.maxpool_kernel import max_pool_k3s2p1
 from ..ops.roll_conv import roll_conv_heads_sigmoid
+from ..parallel import spatial, tensor
+from ..parallel.mesh import all_sum
 from ..ops.stem_kernel import fused_stem_pool, supports_fused_stem
 from . import blocks
 from .blocks import (BasicBlock, UpsampleConvBlock, affine, batch_norm_train,
@@ -371,7 +385,8 @@ class _Trunk(nn.Module):
         trunk neither)."""
         if self.training or blocks.get_conv3d_mode() != "roll":
             bn = batch_norm_train if self.training else affine
-            stem = torch.relu(bn(conv3d_ndhwc(x, self.conv1), self.bn1))
+            stem = tensor.gather_if(torch.relu(
+                bn(conv3d_ndhwc(x, self.conv1), self.bn1)), self.conv1)
             x1 = self._layer("layer1", max_pool3d_ndhwc(stem))
             x4 = self._layer("layer4", self._layer(
                 "layer3", self._layer("layer2", x1)))
@@ -390,11 +405,11 @@ class _Trunk(nn.Module):
                   if self.block is BasicBlock else self.layer1(pooled))
         elif self.block is BasicBlock:
             # identity blocks: pool + the whole layer1 stack on kernels C, A
-            stem = affine(conv3d_ndhwc(x, self.conv1), self.bn1, relu=True)
+            stem = self._stem(x)
             x1 = fused_pool_layer1(stem, *_stack_params(self.layer1))
         else:
-            stem = affine(conv3d_ndhwc(x, self.conv1), self.bn1, relu=True)
-            x1 = self.layer1(max_pool_k3s2p1(stem))
+            stem = self._stem(x)
+            x1 = self.layer1(pool_k3s2p1(stem))
         x2 = self.layer2[0](x1)
         if self.block is BasicBlock and len(self.layer2) > 1:
             x2 = fused_layer1(x2, *_stack_params(self.layer2[1:]))
@@ -404,6 +419,13 @@ class _Trunk(nn.Module):
         x4 = self.layer4(self.layer3(x2))
         return stem, x1, x4
 
+    def _stem(self, x: torch.Tensor) -> torch.Tensor:
+        """The eval stem conv (cuDNN), BN and ReLU, gathered on a model
+        axis."""
+        return tensor.gather_if(
+            affine(conv3d_ndhwc(x, self.conv1), self.bn1, relu=True),
+            self.conv1)
+
     def _quad_stem(self, x: torch.Tensor):
         """(stem, pooled) of the quad stem path: one launch of kernel E
         where the JAX gate ``supports_fused_stem`` holds, else the cuDNN
@@ -412,16 +434,30 @@ class _Trunk(nn.Module):
         if supports_fused_stem(tuple(x.shape), 64, x.element_size()):
             return fused_stem_pool(x, kernel_dhwio(self.conv1), mul, add)
         stem = affine(conv3d_ndhwc(x, self.conv1), self.bn1, relu=True)
-        return stem, max_pool_k3s2p1(stem)
+        return stem, pool_k3s2p1(stem)
+
+
+def volume_mean(d: torch.Tensor) -> torch.Tensor:
+    """The float32 mean of NDHWC ``d`` over (D, H, W): on H slabs the
+    partial sums summed over the spatial group (differentiably)."""
+    if not spatial.active():
+        return d.float().mean((1, 2, 3))
+    n = d.shape[1] * d.shape[2] * d.shape[3] * spatial.size()
+    return all_sum(d.float().sum((1, 2, 3)), "spatial") / n
 
 
 def _head_logits(x: torch.Tensor, fc: nn.Conv3d) -> torch.Tensor:
     """A 1x1x1 head conv on NDHWC ``x`` as a matmul: logits rounded to
     ``x.dtype``, the bias added in it (JAX ``conv3d(n, 1, bias=True)``;
-    ``resnet3d.py:413-419``)."""
+    ``resnet3d.py:413-419``).  On a model axis a sliced head's logits are
+    gathered; either way what follows is repeated whole on every model
+    rank (``tensor.replicated``)."""
     dt = x.dtype
-    w = fc.weight.reshape(fc.out_channels, -1).t().to(dt)
-    return torch.matmul(x, w) + fc.bias.to(dt)
+    w = fc.weight.reshape(fc.weight.shape[0], -1).t().to(dt)
+    if tensor.sliced(fc):
+        return tensor.replicated(tensor.gather_channels(
+            torch.matmul(x, w) + fc.bias.to(dt)))
+    return torch.matmul(tensor.replicated(x), w) + fc.bias.to(dt)
 
 
 class _SegNet(_Trunk):
@@ -498,12 +534,17 @@ class ResNetSegReg(_SegNet):
                               for fc in self.fcs], dim=-1)
         conv, bn, _ = self.us3
         mul, add = bn_affine(bn)
+        kernel, shift = kernel_dhwio(conv), conv.bias.float() * mul + add
+        if tensor.sliced(conv):     # B runs whole: its heads need every
+            # channel of us3 (about 55 k weights gathered)
+            kernel, mul, shift = (tensor.gather_channels(t)
+                                  for t in (kernel, mul, shift))
         head_w = torch.cat([fc.weight.reshape(1, -1).t() for fc in self.fcs],
                            dim=1)
         head_b = torch.cat([fc.bias for fc in self.fcs])
-        return roll_conv_heads_sigmoid(xup2, kernel_dhwio(conv), mul,
-                                       conv.bias.float() * mul + add,
-                                       head_w, head_b)
+        return spatial.halo_apply(
+            lambda x: roll_conv_heads_sigmoid(x, kernel, mul, shift, head_w,
+                                              head_b), xup2, 3, 1, 1, 1)
 
     def forward(self, x: torch.Tensor, lungs: Optional[torch.Tensor] = None
                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
@@ -540,7 +581,7 @@ class ResNetSegCls(_SegNet):
         xup3 = self._us3(self._up2(x))
         dense_outs = [_head_logits(xup3, fc) for fc in self.fcs]
         # a float32 mean over ~2 M voxels per sample, never a bf16 sum
-        return dense_outs, [d.float().mean((1, 2, 3)) for d in dense_outs]
+        return dense_outs, [volume_mean(d) for d in dense_outs]
 
 
 class ResNet(_Trunk):
@@ -565,4 +606,4 @@ class ResNet(_Trunk):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         _, _, x4 = self.trunk(x)
         dense = _head_logits(x4, self.fc)
-        return dense.float().mean((1, 2, 3)), dense
+        return volume_mean(dense), dense

@@ -204,6 +204,8 @@ def load_state_dict_greedy(model: torch.nn.Module,
     and shape match ``model``; skip the rest with a warning and report the
     counts."""
     own = model.state_dict()
+    # a model-axis slice takes the full entries (its load hook cuts them)
+    full = getattr(model, "tp_full_shapes", {})
     keep = {}
     report = {"loaded": 0, "shape_mismatch": 0, "unexpected": 0,
               "missing": 0}
@@ -212,9 +214,10 @@ def load_state_dict_greedy(model: torch.nn.Module,
         if key not in own:
             logger.warning("[torch_import] unexpected entry: %s", key)
             report["unexpected"] += 1
-        elif tuple(np.shape(value)) != tuple(own[key].shape):
+        elif tuple(np.shape(value)) != full.get(key, tuple(own[key].shape)):
             logger.warning("[torch_import] shape mismatch: %s %s vs %s",
-                           key, tuple(value.shape), tuple(own[key].shape))
+                           key, tuple(value.shape),
+                           full.get(key, tuple(own[key].shape)))
             report["shape_mismatch"] += 1
         else:
             keep[key] = torch.as_tensor(np.asarray(value)) \

@@ -24,6 +24,14 @@ by arithmetic, so the round trips are not what bounds the stack.
 
 On CPU tensors the wrappers run their plain versions, so these functions
 need no plain twin of their own.
+
+On H slabs (``parallel/spatial.py``) each launch runs on its slab
+extended by the op's halo, exchanged before it: one row each side for a
+conv, whose residual is padded with zero rows that the crop drops, and
+two rows above for the stride-2 pool (:func:`pool_k3s2p1`).  On a model
+axis (``parallel/tensor.py``) each conv takes its O-slice of the kernel
+and the affine, its residual slice, and its output is gathered.  The
+launches per rank are those of one process.
 """
 from __future__ import annotations
 
@@ -31,8 +39,30 @@ from typing import Sequence
 
 import torch
 
+from ..parallel import spatial, tensor
 from .maxpool_kernel import max_pool_k3s2p1
 from .roll_conv import roll_conv_affine_relu
+
+
+def pool_k3s2p1(x: torch.Tensor) -> torch.Tensor:
+    """Kernel C's k3 s2 p1 max-pool on this rank's H slab (with its halo)
+    or on the whole volume."""
+    return spatial.halo_apply(max_pool_k3s2p1, x, 3, 2, 1, 1)
+
+
+def conv_a(x: torch.Tensor, kernel: torch.Tensor, scale: torch.Tensor,
+           shift: torch.Tensor, residual=None) -> torch.Tensor:
+    """``roll_conv_affine_relu`` (kernel A, stride 1, pad 1) on this rank's
+    H slab (with its halo; ``residual`` padded with zero rows) or on the
+    whole volume."""
+    if residual is None:
+        return spatial.halo_apply(
+            lambda x: roll_conv_affine_relu(x, kernel, scale, shift), x, 3,
+            1, 1, 1)
+    return spatial.halo_apply(
+        lambda x, r: roll_conv_affine_relu(x, kernel, scale, shift,
+                                           residual=r), x, 3, 1, 1, 1,
+        (residual,))
 
 
 def fused_layer1(x: torch.Tensor, kernels: Sequence[torch.Tensor],
@@ -47,9 +77,14 @@ def fused_layer1(x: torch.Tensor, kernels: Sequence[torch.Tensor],
     if not (len(kernels) == len(muls) == len(adds)) or len(kernels) % 2:
         raise ValueError("need 2*NB kernels with one affine each")
     for i in range(0, len(kernels), 2):
-        h = roll_conv_affine_relu(x, kernels[i], muls[i], adds[i])
-        x = roll_conv_affine_relu(h, kernels[i + 1], muls[i + 1],
-                                  adds[i + 1], residual=x)
+        # identity blocks (O == C): a kernel of fewer outputs than x has
+        # channels is a model-axis slice, whose output is gathered
+        part = kernels[i].shape[-1] < x.shape[-1]
+        gather = tensor.gather_channels if part else (lambda t: t)
+        h = gather(conv_a(x, kernels[i], muls[i], adds[i]))
+        res = tensor.channel_slice(x).contiguous() if part else x
+        x = gather(conv_a(h, kernels[i + 1], muls[i + 1], adds[i + 1],
+                          residual=res))
     return x
 
 
@@ -58,4 +93,4 @@ def fused_pool_layer1(x: torch.Tensor, kernels: Sequence[torch.Tensor],
                       adds: Sequence[torch.Tensor]) -> torch.Tensor:
     """k3 s2 p1 max-pool of the post-ReLU NDHWC stem, then
     :func:`fused_layer1`.  Returns (B, D/2, H/2, W/2, C) NDHWC."""
-    return fused_layer1(max_pool_k3s2p1(x), kernels, muls, adds)
+    return fused_layer1(pool_k3s2p1(x), kernels, muls, adds)

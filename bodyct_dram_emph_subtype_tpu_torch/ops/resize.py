@@ -39,18 +39,44 @@ def _interp_matrix(in_size: int, out_size: int, align_corners: bool
     return m
 
 
-def _matrix(in_size, out_size, align_corners, like: torch.Tensor):
-    return torch.from_numpy(_interp_matrix(in_size, out_size, align_corners)
-                            ).to(device=like.device, dtype=like.dtype)
+def _matrix(in_size, out_size, align_corners, like: torch.Tensor,
+            window=None):
+    """The (in, out) interpolation matrix on ``like``'s device and dtype;
+    ``window`` = (in_start, out_start, in_total, out_total): the block of
+    the (in_total, out_total) matrix that rows ``[in_start, in_start +
+    in_size)`` and columns ``[out_start, out_start + out_size)`` cut out
+    (a slab of a sharded axis; raises ``ValueError`` where one of those
+    columns has a tap outside those rows)."""
+    if window is None:
+        m = _interp_matrix(in_size, out_size, align_corners)
+    else:
+        i0, o0, in_total, out_total = window
+        full = _interp_matrix(in_total, out_total, align_corners)
+        cols = full[:, o0:o0 + out_size]
+        m = cols[i0:i0 + in_size]
+        if i0 < 0 or np.any(np.delete(
+                cols, np.s_[i0:i0 + in_size], axis=0)):
+            raise ValueError(f"interpolation window {window}: output rows "
+                             f"[{o0}, {o0 + out_size}) read outside input "
+                             f"rows [{i0}, {i0 + in_size})")
+    return torch.from_numpy(np.ascontiguousarray(m)).to(
+        device=like.device, dtype=like.dtype)
 
 
 def resize_linear_matmul(x: torch.Tensor, out_sizes: Sequence[int],
-                         axes: Sequence[int], align_corners: bool
-                         ) -> torch.Tensor:
+                         axes: Sequence[int], align_corners: bool,
+                         windows: Sequence = None) -> torch.Tensor:
     """n-linear resize of ``x`` over ``axes``: one matrix product per axis,
-    in ``x.dtype`` (float32 products stay float32 when TF32 is off)."""
-    for axis, out_size in zip(axes, out_sizes):
-        m = _matrix(x.shape[axis], out_size, align_corners, x)
+    in ``x.dtype`` (float32 products stay float32 when TF32 is off).
+    ``windows``: per axis None or (in_start, out_start, in_total,
+    out_total), the global rows this slab holds and the global output rows
+    it makes (:func:`_matrix`): the interpolation of the whole axis, not of
+    the slab alone (the align_corners x2 matrix does not commute with a
+    shift)."""
+    if windows is None:
+        windows = [None] * len(axes)
+    for axis, out_size, window in zip(axes, out_sizes, windows):
+        m = _matrix(x.shape[axis], out_size, align_corners, x, window)
         x = torch.movedim(torch.tensordot(x, m, dims=([axis], [0])), -1,
                           axis)
     return x
@@ -146,25 +172,42 @@ def nearest_indices(out_size: int, in_size, device=None) -> torch.Tensor:
 
 
 def nearest_gather_1d(x: torch.Tensor, out_size: int, axis: int,
-                      in_size=None) -> torch.Tensor:
+                      in_size=None, window=None) -> torch.Tensor:
     """Resample one axis with torch 'nearest' semantics; ``in_size`` (the
     true extent, default the axis length) may be smaller than the padded
-    axis."""
-    if in_size is None:
-        in_size = x.shape[axis]
-    return torch.index_select(x, axis,
-                              nearest_indices(out_size, in_size, x.device))
+    axis.  ``window`` = (in_start, out_start, in_total, out_total): ``x``
+    holds global rows ``[in_start, ...)`` of ``in_total`` and the result
+    global output rows ``[out_start, out_start + out_size)`` of
+    ``out_total`` (a slab of a sharded axis; raises ``ValueError`` where a
+    source row lies outside the slab)."""
+    if window is None:
+        if in_size is None:
+            in_size = x.shape[axis]
+        idx = nearest_indices(out_size, in_size, x.device)
+    else:
+        i0, o0, in_total, out_total = window
+        idx = nearest_indices(out_total, in_total, x.device)[
+            o0:o0 + out_size] - i0
+        if idx.numel() and (int(idx.min()) < 0
+                            or int(idx.max()) >= x.shape[axis]):
+            raise ValueError(f"nearest window {window}: source rows outside "
+                             f"the slab's {x.shape[axis]}")
+    return torch.index_select(x, axis, idx)
 
 
 def resize_nearest(x: torch.Tensor, out_sizes: Sequence[int],
-                   axes: Sequence[int], in_sizes: Sequence = None
-                   ) -> torch.Tensor:
+                   axes: Sequence[int], in_sizes: Sequence = None,
+                   windows: Sequence = None) -> torch.Tensor:
     """n-dim torch 'nearest' resize over ``axes``; ``in_sizes``: the true
-    extents (default the axes' lengths)."""
+    extents (default the axes' lengths); ``windows``: per axis None or a
+    slab's global rows (:func:`nearest_gather_1d`)."""
     if in_sizes is None:
         in_sizes = [None] * len(axes)
-    for axis, out_size, in_size in zip(axes, out_sizes, in_sizes):
-        x = nearest_gather_1d(x, out_size, axis, in_size)
+    if windows is None:
+        windows = [None] * len(axes)
+    for axis, out_size, in_size, window in zip(axes, out_sizes, in_sizes,
+                                               windows):
+        x = nearest_gather_1d(x, out_size, axis, in_size, window)
     return x
 
 

@@ -28,8 +28,21 @@ under ``torch.distributed``:
 - :func:`distributed` runs a CLI's body as one rank: the training,
   evaluation and deployment CLIs share it and ``--multihost``.
 
-Only the 'data' axis is ported: a mesh with ``spatial`` or ``model`` above
-1 raises ``NotImplementedError`` (ROADMAP section 1).
+The mesh (:func:`set_mesh`): ``--mesh data=D,spatial=S,model=M`` runs
+D*S*M ranks, rank ``r = (d*S + s)*M + m`` at coordinates (d, s, m)
+(:func:`coords`), JAX's data-major ``reshape(data, spatial, model)``.
+Every rank creates every group in the same order: ``spatial`` (fixed d,
+m: the halo exchange of ``parallel/spatial.py``), ``model`` (fixed d, s:
+the channel gathers of ``parallel/tensor.py``), ``data`` (fixed s, m: the
+per-row sums of the losses) and ``replica`` (fixed m, spanning data x
+spatial: the batch's voxel sums, train BatchNorm and DDP).  Axes whose
+groups hold the same ranks share one group, so one communicator (at
+``data=1`` ``replica`` is ``spatial``, at ``spatial=1`` it is ``data``),
+and under NCCL every communicator is connected before the first step.
+The gradient rule above holds per group: every partial sum goes through
+:func:`all_sum` over the group it spans, DDP over the ``replica`` group
+divides by its D*S ranks, and the model axis's channel gather sums its
+gradient over the model group (``parallel/tensor.py``).
 """
 from __future__ import annotations
 
@@ -90,26 +103,140 @@ def parse_mesh(value) -> Optional[MeshSpec]:
     return MeshSpec(**axes)
 
 
-def data_width(mesh=None, nchips: Optional[int] = None,
+def mesh_width(mesh=None, nchips: Optional[int] = None,
                device: Optional[str] = None) -> int:
-    """The number of data-parallel ranks that ``--mesh`` / ``--ngpus`` ask
-    for; neither given: every visible card (JAX's ``nchips=None``), or 1
-    on the CPU.  Raises ``NotImplementedError`` for a spatial or model
-    axis."""
+    """The number of ranks that ``--mesh`` / ``--ngpus`` ask for: D*S*M of
+    a mesh, else ``nchips`` data-parallel ranks (JAX ``loop.py:126-141``);
+    neither given: every visible card (JAX's ``nchips=None``), or 1 on the
+    CPU."""
     spec = parse_mesh(mesh)
     if spec is not None:
-        if spec.spatial > 1 or spec.model > 1:
-            raise NotImplementedError(
-                f"mesh {spec}: only the 'data' axis is ported; spatial "
-                f"H-sharding and tensor parallelism are queued in ROADMAP "
-                f"section 1 ('Spatial sharding and tensor parallelism')")
-        return spec.data
+        return spec.size
     if nchips is not None:
         return int(nchips)
     on_cpu = device is not None and torch.device(device).type == "cpu"
     if on_cpu or not torch.cuda.is_available():
         return 1
     return torch.cuda.device_count()
+
+
+@dataclasses.dataclass
+class _Layout:
+    spec: MeshSpec
+    coords: tuple
+    groups: dict
+
+
+_LAYOUT: Optional[_Layout] = None
+AXES = ("spatial", "model", "data", "replica")
+
+
+def _axis_ranks(spec: MeshSpec):
+    """``{axis: [rank lists]}``: every group of every axis, in the order
+    every rank creates them."""
+    dd, ss, mm = spec.data, spec.spatial, spec.model
+
+    def r(d, s, m):
+        return (d * ss + s) * mm + m
+
+    return {
+        "spatial": [[r(d, s, m) for s in range(ss)]
+                    for d in range(dd) for m in range(mm)],
+        "model": [[r(d, s, m) for m in range(mm)]
+                  for d in range(dd) for s in range(ss)],
+        "data": [[r(d, s, m) for d in range(dd)]
+                 for s in range(ss) for m in range(mm)],
+        "replica": [[r(d, s, m) for d in range(dd) for s in range(ss)]
+                    for m in range(mm)]}
+
+
+def set_mesh(spec: Optional[MeshSpec] = None) -> MeshSpec:
+    """Lay the process group out as ``spec`` (default: every rank on the
+    data axis) and create the groups of :data:`AXES` (a no-op when that
+    layout is set already).  Every rank must call it, in the same order
+    as its other collectives."""
+    global _LAYOUT
+    world = world_size()
+    spec = parse_mesh(spec) or MeshSpec(data=world)
+    if _LAYOUT is not None and _LAYOUT.spec == spec:
+        return spec
+    if spec.size != world:
+        raise ValueError(f"mesh {spec} needs {spec.size} ranks, the process "
+                         f"group holds {world}")
+    me = rank()
+    m = me % spec.model
+    s = me // spec.model % spec.spatial
+    d = me // (spec.model * spec.spatial)
+    made, groups = {}, {}       # one group per distinct set of ranks
+    for axis, lists in _axis_ranks(spec).items():
+        for ranks in lists:
+            key = tuple(ranks)
+            if key in made:
+                pass
+            elif len(ranks) == 1:
+                made[key] = None
+            elif len(ranks) == world:
+                made[key] = dist.group.WORLD
+            else:
+                made[key] = dist.new_group(ranks)
+            if me in ranks:
+                groups[axis] = made[key]
+    if world > 1 and dist.get_backend() == "nccl":
+        _connect({tuple(range(world)): dist.group.WORLD, **made})
+    _LAYOUT = _Layout(spec, (d, s, m), groups)
+    return spec
+
+
+def _connect(made: dict) -> None:
+    """Create the NCCL communicator of every group of ``made`` (``{ranks:
+    group}``) now, one after another in the same order on every rank,
+    each finished before the next starts.  Left to its first collective,
+    a communicator would be created while those of other groups have
+    kernels in flight that wait on ranks busy creating theirs."""
+    one = torch.zeros(1, device=torch.cuda.current_device())
+    for ranks, g in made.items():
+        if g is not None and rank() in ranks:
+            dist.all_reduce(one, group=g)
+            torch.cuda.synchronize()
+
+
+def _layout() -> _Layout:
+    if _LAYOUT is None or _LAYOUT.spec.size != world_size():
+        world = world_size()
+        return _Layout(MeshSpec(data=world), (rank(), 0, 0),
+                       {"spatial": None, "model": None,
+                        "data": dist.group.WORLD if world > 1 else None,
+                        "replica": dist.group.WORLD if world > 1 else None})
+    return _LAYOUT
+
+
+def mesh() -> MeshSpec:
+    """The layout of the process group (``data`` = the world until
+    :func:`set_mesh` says otherwise)."""
+    return _layout().spec
+
+
+def coords() -> tuple:
+    """This rank's (d, s, m)."""
+    return _layout().coords
+
+
+def group(axis: str):
+    """This rank's process group along ``axis`` (one of :data:`AXES`), or
+    None when it holds this rank alone."""
+    return _layout().groups[axis]
+
+
+def axis_size(axis: str) -> int:
+    g = group(axis)
+    return 1 if g is None else dist.get_world_size(g)
+
+
+def is_leader() -> bool:
+    """True on the first rank of its spatial and model group: the rank
+    that speaks for its data index (writes files, reports rows)."""
+    _, s, m = coords()
+    return s == 0 and m == 0
 
 
 def _free_port() -> int:
@@ -188,8 +315,9 @@ def init_distributed(device: Optional[str] = None) -> torch.device:
                                  f"{os.environ['MASTER_PORT']}",
             rank=int(os.environ["RANK"]),
             world_size=int(os.environ["WORLD_SIZE"]))
-    # the tensor collectives (DDP's buckets, all_sum) share the default
-    # group, so they run on one communicator in autograd's order
+    # the tensor collectives (DDP's buckets, all_sum, the halo and channel
+    # gathers) go over the mesh's groups (set_mesh): one communicator per
+    # distinct set of ranks, each used in autograd's order on every rank
     _HOST_GROUP = (dist.group.WORLD if backend == "gloo"
                    else dist.new_group(backend="gloo"))
     logger.info("rank %d of %d on %s (%s)", rank(), world_size(), dev,
@@ -212,7 +340,7 @@ def distributed(module: str, args, argv):
     run ``module`` as child processes (raises ``SystemExit`` with their
     exit code if one failed)."""
     if not args.multihost:
-        world = data_width(getattr(args, "mesh", None), args.nchips,
+        world = mesh_width(getattr(args, "mesh", None), args.nchips,
                            args.device)
         if world > 1:
             code = spawn_ranks(module, list(sys.argv[1:] if argv is None
@@ -225,16 +353,19 @@ def distributed(module: str, args, argv):
         return
     device = init_distributed(args.device)
     try:
+        spec = parse_mesh(getattr(args, "mesh", None))
+        set_mesh(spec if spec is not None and spec.size > 1 else None)
         yield str(device), rank()
     finally:
         shutdown()
 
 
 def shutdown() -> None:
-    global _HOST_GROUP
+    global _HOST_GROUP, _LAYOUT
     if dist.is_initialized():
         dist.destroy_process_group()
     _HOST_GROUP = None
+    _LAYOUT = None
 
 
 def world_size() -> int:
@@ -246,25 +377,30 @@ def rank() -> int:
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """Sum over the ranks; the backward sums the gradients over them."""
+    """Sum over a group; the backward sums the gradients over it."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         y = x.detach().clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, grad):
         g = grad.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g)
-        return g
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
-def all_sum(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over the ranks, differentiably (:class:`_AllReduceSum`);
-    ``x`` itself in a world of one."""
-    return _AllReduceSum.apply(x) if world_size() > 1 else x
+def all_sum(x: torch.Tensor, axis: Optional[str] = None) -> torch.Tensor:
+    """``x`` summed over the ranks of ``axis`` (one of :data:`AXES`;
+    default every rank), differentiably (:class:`_AllReduceSum`); ``x``
+    itself where the group holds this rank alone."""
+    if world_size() == 1:
+        return x
+    g = dist.group.WORLD if axis is None else group(axis)
+    return x if g is None else _AllReduceSum.apply(x, g)
 
 
 def barrier() -> None:
@@ -282,18 +418,22 @@ def gather_objects(obj) -> List:
 
 
 def cat_all_gather(arrays: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-    """The per-rank arrays concatenated in rank order on every rank (JAX
-    ``process_allgather`` + ``reshape(-1)``, reference ``cat_all_gather``)."""
-    parts = gather_objects(arrays)
-    return {k: np.concatenate([np.asarray(p[k]).reshape(-1) for p in parts])
-            for k in arrays}
+    """The arrays of one rank per data index (:func:`is_leader`: the ranks
+    of a spatial and model group hold the same rows, which JAX's
+    ``process_local_data`` dedups, ``mesh.py:198-219``) concatenated in
+    rank order on every rank (JAX ``process_allgather`` + ``reshape(-1)``,
+    reference ``cat_all_gather``)."""
+    parts = gather_objects(arrays if is_leader() else None)
+    return {k: np.concatenate([np.asarray(p[k]).reshape(-1) for p in parts
+                               if p is not None]) for k in arrays}
 
 
 def check_replicas_equal(module: torch.nn.Module) -> None:
-    """Raise ``RuntimeError`` unless every rank holds the same bytes in
-    each of ``module``'s buffers (train BatchNorm updates its running
-    statistics from the global moments on every rank; DDP runs with
-    ``broadcast_buffers=False``)."""
+    """Raise ``RuntimeError`` unless every rank of this rank's ``replica``
+    group holds the same bytes in each of ``module``'s running statistics
+    (train BatchNorm updates them from the global moments on every rank;
+    DDP runs with ``broadcast_buffers=False``; the ranks of a model group
+    hold different channel slices).  Every rank calls it."""
     if world_size() == 1:
         return
     digest = {}
@@ -301,7 +441,8 @@ def check_replicas_equal(module: torch.nn.Module) -> None:
         if name.endswith(("running_mean", "running_var")):
             digest[name] = hashlib.sha1(
                 buf.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
-    ranks = gather_objects(digest)
+    m = coords()[2]
+    ranks = [r for r, rm in gather_objects((digest, m)) if rm == m]
     differ = sorted(k for k in digest if any(r[k] != ranks[0][k]
                                              for r in ranks))
     if differ:

@@ -15,9 +15,16 @@ re-weighting) for ``med3d``, ``med3d18``, ``med3d50`` and ``med3dtiny``.
 int16 volumes padded to ``pad_shape``, preprocessed on the device (without
 ``--pad_shape`` it raises ``ValueError``).
 
-Data parallelism (``parallel/mesh.py``): ``--ngpus N`` or ``--mesh
-data=N`` starts N ranks on this host, one per card (without either flag,
-every visible card); ``--multihost`` joins the process group that
+The mesh (``parallel/mesh.py``): ``--ngpus N`` or ``--mesh data=N``
+starts N data-parallel ranks on this host, one per card (without either
+flag, every visible card); ``--mesh data=D,spatial=S,model=M`` starts
+D*S*M ranks: each spatial group of S ranks runs its volumes' H axis in
+slabs with halo exchanges (``parallel/spatial.py``; an H that does not
+divide by 8*S runs whole on every rank of the group, with one warning),
+each model group of M ranks its slice of every conv's output channels
+(``parallel/tensor.py``; the checkpoints hold the full tensors);
+``--grad_accum a`` splits each step's global batch into a micro-batches
+on any number of ranks; ``--multihost`` joins the process group that
 torchrun's environment describes (``torchrun --nproc_per_node 8 -m
 bodyct_dram_emph_subtype_tpu_torch.train --multihost ...``).  NCCL on the
 cards, gloo with ``--device cpu`` or when a host runs more ranks than it
@@ -35,9 +42,8 @@ blocks' forward instead of keeping their activations.  Its default stays
 ``none`` (JAX: ``all``, chosen for a TPU v5e's 16 GB): a B=2 bf16 step
 fits an 80 GB card without it, and it changes no value.
 
-Refused with ``NotImplementedError``: a ``--mesh`` with a ``spatial`` or
-``model`` axis above 1, ``--grad_accum`` above 1 on more than one rank
-and ``--noise_rng rbg``; the plain
+Refused with ``NotImplementedError``: ``--noise_rng rbg`` (TPU hardware
+RNG, not ported by decision); the plain
 ``resnet34``/``resnet50`` raise ``ValueError`` (no lung mask: the JAX
 trainer cannot train them either).  ``--packed_decoder`` reaches the model
 (under conv mode ``roll`` its decoder convs then run on kernels A/D, as
@@ -92,8 +98,9 @@ def build_parser() -> ArgumentParser:
                    type=int, help="data-parallel ranks on this host, one "
                                   "per card (default: every visible card)")
     p.add_argument("--mesh", default=None, type=str,
-                   help="data=N (the spatial and model axes are not "
-                        "ported)")
+                   help="data=D,spatial=S,model=M: D data-parallel ranks "
+                        "times S H slabs of each volume times M slices of "
+                        "the conv output channels")
     p.add_argument("--momentum", default=None, type=float,
                    help="ignored (reference parity: Adam uses lr only)")
     p.add_argument("--reload_only_weights", default=1, type=int)

@@ -22,6 +22,10 @@ import torch
 _NAME = re.compile(r"epoch_(\d+)\.pt")
 
 
+def _state(obj):
+    return obj if isinstance(obj, dict) else obj.state_dict()
+
+
 class CheckpointManager:
     def __init__(self, directory):
         self.directory = Path(directory).absolute()
@@ -30,13 +34,14 @@ class CheckpointManager:
     def path(self, epoch: int) -> Path:
         return self.directory / f"epoch_{int(epoch):04d}.pt"
 
-    def save(self, epoch: int, model: torch.nn.Module,
-             optimizer: torch.optim.Optimizer,
+    def save(self, epoch: int, model, optimizer,
              cle_class_weights: Sequence[float],
              pse_class_weights: Sequence[float],
              metrics: Optional[Dict[str, float]] = None) -> Path:
-        payload = {"epoch": int(epoch), "model": model.state_dict(),
-                   "optimizer": optimizer.state_dict(),
+        """``model`` and ``optimizer``: the module and optimizer, or their
+        state dicts (a model-axis rank passes the gathered full ones)."""
+        payload = {"epoch": int(epoch), "model": _state(model),
+                   "optimizer": _state(optimizer),
                    "cle_class_weights": [float(w) for w in cle_class_weights],
                    "pse_class_weights": [float(w) for w in pse_class_weights],
                    "metrics": {k: float(v)

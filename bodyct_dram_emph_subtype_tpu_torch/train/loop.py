@@ -30,13 +30,19 @@ A and D through ``roll_conv_packed``), evaluation in ``.eval()`` (the
 eval kernels A, B and C).  The CLS strategy re-weights its classes at the
 end of every train phase (:func:`reweight_classes`).
 
-Data parallelism (``parallel/mesh.py``): in a process group of W ranks
-the model trains under DDP (``broadcast_buffers=False``; train BatchNorm
-and the losses reduce over the global batch), each rank loads
-``batch_size`` rows of its shard of the resampled list, draws its rows of
-the global batch's augmentation, and the epoch end gathers every rank's
-outputs; rank 0 alone writes the checkpoint, the CSVs, ``metrics.jsonl``
-and the artifacts (JAX ``loop.py:274-322, 516-556``).
+The mesh (``parallel/mesh.py``): on ``--mesh data=D,spatial=S,model=M`` (or D
+ranks of ``--ngpus``) the model trains under DDP over the ``replica`` group
+(``broadcast_buffers=False``; train BatchNorm and the losses reduce over the
+global batch), each rank loads ``batch_size`` rows of its data index's shard of
+the resampled list (the ranks of a spatial and model group load the same rows;
+each runs its H slab, ``parallel/spatial.py``, and its channel slice of the
+weights, ``parallel/tensor.py``, JAX ``loop.py:209-216``), draws its rows of
+the global batch's augmentation, and the epoch end gathers the outputs of one
+rank per data index; rank 0 alone writes the checkpoint (full tensors, the
+optimizer's too, gathered over its model group), the CSVs, ``metrics.jsonl``
+and the artifacts (JAX ``loop.py:274-322, 516-556``).  With ``grad_accum`` a >
+1 on D ranks the loader deals each rank its rows of every micro-batch of the
+global batch (:func:`accum_rows`).
 
 ``remat`` (activation checkpointing, ``models/resnet3d.py::remat_scopes``:
 ``all``, ``none`` or a list of {layer1..layer4, decoder}) reaches the
@@ -47,9 +53,9 @@ default is ``none``, where the JAX trainer's is ``all``: JAX chose
 while a B=2 bf16 step of med3ddram peaks at 9.11 GiB on an 80 GB H100
 without it, and remat changes no value, only memory and time.
 
-Not ported yet; each raises ``NotImplementedError`` naming its ROADMAP
-item: a mesh with a ``spatial`` or ``model`` axis above 1, ``grad_accum``
-above 1 on more than one rank and the ``rbg`` noise source.  The plain ``ResNet`` archs (``resnet34``, ``resnet50``) are
+Refused with ``NotImplementedError``: the ``rbg`` noise source (TPU
+hardware RNG, not ported by decision: ROADMAP section 1, "Not ported, by
+decision").  The plain ``ResNet`` archs (``resnet34``, ``resnet50``) are
 refused with a ``ValueError``: they take no lung mask, so the JAX trainer
 cannot train them either.  An artifact whose package (``cv2``,
 ``matplotlib``, ``seaborn``, ``tensorboard``) is missing is skipped with
@@ -78,8 +84,12 @@ from ..models.registry import (PLAIN_FACTORIES, get_model_by_name,
                                resolve_arch)
 from ..models.torch_import import WEIGHT_FILES, load_weights_file
 from ..ops.resize import resize_linear
-from ..parallel.mesh import (barrier, cat_all_gather, check_replicas_equal,
-                             data_width, gather_objects, rank, world_size)
+from ..parallel.mesh import (axis_size, barrier, cat_all_gather,
+                             check_replicas_equal, coords, gather_objects,
+                             group, mesh, mesh_width, parse_mesh, rank,
+                             set_mesh, world_size)
+from ..parallel.tensor import (full_optimizer_state, full_state_dict,
+                               shard_model, shard_optimizer_state)
 from ..utils.device import entry_device
 from ..utils.metrics_eval import classification_report
 from ..utils.viz import (draw_mask_tile_singleview_heatmap,
@@ -157,23 +167,17 @@ def check_supported(cfg: TrainerConfig) -> None:
             f"forward passes the lungs to the model")
     world = world_size()
     if cfg.mesh is not None or cfg.nchips is not None:
-        width = data_width(cfg.mesh, cfg.nchips, cfg.device)
+        width = mesh_width(cfg.mesh, cfg.nchips, cfg.device)
         if width != world:
             raise ValueError(
-                f"{width} data-parallel ranks asked for, the process group "
-                f"holds {world}: launch the CLI with --ngpus {width}, or "
-                f"torchrun with --multihost")
-    if world > 1 and cfg.grad_accum > 1:
-        raise NotImplementedError(
-            f"grad_accum {cfg.grad_accum} on {world} ranks: the JAX step's "
-            f"micro-batches are slices of the global batch, which would "
-            f"move rows between ranks (ROADMAP section 1, 'Spatial "
-            f"sharding and tensor parallelism')")
+                f"{width} ranks asked for, the process group holds {world}: "
+                f"launch the CLI with --ngpus / --mesh, or torchrun with "
+                f"--multihost")
     if cfg.noise_rng != "threefry":
         raise NotImplementedError(
             f"noise_rng={cfg.noise_rng!r}: the TPU hardware-RNG noise source "
-            f"is not ported (ROADMAP section 1); the port draws from a "
-            f"torch.Generator")
+            f"is not ported, by decision (ROADMAP section 1, 'Not ported, "
+            f"by decision'); the port draws from a torch.Generator")
     if cfg.compute_dtype not in DTYPES:
         raise ValueError(f"compute_dtype must be one of {sorted(DTYPES)}")
     if cfg.batch_size % cfg.grad_accum:
@@ -210,6 +214,29 @@ def resampled_list(sampler: SubtypingStratifiedSampler) -> List[int]:
     return sampler.epoch_indices(seed)
 
 
+def accum_rows(shards: List[np.ndarray], batch: int, accum: int,
+               d: int) -> np.ndarray:
+    """The rows that data rank ``d`` trains on, step after step, when
+    every data rank r holds ``shards[r]`` (``shard_indices``) and loads
+    ``batch`` rows per step under ``accum`` micro-batches: step t's global
+    batch is the ranks' t-th ``batch`` rows in rank order (JAX's global
+    array of the processes' rows); its micro-batch i is global rows
+    ``[i*G/a, (i+1)*G/a)`` of G = D*batch, of which rank d takes the
+    ``batch/a`` from ``i*G/a + d*batch/a``.  With ``accum`` 1 this is
+    ``shards[d]``'s full steps.  Every rank computes every shard, so no row
+    travels between ranks."""
+    n_data, mb = len(shards), batch // accum
+    steps = min(len(s) for s in shards) // batch
+    rows = []
+    for t in range(steps):
+        glob = np.concatenate([s[t * batch:(t + 1) * batch] for s in shards])
+        for i in range(accum):
+            first = i * n_data * mb + d * mb
+            rows.append(glob[first:first + mb])
+    return (np.concatenate(rows) if rows
+            else np.zeros(0, dtype=np.asarray(shards[0]).dtype))
+
+
 def step_seed(seed: int, epoch: int, step: int) -> int:
     """The augmentation generator's seed of one train step."""
     return int(np.random.SeedSequence([seed, epoch, step])
@@ -225,6 +252,8 @@ class SubtypeTrainer:
 
     def __init__(self, config: TrainerConfig):
         check_supported(config)
+        spec = parse_mesh(config.mesh)
+        set_mesh(spec if spec is not None and spec.size > 1 else None)
         self.config = config
         self.device = entry_device(config.device)
         self.dtype = DTYPES[config.compute_dtype]
@@ -239,6 +268,7 @@ class SubtypeTrainer:
         self.epoch_train_losses: Dict[int, float] = {}
         self.step_mark: Optional[Callable[[str], None]] = None
         self.world, self.rank = world_size(), rank()
+        self.n_data, self.data_index = mesh().data, coords()[0]
         self.train_module: Optional[torch.nn.Module] = None
         self.global_step = 0
         self._tb = None
@@ -253,20 +283,22 @@ class SubtypeTrainer:
             cfg.model_arch, generator=torch.Generator().manual_seed(cfg.seed),
             packed_decoder=cfg.packed_decoder, remat=cfg.remat
         ).to(self.device)
+        shard_model(self.model)         # this rank's channel slice
         self.optimizer = make_optimizer(self.model.parameters(), cfg.lr)
         self.train_module = self.model
-        if self.world > 1:
+        if axis_size("replica") > 1:
             # every parameter gets a gradient in both strategies' train
             # forwards; the running statistics are kept equal by the global
-            # moments, not by a broadcast
+            # moments, not by a broadcast.  The replica group holds one
+            # channel slice: a model group has nothing to average
             self.train_module = torch.nn.parallel.DistributedDataParallel(
                 self.model, broadcast_buffers=False,
                 device_ids=([self.device] if self.device.type == "cuda"
-                            else None))
+                            else None), process_group=group("replica"))
         make = (make_reg_train_step if self.mode == "reg"
                 else make_cls_train_step)
         self._train_step = make(
-            self.train_module, self.optimizer, num_data_shards=self.world,
+            self.train_module, self.optimizer, num_data_shards=self.n_data,
             accum_steps=cfg.grad_accum, compute_dtype=self.dtype,
             device=self.device, fused_input=cfg.input_pipeline == "device",
             target_size=tuple(cfg.target_size), debug_nans=cfg.debug_nans)
@@ -320,7 +352,8 @@ class SubtypeTrainer:
         payload = self.ckpt.restore(latest)
         self.model.load_state_dict(payload["model"])
         if not reload_only_weights:
-            self.optimizer.load_state_dict(payload["optimizer"])
+            self.optimizer.load_state_dict(
+                shard_optimizer_state(self.model, payload["optimizer"]))
             self.epoch = payload["epoch"] + 1
             self.cle_class_weights = np.asarray(payload["cle_class_weights"])
             self.pse_class_weights = np.asarray(payload["pse_class_weights"])
@@ -351,11 +384,13 @@ class SubtypeTrainer:
     def _loader(self, phase: str, epoch: int,
                 input_pipeline: Optional[str] = None) -> DataLoader:
         """The loader of ``phase`` on this rank (JAX ``loop.py:274-322``):
-        ``batch_size`` rows per step of this rank's shard of the resampled
-        list (``shard_indices``), or of the eval set, padded by
-        wrap-around; host-preprocessed batches, or raw padded ones for the
-        device pipeline (``input_pipeline``, default the config's).  On a
-        CUDA device batches are stacked in pinned memory."""
+        ``batch_size`` rows per step of its data index's shard of the
+        resampled list (``shard_indices`` over the data ranks; under
+        ``grad_accum`` its rows of every micro-batch, :func:`accum_rows`),
+        or of the eval set, padded by wrap-around; host-preprocessed
+        batches, or raw padded ones for the device pipeline
+        (``input_pipeline``, default the config's).  On a CUDA device
+        batches are stacked in pinned memory."""
         cfg = self.config
         ds = self._dataset(phase)
         if (input_pipeline or cfg.input_pipeline) == "device":
@@ -367,16 +402,19 @@ class SubtypeTrainer:
         collate = (pinned_collate if self.device.type == "cuda"
                    else default_collate)
         if phase == TRAIN_PHASE:
-            indices = shard_indices(resampled_list(self.sampler), self.world,
-                                    self.rank, shuffle=True, epoch=epoch)
+            listed = resampled_list(self.sampler)
+            indices = accum_rows(
+                [shard_indices(listed, self.n_data, d, shuffle=True,
+                               epoch=epoch) for d in range(self.n_data)],
+                cfg.batch_size, cfg.grad_accum, self.data_index)
             return DataLoader(view, indices=indices,
                               batch_size=cfg.batch_size,
                               num_workers=cfg.workers, drop_last=True,
                               collate=collate)
         # pad by wrap-around so the last batch is full; duplicates are
         # dropped at epoch end (models.py:306-311)
-        indices = shard_indices(np.arange(len(ds)), self.world, self.rank,
-                                shuffle=False)
+        indices = shard_indices(np.arange(len(ds)), self.n_data,
+                                self.data_index, shuffle=False)
         if len(indices) % cfg.batch_size:
             total = -(-len(indices) // cfg.batch_size) * cfg.batch_size
             indices = np.resize(indices, total)
@@ -451,8 +489,11 @@ class SubtypeTrainer:
             for k, v in metrics.items():
                 self.tb_writer.add_scalar(f"{TRAIN_PHASE}_{k}", v, epoch)
         check_replicas_equal(self.model)
+        # full tensors: a collective of the model group
+        model_state = full_state_dict(self.model)
+        optimizer_state = full_optimizer_state(self.model, self.optimizer)
         if self.rank == 0:
-            self.ckpt.save(epoch, self.model, self.optimizer,
+            self.ckpt.save(epoch, model_state, optimizer_state,
                            self.cle_class_weights, self.pse_class_weights,
                            metrics)
         barrier()
@@ -491,7 +532,8 @@ class SubtypeTrainer:
         best = min(self.epoch_train_losses, key=self.epoch_train_losses.get)
         payload = self.ckpt.restore(best)
         self.model.load_state_dict(payload["model"])
-        self.optimizer.load_state_dict(payload["optimizer"])
+        self.optimizer.load_state_dict(
+            shard_optimizer_state(self.model, payload["optimizer"]))
         logger.info("restored best epoch %d (train_loss=%.4f)", best,
                     self.epoch_train_losses[best])
         return best

@@ -29,9 +29,21 @@ and VAL/TEST branches of ``shared_step``, and ``models.py:430-450``,
 
 The JAX step is one jitted program; the port runs eagerly.  Augmentation
 draws its random numbers from the ``torch.Generator`` it is handed.
+
+The mesh (``parallel/mesh.py``): on D data ranks each holding B rows,
+micro-batch i of ``accum_steps`` a holds the global rows ``[i*G/a,
+(i+1)*G/a)`` of the G = D*B rows (JAX ``steps.py:197-223``), of which rank
+d holds B/a (the trainer's loader deals them); DDP syncs the gradients
+in the last micro-batch's backward only (``no_sync``).  On a spatial axis
+each rank preprocesses and augments the whole volume (flips and the
+crop-resize mix rows across H; every rank of a spatial group draws the
+same per-row parameters) and then keeps its H slab (``parallel/
+spatial.py``), where ``H % (8 * S) == 0``; the eval and predict steps
+gather the dense maps back to the whole volume.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -44,7 +56,8 @@ from ..losses import (generate_regression_labels, interval_regression_loss,
 from ..ops.pallas_kernels import masked_sums
 from ..ops.preprocess import fused_preprocess
 from ..ops.resize import resize_linear_matmul, resize_nearest
-from ..parallel.mesh import rank
+from ..parallel import spatial
+from ..parallel.mesh import coords, mesh
 from ..transforms.batch_augment import augment_batch, draw_augment_params
 from .state import set_lr
 
@@ -170,7 +183,7 @@ def _make_train_step(losses_fn, model, optimizer, num_data_shards, augment,
     device = torch.device(device) if device is not None else \
         next(model.parameters()).device
 
-    def micro(batch, cw_cle, cw_pse, generator, mark, first_row):
+    def micro(batch, cw_cle, cw_pse, generator, mark, first_row, sync):
         if fused_input:
             mark("preprocess")
         images, lungs, ems = _batch_inputs(batch, fused_input, target_size,
@@ -191,21 +204,28 @@ def _make_train_step(losses_fn, model, optimizer, num_data_shards, augment,
             images, lungs, ems = augment_batch(images, lungs, ems, draws,
                                                mask_out)
         mark("forward")
+        slabs = spatial.can_shard(images.shape[2])
+        if slabs:       # this rank's H slab of the whole-volume inputs
+            images, lungs, ems = (spatial.shard_h(t, 2)
+                                  for t in (images, lungs, ems))
         x = images[..., None].to(compute_dtype)
         inputs = {"lungs5": lungs[..., None], "ems5": ems[..., None],
                   "cle_labels": cle_labels, "pse_labels": pse_labels}
-        outs = model(x, inputs["lungs5"])
-        losses, (pred_cle, pred_pse) = losses_fn(outs, inputs, cw_cle,
-                                                 cw_pse, num_data_shards)
-        if debug_nans:
-            _raise_non_finite(losses.items())
-        mark("backward")
-        try:
-            losses["loss"].backward()
-        except RuntimeError as exc:     # anomaly mode's NaN in a backward
-            if debug_nans and "nan" in str(exc):
-                raise FloatingPointError(f"debug_nans: {exc}") from exc
-            raise
+        # the backward too: remat recomputes the forward on the slabs
+        with spatial.sharded(slabs), \
+                (contextlib.nullcontext() if sync else model.no_sync()):
+            outs = model(x, inputs["lungs5"])
+            losses, (pred_cle, pred_pse) = losses_fn(outs, inputs, cw_cle,
+                                                     cw_pse, num_data_shards)
+            if debug_nans:
+                _raise_non_finite(losses.items())
+            mark("backward")
+            try:
+                losses["loss"].backward()
+            except RuntimeError as exc:     # anomaly mode's NaN in a backward
+                if debug_nans and "nan" in str(exc):
+                    raise FloatingPointError(f"debug_nans: {exc}") from exc
+                raise
         preds = {"pred_cle_labels": pred_cle, "pred_pse_labels": pred_pse,
                  "cle_labels": cle_labels.to(torch.int32),
                  "pse_labels": pse_labels.to(torch.int32)}
@@ -226,8 +246,14 @@ def _make_train_step(losses_fn, model, optimizer, num_data_shards, augment,
             raise ValueError(f"batch {b} must divide by accum_steps "
                              f"{accum_steps}")
         mb = b // accum_steps
+        n_data, d = mesh().data, coords()[0]
+        ddp = isinstance(model, torch.nn.parallel.DistributedDataParallel)
+        # micro-batch i: global rows [i*G/a, (i+1)*G/a) of G = D*b, rank d
+        # holding mb of them from row i*G/a + d*mb
         outs = [micro({k: v[i * mb:(i + 1) * mb] for k, v in batch.items()},
-                      cw_cle, cw_pse, generator, mark, rank() * b + i * mb)
+                      cw_cle, cw_pse, generator, mark,
+                      i * n_data * mb + d * mb,
+                      not ddp or i == accum_steps - 1)
                 for i in range(accum_steps)]
         mark("optimizer")
         if debug_nans:
@@ -298,8 +324,8 @@ def make_eval_step(model: torch.nn.Module, mode: str = "reg",
         with torch.inference_mode():
             x, lungs, _ = _batch_inputs(batch, fused_input, target_size,
                                         device)
-            dense, heads = model(x[..., None].to(compute_dtype),
-                                 lungs[..., None])
+            dense, heads = spatial.forward_slabs(
+                model, x[..., None].to(compute_dtype), lungs[..., None])
             if mode == "reg":
                 pred_cle = ratio_to_label_batch(heads[0], CLE_RATIO_MAP)
                 pred_pse = ratio_to_label_batch(heads[1], PSE_RATIO_MAP)
@@ -344,7 +370,8 @@ def make_predict_step(model: torch.nn.Module, batch_lung_norm: bool = False,
             lungs5 = _as_tensor(lungs, device, torch.float32)[..., None]
             ess5 = _as_tensor(ess, device, torch.float32)[..., None]
             mark("forward")
-            dense, _ = model(x.to(compute_dtype), lungs5)
+            dense, _ = spatial.forward_slabs(model, x.to(compute_dtype),
+                                             lungs5)
             mark("reduction")
             full = resize_linear_matmul(torch.cat(dense, -1), x.shape[1:4],
                                         (1, 2, 3), align_corners=True)

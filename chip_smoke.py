@@ -257,9 +257,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    relative of the step without remat (train BN's ``all_sum`` is issued
    again in the backward, between DDP's gradient buckets, over gloo or
    NCCL).  This proves the path; it is not a timing (gloo stages the
-   64,789,730 float32 gradients, 259 MB, through the host each step).  ``--ddp-only`` runs phases 1, 2, 4, 4f and 8
-   alone; on a host with two or more cards the ranks of 4f and 8 take
-   cards 0 and 1 and NCCL, with the same checks;
+   64,789,730 float32 gradients, 259 MB, through the host each step).
+   ``--ddp-only`` runs phases 1, 2, 4, 4f, 8 and 10 alone; on a host
+   with two or more cards the ranks of 4f, 8 and 10 take a card each and
+   NCCL, with the same checks;
 9. the per-sample transform chains: scan0 of phase 6's archive
    (180x320x320 int16 and its lung and emphysema masks) through
    ``build_pipeline(TARGET, train=False)`` and ``train=True`` on the card
@@ -269,6 +270,27 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    CPU's noise field applied on the card (the two generators draw
    different fields), masks bit-equal; the card's ms per sample (upload
    included), with the card's name and power limit;
+10. the mesh axes (``parallel/mesh.py``, ``spatial.py``, ``tensor.py``):
+   ranks of the CLIs started as phase 8 starts its two, sharing the card
+   over gloo.  10a-10c: the training CLI's flow on phase 8's archive and
+   setup (med3ddram, bf16, packed decoder, lr 1e-6, heads scaled):
+   10a ``--mesh data=2,spatial=2`` (4 ranks, B=1 per data rank, 2 steps
+   and a test evaluation), 10b ``--mesh spatial=2,model=2`` (4 ranks,
+   B=2, 2 steps and a test evaluation), 10c ``--mesh data=2 --grad_accum
+   2`` (2 ranks, B=2 each, one step of two micro-batches); each against
+   one process at the global batch (10c: its rows in the ranks' global
+   order, ``accum_steps=2``) by phase 8's checks: losses within 1e-3
+   relative, the first step's gradients (gathered to full size) within
+   twice the bf16 noise floor, rank 0's checkpoint loading into one
+   process unchanged and within 0.05 lr (median) of it, test labels equal
+   and lesion fractions within 5e-3; every rank's launches per step A 22,
+   D 11, F 1 (10c: twice that) and phase 4's per eval forward; each
+   rank's peak device memory.  10d: the processor CLI with ``--mesh
+   spatial=2`` and ``--mesh model=2`` on phase 4's scans and weights, in
+   4f's checks and bounds.  Times over gloo on one card are not a timing.
+   ``--mesh-only`` runs phases 1, 2, 4 (10d's reference) and 10 alone;
+   ``--mesh-cases 10a,10b,10b`` picks the training cells and their order
+   (a cell may repeat: a hang that comes and goes shows on a rerun);
 8b. ``--profile``: phase 6's setup (B=2, packed decoder, one epoch of 4
    steps) with ``profile=True``: the Chrome trace
    ``profile/rank0.json`` exists and holds each step's stage spans; the
@@ -300,6 +322,7 @@ repository beside it, the script exits non-zero and prints no result.
 """
 import argparse
 import copy
+import faulthandler
 import json
 import logging
 import math
@@ -324,10 +347,11 @@ if not torch.cuda.is_available():
              "False); this smoke runs only on a GPU")
 
 from bodyct_dram_emph_subtype_tpu_torch.data.loader import (
-    default_collate, prefetch_to_device)
+    DataLoader, default_collate, pinned_collate, prefetch_to_device)
 from bodyct_dram_emph_subtype_tpu_torch.data.mha import read_mha, write_mha
 from bodyct_dram_emph_subtype_tpu_torch.data.host_preprocess import (
-    RawPaddedView, preprocess_sample)
+    PreprocessedView, RawPaddedView, preprocess_sample)
+from bodyct_dram_emph_subtype_tpu_torch.data.samplers import shard_indices
 from bodyct_dram_emph_subtype_tpu_torch.inference.processor import (
     _RawPredictView, build_model, gate_plan, run_inference)
 from bodyct_dram_emph_subtype_tpu_torch.data.datasets import (
@@ -360,11 +384,15 @@ from bodyct_dram_emph_subtype_tpu_torch.ops.stem_kernel import (
     fused_stem_pool, fused_stem_pool_plain, stem_smem_bytes)
 from bodyct_dram_emph_subtype_tpu_torch.evaluate.__main__ import \
     main as evaluate_main
-from bodyct_dram_emph_subtype_tpu_torch.parallel.mesh import gather_objects
+from bodyct_dram_emph_subtype_tpu_torch.parallel.mesh import (
+    gather_objects, is_leader, parse_mesh, rank)
+from bodyct_dram_emph_subtype_tpu_torch.parallel.spatial import forward_slabs
+from bodyct_dram_emph_subtype_tpu_torch.parallel.tensor import full_tensors
 from bodyct_dram_emph_subtype_tpu_torch.train.__main__ import (
     build_parser, distributed, make_config)
 from bodyct_dram_emph_subtype_tpu_torch.train.loop import (
-    SubtypeTrainer, TrainerConfig, reweight_classes, step_seed)
+    SubtypeTrainer, TrainerConfig, resampled_list, reweight_classes,
+    step_seed)
 from bodyct_dram_emph_subtype_tpu_torch.train.state import make_optimizer
 from bodyct_dram_emph_subtype_tpu_torch.train.steps import (
     dense_map_size, make_cls_train_step, make_reg_train_step)
@@ -1707,27 +1735,32 @@ def printed_stats(text: str):
 
 
 def phase_processor_ranks(model, scan_dir: Path, lobe_dir: Path, work: Path,
-                          default_fractions):
-    print("== phase 4f: the processor as two ranks (the CLI with --ngpus 2, "
-          "--ckp <phase 4's weights as .npz>, med3ddram, bf16, batch 2 per "
-          "rank)")
+                          default_fractions, flags=("--ngpus", "2"),
+                          label="4f"):
+    """The processor CLI on the ranks that ``flags`` ask for, against
+    phase 4's outputs in ``work / "out"``: 4f's two data ranks, or 10d's
+    meshes."""
+    print(f"== phase {label}: the processor as ranks (the CLI with "
+          f"{' '.join(flags)}, --ckp <phase 4's weights as .npz>, "
+          f"med3ddram, bf16, batch 2 per data rank)")
     npz = work / "weights_4f.npz"
-    np.savez(npz, **{k: v.detach().cpu().numpy()
-                     for k, v in model.state_dict().items()})
-    out = work / "out_ranks"
+    if not npz.exists():
+        np.savez(npz, **{k: v.detach().cpu().numpy()
+                         for k, v in model.state_dict().items()})
+    out = work / ("out_ranks_" + re.sub(r"\W+", "_", label))
     argv = [sys.executable, "-m", "bodyct_dram_emph_subtype_tpu_torch."
             "inference", "--scan_path", str(scan_dir), "--lobe_path",
             str(lobe_dir), "--output_path", str(out), "--model_arch",
             "med3ddram", "--ckp", str(npz), "--compute_dtype", "bfloat16",
             "--batch_size", str(B), "--workers", "2", "--target_size",
-            ",".join(map(str, TARGET)), "--ngpus", "2"]
+            ",".join(map(str, TARGET)), *flags]
     t0 = time.perf_counter()
     proc = subprocess.run(argv, capture_output=True, text=True, timeout=600,
                           cwd=Path(__file__).resolve().parent)
     wall = time.perf_counter() - t0
     if proc.returncode:
         print(proc.stdout[-4000:], proc.stderr[-6000:])
-    check(proc.returncode == 0, f"phase 4f exited {proc.returncode}")
+    check(proc.returncode == 0, f"phase {label} exited {proc.returncode}")
     stats = printed_stats(proc.stdout)
     check(proc.stdout.count("results: ") == 1, "results printed twice")
     ranks = stats["ranks"]
@@ -1740,7 +1773,7 @@ def phase_processor_ranks(model, scan_dir: Path, lobe_dir: Path, work: Path,
     for fname in ("centrilobular-emphysema-score.json",
                   "araseptal-emphysema-score.json"):
         check((out / fname).read_text() == (work / "out" / fname)
-              .read_text(), f"phase 4f {fname} differs from phase 4's")
+              .read_text(), f"phase {label} {fname} differs from phase 4's")
     finalized = [u for r in ranks for u in r["finalized"]]
     check(sorted(finalized) == uids, f"finalized {finalized}")
     fractions = {u: f for r in ranks for u, f in r["fractions"].items()}
@@ -1748,9 +1781,9 @@ def phase_processor_ranks(model, scan_dir: Path, lobe_dir: Path, work: Path,
                zip(fractions[u], default_fractions[u]))
     heat = {u: heatmap_delta(out, work / "out", u) for u in uids}
     worst = max(h[2] for hs in heat.values() for h in hs.values())
-    check(frac < FRAC_BOUND, f"phase 4f fractions |d| {frac}")
+    check(frac < FRAC_BOUND, f"phase {label} fractions |d| {frac}")
     check(all(h[0] < 1.5e-2 and h[1] < 5e-3 for hs in heat.values()
-              for h in hs.values()), f"phase 4f heatmaps {heat}")
+              for h in hs.values()), f"phase {label} heatmaps {heat}")
     launches = Counter()
     for r in ranks:
         want = {k: PER_BATCH.get(k, 0) * r["batches"] for k in r["launches"]}
@@ -1759,10 +1792,10 @@ def phase_processor_ranks(model, scan_dir: Path, lobe_dir: Path, work: Path,
               f"{r['batches']} batches")
         launches.update(r["launches"])
     slowest = max(r["pipeline_s"] for r in ranks)
-    print(f"2 ranks ({stats['world']} in the group; {torch.cuda.device_count()}"
-          f" visible card(s), {os.cpu_count()} host cores): rank 0 finalized "
-          f"{ranks[0]['finalized']}, rank 1 {ranks[1]['finalized']} (and ran "
-          f"scan0 as its padding); per rank " + "; ".join(
+    print(f"{stats['world']} ranks ({torch.cuda.device_count()} visible "
+          f"card(s), {os.cpu_count()} host cores): finalized " + ", ".join(
+              f"rank {r['rank']} {r['finalized']}" for r in ranks)
+          + "; per rank " + "; ".join(
               f"rank {r['rank']}: {r['batches']} batch(es), pipeline "
               f"{r['pipeline_s']:.2f} s, launches " + ", ".join(
                   f"{k} {v}" for k, v in r["launches"].items() if v)
@@ -1773,7 +1806,7 @@ def phase_processor_ranks(model, scan_dir: Path, lobe_dir: Path, work: Path,
               f"{u} {n} mean|d| {h[0]:.2e} flips {h[1]:.2e}"
               for u, hs in heat.items() for n, h in hs.items()))
     rate = 3 / slowest
-    print(f"phase 4f: 3 scans, launch wall {wall:.2f} s ({3 / wall:.3f} "
+    print(f"phase {label}: 3 scans, launch wall {wall:.2f} s ({3 / wall:.3f} "
           f"scans/s; process start-up, the kernel library load and the "
           f"model build lie inside it), slowest rank's pipeline "
           f"{slowest:.2f} s ({rate:.3f} scans/s)")
@@ -3002,6 +3035,321 @@ def phase_ddp(work: Path):
         launches.update(r["launches"])
     return launches
 
+# phase 10: (mesh, rows per data rank, micro-batches) of each training cell;
+# 4 ranks sharing the card over gloo (10c: 2), or a card each over NCCL
+MESH_CASES = {"10a": ("data=2,spatial=2", 1, 1),
+              "10b": ("spatial=2,model=2", 2, 1),
+              "10c": ("data=2", 2, 2)}
+MESH_PROCESSOR = ("spatial=2", "model=2")         # phase 10d
+# a phase-10 rank still running after MESH_RANK_DUMP_S prints every
+# thread's stack and exits; its launcher waits MESH_RANK_TIMEOUT_S
+MESH_RANK_DUMP_S, MESH_RANK_TIMEOUT_S = 240, 300
+
+
+def phase_mesh_processor(model, scan_dir: Path, lobe_dir: Path, work: Path,
+                         fractions) -> Counter:
+    """Phase 10d: the processor CLI under each mesh of
+    :data:`MESH_PROCESSOR` (two ranks: H slabs, then channel slices)
+    against phase 4, in 4f's checks and bounds."""
+    launches = Counter()
+    for text in MESH_PROCESSOR:
+        got, _, _ = phase_processor_ranks(
+            model, scan_dir, lobe_dir, work, fractions, ("--mesh", text),
+            f"10d ({text})")
+        launches.update(got)
+    return launches
+
+
+def mesh_argv(work: Path, case: str):
+    """Phase 8's training-CLI flags with ``case``'s mesh, rows per data
+    rank and micro-batches."""
+    text, batch, accum = MESH_CASES[case]
+    argv = ddp_argv(work)
+    argv[argv.index("--batch_size") + 1] = str(batch)
+    argv[argv.index("--model_path") + 1] = str(work / f"models_{case}")
+    return argv + ["--mesh", text, "--grad_accum", str(accum)]
+
+
+def keep_full_first_grads(trainer, path: Path) -> None:
+    """After the first train step, rank 0 saves the parameters' gradients
+    (float32, on the CPU; channel slices gathered: every rank takes part)
+    to ``path``."""
+    step, done = trainer._train_step, []
+
+    def first(*args, **kw):
+        out = step(*args, **kw)
+        if not done:
+            done.append(True)
+            grads = full_tensors(trainer.model, {
+                n: p.grad.float() for n, p in
+                trainer.model.named_parameters()})
+            if rank() == 0:
+                torch.save({n: g.cpu() for n, g in grads.items()}, path)
+        return out
+
+    trainer._train_step = first
+
+
+def mesh_fractions(trainer):
+    """``forward_fractions`` of the host pipeline on a mesh: the eval
+    forward on this rank's H slab and channel slice; the leaders of each
+    data index report their rows, the other ranks ``{}``."""
+    model = trainer.model.eval()
+    out = {}
+    for upload, batch in prefetch_to_device(
+            trainer._loader("test", 0, "host"),
+            trainer._put("host", train=False)):
+        x = upload.ready()
+        with torch.inference_mode():
+            _, regs = forward_slabs(
+                model, x["image"][..., None].to(torch.bfloat16),
+                x["lung_mask"][..., None])
+        for j, idx in enumerate(np.asarray(batch["index"]).reshape(-1)):
+            out[int(idx)] = (regs[0][j].item(), regs[1][j].item())
+    return out if is_leader() else {}
+
+
+def mesh_rank(work: Path, case: str) -> None:
+    """One rank of a phase-10 training cell (``--mesh-rank``): the
+    training CLI's flow on ``case``'s mesh, each step's losses and
+    launches logged, then (10a, 10b) a test evaluation; writes
+    ``mesh_<case>_rank<r>.json``."""
+    faulthandler.dump_traceback_later(MESH_RANK_DUMP_S, exit=True)
+    torch.backends.cudnn.allow_tf32 = False        # as phase 1 sets them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    text, batch, accum = MESH_CASES[case]
+    argv = mesh_argv(work, case) + ["--multihost"]
+    args = build_parser().parse_args(argv)
+    with distributed("bodyct_dram_emph_subtype_tpu_torch.train", args,
+                     argv) as (device, r):
+        trainer = SubtypeTrainer(make_config(args, device))
+        trainer.init_state()
+        trainer.setup_checkpointing()
+        check(not trainer.try_resume(), f"phase {case} resumed")
+        condition_heads(trainer.model)
+        keep_full_first_grads(trainer, work / f"mesh_grads_{case}.pt")
+        losses, clock, launches, fit_s, peak = fit_logged(trainer)
+        per_step = {k: v * accum for k, v in PER_TRAIN_STEP.items()}
+        check_steps(losses, clock, per_step, f"{case} rank {r}")
+        metrics, eval_launches, fractions = {}, Counter(), {}
+        if case != "10c":
+            best = trainer.restore_best()
+            cuda_build.reset_launches()
+            metrics = trainer.evaluate("test", epoch=best)
+            torch.cuda.synchronize()
+            eval_launches = cuda_build.launches()
+            forwards = -(-4 // parse_mesh(text).data) // batch
+            want = {k: v * forwards for k, v in PER_FORWARD.items()}
+            check(eval_launches == want, f"{case} rank {r}: eval launches "
+                  f"{eval_launches}, expected {want}")
+            for part in gather_objects(mesh_fractions(trainer)):
+                fractions.update(part)
+        (work / f"mesh_{case}_rank{r}.json").write_text(json.dumps({
+            "losses": losses, "wall_ms": clock.wall_ms(),
+            "launches": dict(Counter(launches) + Counter(eval_launches)),
+            "metrics": metrics, "peak_gib": peak / 2 ** 30,
+            "fractions": {str(k): v for k, v in fractions.items()},
+            "backend": torch.distributed.get_backend(),
+            "device": str(device)}))
+    faulthandler.cancel_dump_traceback_later()
+
+
+def start_ranks(world: int, script_args, timeout=MESH_RANK_TIMEOUT_S):
+    """``world`` processes of this script with torchrun's environment;
+    returns their outputs, each process stopped at the end; a rank that
+    failed or outlived ``timeout`` seconds has its output printed."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = str(sock.getsockname()[1])
+    procs = []
+    try:
+        for r in range(world):
+            env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                       WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
+                       MASTER_ADDR="localhost", MASTER_PORT=port)
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 *script_args], env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        deadline = time.monotonic() + timeout
+        outs = []
+        for p in procs:
+            try:
+                out = p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))[0]
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out = p.communicate()[0]
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            print(f"-- rank {r} (exit {p.returncode}):\n{out[-6000:]}")
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"rank {r} exited {p.returncode}")
+    return outs
+
+
+def global_batch_loader(trainer, n_data: int, batch: int):
+    """Make ``trainer``'s train loader deal one process's batches as the
+    global batches of ``n_data`` data ranks of ``batch`` rows each: step
+    t's rows are each rank's t-th ``batch`` rows in rank order (the order
+    the micro-batches of accumulation slice)."""
+    own = trainer._loader
+
+    def loader(phase, epoch, input_pipeline=None):
+        if phase != "train":
+            return own(phase, epoch, input_pipeline)
+        ds = trainer._dataset(phase)
+        listed = resampled_list(trainer.sampler)
+        shards = [shard_indices(listed, n_data, d, shuffle=True, epoch=epoch)
+                  for d in range(n_data)]
+        steps = min(len(s) for s in shards) // batch
+        rows = np.concatenate([s[t * batch:(t + 1) * batch]
+                               for t in range(steps) for s in shards])
+        return DataLoader(PreprocessedView(ds, trainer.config.target_size),
+                          indices=rows, batch_size=batch * n_data,
+                          num_workers=trainer.config.workers, drop_last=True,
+                          collate=pinned_collate)
+
+    trainer._loader = loader
+
+
+def mesh_reference(work: Path, case: str):
+    """One process against ``case``: B = the global batch, the same
+    micro-batches, ``num_data_shards`` the data ranks; returns (trainer,
+    its losses, the bf16 noise floor of its gradients)."""
+    text, batch, accum = MESH_CASES[case]
+    n_data = parse_mesh(text).data
+    cfg = trainer_config(work, num_samples=1, packed_decoder=True,
+                         lr=DDP_LR, batch_size=batch * n_data,
+                         grad_accum=accum,
+                         model_path=str(work / f"models_{case}_ref"))
+    ref = SubtypeTrainer(cfg)
+    ref.init_state()
+    ref.setup_checkpointing()
+    condition_heads(ref.model)
+    ref._train_step = make_reg_train_step(
+        ref.model, ref.optimizer, num_data_shards=n_data,
+        accum_steps=accum, compute_dtype=torch.bfloat16, device=DEV,
+        target_size=TARGET)
+    if accum > 1 and n_data > 1:
+        global_batch_loader(ref, n_data, batch)
+    keep_first_grads(ref, work / f"mesh_grads_{case}_one.pt")
+    floor = bf16_grad_noise(ref)
+    losses, _, _, _, _ = fit_logged(ref)
+    return ref, losses, floor
+
+
+def phase_mesh_case(work: Path, case: str) -> Counter:
+    text, batch, accum = MESH_CASES[case]
+    world = parse_mesh(text).size
+    print(f"== phase {case}: --mesh {text}, --grad_accum {accum} ({world} "
+          f"ranks, --multihost, med3ddram, bf16, B={batch} per data rank, "
+          f"packed decoder, lr {DDP_LR:g}) against one process at the "
+          f"global batch")
+    for name in (f"models_{case}", f"models_{case}_ref"):   # a repeat
+        shutil.rmtree(work / name, ignore_errors=True)
+    t0 = time.perf_counter()
+    start_ranks(world, ["--mesh-rank", str(work), case])
+    ranks_s = time.perf_counter() - t0
+    ranks = [json.loads((work / f"mesh_{case}_rank{r}.json").read_text())
+             for r in range(world)]
+    check(all(r["losses"] == ranks[0]["losses"] for r in ranks),
+          f"phase {case}: the ranks' global losses differ")
+    check(all(r["metrics"] == {} for r in ranks[1:]),
+          f"phase {case}: a rank other than 0 reported epoch metrics")
+    print(f"{world} ranks ({ranks[0]['backend']}; "
+          + ", ".join(sorted({r['device'] for r in ranks}))
+          + f") ran in {ranks_s:.1f} s; step ms (loader to loader) rank 0 "
+          + ", ".join(f"{t:.1f}" for t in ranks[0]["wall_ms"])
+          + "; peak device memory per rank "
+          + ", ".join(f"{r['peak_gib']:.2f}" for r in ranks) + " GiB; "
+          "launches per rank " + "; ".join(", ".join(
+              f"{k} {v}" for k, v in r["launches"].items() if v)
+              for r in ranks[:1]) + " (every rank's checked per step)")
+    if ranks[0]["backend"] == "gloo":
+        print("times over gloo with the ranks sharing one card are not a "
+              "timing: every collective goes through the host")
+    else:
+        print(f"the step ms are host-clock readings of {len(ranks[0]['wall_ms'])}"
+              f" step(s) over {ranks[0]['backend']}, a card per rank, the "
+              f"first with the kernels' first launches: not a benchmark")
+    ref, losses, floor = mesh_reference(work, case)
+    check(len(losses) == len(ranks[0]["losses"]),
+          f"{len(losses)} reference steps")
+    worst = 0.0
+    for i, (got, want) in enumerate(zip(ranks[0]["losses"], losses)):
+        rel = {k: abs(got[k] - v) / max(abs(v), 1e-12)
+               for k, v in want.items()}
+        worst = max(worst, max(rel.values()))
+        print(f"step {i}: ranks loss {got['loss']:.6f}, one process "
+              f"{want['loss']:.6f}; relative |d| " + ", ".join(
+                  f"{k} {v:.2e}" for k, v in rel.items()))
+    check(worst <= DDP_LOSS_RTOL, f"phase {case} losses differ by "
+          f"{worst:.2e}")
+    grads = [torch.load(work / f"mesh_grads_{case}{n}.pt", weights_only=True)
+             for n in ("", "_one")]
+    med, worst_g, top = grad_spread(grads[0], grads[1])
+    print(f"first step's gradients, ||d|| / ||g|| per tensor: median "
+          f"{med:.2e}, max {worst_g:.2e} ({top}); the one process's bf16 "
+          f"against float32 (the noise floor) median {floor[0]:.2e}, max "
+          f"{floor[1]:.2e} ({floor[2]})")
+    check(med <= 2 * floor[0] and worst_g <= 2 * floor[1],
+          f"phase {case} gradients beyond twice the bf16 noise floor")
+    exp = work / f"models_{case}" / "subtyping_med3ddram"
+    ckpts = sorted(p.name for p in (exp / "checkpoints").iterdir())
+    check(ckpts == ["epoch_0000.pt"], f"checkpoints {ckpts}")
+    saved = torch.load(exp / "checkpoints" / ckpts[0], map_location="cpu",
+                       weights_only=True)
+    one = get_model_by_name("med3ddram", packed_decoder=True)
+    one.load_state_dict(saved["model"])         # full tensors, strict
+    check(len(saved["optimizer"]["state"]) == len(list(one.parameters())),
+          "the checkpoint's Adam state")
+    lr = DDP_LR
+    d = torch.cat([(saved["model"][k].float() - v.detach().float().cpu())
+                   .abs().reshape(-1) for k, v in ref.model.named_parameters()])
+    print(f"rank 0's checkpoint loads into one process (strict); parameters "
+          f"after {len(losses)} step(s): median |d| "
+          f"{d.median().item() / lr:.4f} lr (<= {DDP_MEDIAN_LR:g})")
+    check(d.median().item() <= DDP_MEDIAN_LR * lr,
+          f"phase {case} parameters: median")
+    if case != "10c":
+        best = ref.restore_best()
+        ref.evaluate("test", epoch=best)
+        rows = {}
+        for name, root in (("ranks", exp), ("one", ref.config.exp_path)):
+            with open(root / "predicts" / "test" / "0_predicts.csv") as f:
+                rows[name] = f.read().split()
+        check(len(rows["ranks"]) == 5 and rows["ranks"] == rows["one"],
+              f"phase {case} test CSVs {rows}")
+        want = forward_fractions(ref, "host")
+        frac = max(abs(a - b) for k, v in want.items()
+                   for a, b in zip(ranks[0]["fractions"][str(k)], v))
+        print(f"test labels equal over {len(want)} scans; lesion fractions "
+              f"|d| {frac:.2e} (<= {FRAC_BOUND:g})")
+        check(frac <= FRAC_BOUND, f"phase {case} lesion fractions")
+    del ref, one
+    torch.cuda.empty_cache()
+    launches = Counter()
+    for r in ranks:
+        launches.update(r["launches"])
+    return launches
+
+
+def phase_mesh(work: Path, cases=tuple(MESH_CASES)) -> Counter:
+    """Phase 10's training cells ``cases`` (10a-10c; a cell may repeat), in
+    order, over phase 8's archive."""
+    launches = Counter()
+    for case in cases:
+        launches.update(phase_mesh_case(work, case))
+    return launches
+
+
 
 def profile_window(trace, steps=(1, 2, 3)):
     """(busy share, window ms, {kernel name: total ms}) of the device over
@@ -3080,33 +3428,54 @@ def main():
              "checkout, this times that checkout's F by the same method")
     parser.add_argument(
         "--ddp-only", action="store_true",
-        help="run phases 1, 2, 4, 4f and 8 only; on a host with two or "
-             "more cards the ranks of 4f and 8 take a card each (NCCL)")
+        help="run phases 1, 2, 4, 4f, 8 and 10 only; on a host with "
+             "enough cards the ranks of 4f, 8 and 10 take a card each "
+             "(NCCL)")
+    parser.add_argument(
+        "--mesh-only", action="store_true",
+        help="run phases 1, 2, 4 (10d's reference) and 10 only")
+    parser.add_argument(
+        "--mesh-cases", default=",".join(MESH_CASES),
+        help="phase 10's training cells to run, in order (a cell may "
+             "repeat, e.g. 10a,10b,10b); default %(default)s")
     parser.add_argument("--ddp-rank", type=Path, default=None,
                         help=argparse.SUPPRESS)   # phase 8's ranks
+    parser.add_argument("--mesh-rank", nargs=2, default=None,
+                        help=argparse.SUPPRESS)   # phase 10's ranks
     flags = parser.parse_args()
+    cases = flags.mesh_cases.split(",")
+    for case in cases:
+        check(case in MESH_CASES, f"--mesh-cases: no cell {case!r}")
     if flags.ddp_rank is not None:
         ddp_rank(flags.ddp_rank)
+        return
+    if flags.mesh_rank is not None:
+        mesh_rank(Path(flags.mesh_rank[0]), flags.mesh_rank[1])
         return
     if flags.masked_sums_only:
         phase_environment()
         phase_build()
         phase_masked_sums()
         return
-    if flags.ddp_only:
+    if flags.ddp_only or flags.mesh_only:
         phase_environment()
         phase_build()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             model, scan_dir, lobe_dir, _, _, _, _, fractions, _ = \
                 phase_main_path(Path(tmp))
-            phase_processor_ranks(model, scan_dir, lobe_dir, Path(tmp),
-                                  fractions)
+            if flags.ddp_only:
+                phase_processor_ranks(model, scan_dir, lobe_dir, Path(tmp),
+                                      fractions)
+            phase_mesh_processor(model, scan_dir, lobe_dir, Path(tmp),
+                                 fractions)
             del model
             torch.cuda.empty_cache()
             work = Path(tmp) / "train"
             work.mkdir()
             write_archive(work)
-            phase_ddp(work)
+            if flags.ddp_only:
+                phase_ddp(work)
+            phase_mesh(work, cases)
         return
     card = phase_environment()
     phase_build()
@@ -3133,6 +3502,8 @@ def main():
         launches, ranks_rate, ranks_wall = phase_processor_ranks(
             model, scan_dir, lobe_dir, Path(tmp), fractions)
         main_launches.update(launches)
+        main_launches.update(phase_mesh_processor(
+            model, scan_dir, lobe_dir, Path(tmp), fractions))
         del model
         torch.cuda.empty_cache()
         work = Path(tmp) / "train"
@@ -3159,6 +3530,7 @@ def main():
         launches, cls = phase_cls(work)
         main_launches.update(launches)
         main_launches.update(phase_ddp(Path(tmp) / "train"))
+        main_launches.update(phase_mesh(Path(tmp) / "train", cases))
         launches, profiled = phase_profile(Path(tmp) / "train")
         main_launches.update(launches)
     for mode in ("roll", *MODES):

@@ -119,8 +119,8 @@ print(json.dumps({"mods": mods,
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert len(out["mods"]) >= 20
-    # the classification, device-pipeline, data-parallel, tools and
-    # transform-framework slices' modules are among them
+    # the classification, device-pipeline, data-parallel, tools,
+    # transform-framework and mesh-axes slices' modules are among them
     port = "bodyct_dram_emph_subtype_tpu_torch."
     assert {port + m for m in ("evaluate", "evaluate.__main__",
                                "models.resnet3d", "models.registry",
@@ -128,7 +128,9 @@ print(json.dumps({"mods": mods,
                                "train.loop", "ops.packing", "ops.preprocess",
                                "data.loader", "data.host_preprocess",
                                "inference.processor", "inference.__main__",
-                               "parallel", "parallel.mesh", "utils.viz",
+                               "parallel", "parallel.mesh",
+                               "parallel.spatial", "parallel.tensor",
+                               "utils.viz",
                                "ops.resize", "tools", "tools.build_cache",
                                "tools.convert_checkpoint",
                                "tools.compute_label_statistics",

@@ -209,10 +209,6 @@ def test_cli_writes_the_output_contract(cases):
             {"score", "percentage"}
     for sub in HEATMAPS:
         assert (out / "images" / sub / "case2.mha").exists()
-    # a spatial axis is not ported (the data axis is,
-    # tests/test_torch_processor_ddp.py)
-    with pytest.raises(NotImplementedError, match="spatial"):
-        main(["--mesh", "data=1,spatial=2", "--device", "cpu"])
 
 
 def test_cli_host_preprocess(cases):

@@ -16,8 +16,13 @@ One launch per case group, three in all:
   on two ranks at batch 2 gives one result; at ``pad_shape`` (160, 52, 384)
   ``scan_b``'s crop exceeds the pad and falls back to the host path on
   rank 1, its owner, alone;
-- the CLI with ``--mesh data=2`` on the host path.  ``--mesh
-  data=1,spatial=2`` is refused in-process.
+- the CLI with ``--mesh data=2`` on the host path, and with ``--mesh
+  spatial=2,model=2`` on the device path: four ranks score every scan,
+  each on its H slab of the model input and its channel slice of the
+  weights, rank 0 alone writes them; against one process's
+  ``run_inference`` on the same weights: scores, score JSONs and results
+  equal, percentages within 1e-4 (the fractions unrounded within 1e-5
+  relative), heatmaps within one uint8 count.
 """
 import json
 import os
@@ -120,8 +125,28 @@ def test_cli_mesh_data_axis(scans, capfd):
                 "paraseptal-emphysema-heatmap"):
         assert sorted(p.stem for p in (out / "images" / sub).iterdir()) \
             == UIDS
-    with pytest.raises(NotImplementedError, match="spatial"):
-        main(_argv(ct, lobes, out, "--mesh", "data=1,spatial=2"))
+    # the spatial and model axes: every scan on all four ranks, one H slab
+    # and one channel slice each
+    from bodyct_dram_emph_subtype_tpu_torch.inference.processor import \
+        run_inference
+    from test_torch_processor import _assert_matches_jax
+    sout, oout = root / "spatial_out", root / "one_out"
+    main(_argv(ct, lobes, sout, "--mesh", "spatial=2,model=2", "--ckp",
+               "none"))
+    _, stats = _printed(capfd.readouterr().out)
+    one_stats = {}
+    one = run_inference(str(ct), str(lobes), str(oout),
+                        model_arch="med3ddramtiny", ckp_path="none",
+                        target_size=TARGET, workers=1, device="cpu",
+                        stats=one_stats)
+    _assert_matches_jax(json.loads((sout / "results.json").read_text()),
+                        one, sout, oout, want=UIDS)
+    ranks = stats[0]["ranks"]
+    assert [r["finalized"] for r in ranks] == [UIDS, [], [], []]
+    assert [r["batches"] for r in ranks] == [2, 2, 2, 2]
+    for uid, want in one_stats["fractions"].items():
+        np.testing.assert_allclose(ranks[0]["fractions"][uid], want,
+                                   rtol=1e-5)
 
 
 def _free_port() -> int:

@@ -155,9 +155,36 @@ def test_cli_trains_with_remat_all(archive, tmp_path):
                                   ["--noise_rng", "rbg"],
                                   ["--mesh", "data=2,spatial=2"]])
 def test_cli_refuses_what_is_not_ported(archive, tmp_path, flag):
+    """``rbg`` stays refused, by decision.  The mesh axes are ported: the
+    trainer's config lays its ranks out as JAX's data-major
+    ``reshape(data, spatial, model)`` of the devices, and in a process
+    group of one ``check_supported`` asks for those ranks
+    (``tests/test_torch_mesh.py`` runs them)."""
+    from bodyct_dram_emph_subtype_tpu_torch.parallel.mesh import (
+        _axis_ranks, parse_mesh)
+    from bodyct_dram_emph_subtype_tpu_torch.train.__main__ import (
+        build_parser, make_config)
+    from bodyct_dram_emph_subtype_tpu_torch.train.loop import \
+        check_supported
     argv = _argv(archive, tmp_path / "m", 1) + flag
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(argv)
+    cfg = make_config(build_parser().parse_args(argv), "cpu")
+    if flag[0] == "--noise_rng":
+        with pytest.raises(NotImplementedError, match="by decision"):
+            check_supported(cfg)
+        return
+    spec = parse_mesh(cfg.mesh)
+    grid = np.arange(spec.size).reshape(spec.data, spec.spatial, spec.model)
+    want = {"spatial": grid.transpose(0, 2, 1).reshape(-1, spec.spatial),
+            "model": grid.reshape(-1, spec.model),
+            "data": grid.transpose(1, 2, 0).reshape(-1, spec.data),
+            "replica": grid.transpose(2, 0, 1).reshape(spec.model, -1)}
+    got = _axis_ranks(spec)
+    assert got.keys() == want.keys()
+    for axis, lists in want.items():
+        assert sorted(map(tuple, lists.tolist())) == \
+            sorted(map(tuple, got[axis])), axis
+    with pytest.raises(ValueError, match="ranks asked for"):
+        check_supported(cfg)
 
 
 def test_sampler_and_preprocessed_view_equal_jax(archive):
