@@ -1,0 +1,9 @@
+"""Device milliseconds per measured step of the ``optimizer`` phase: CUDA
+events at the trainer's ``optimizer`` mark and the next one."""
+
+
+def read(rec):
+    t = rec.get("train")
+    if not t or not t["steps"]:
+        return None
+    return t["phase_ms"]["optimizer"]
