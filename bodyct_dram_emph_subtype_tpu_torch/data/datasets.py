@@ -19,6 +19,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 
 from ..ops.morphology import binary_dilate_np, find_crops_np
+from ..utils.spans import span
 from .csv_utils import read_csv_in_dict
 from .mha import read_mha
 
@@ -53,10 +54,14 @@ def load_torch_cache(path) -> Dict[str, Any]:
 
 
 class SubtypingInference:
-    """Deployment dataset over paired scan/lobe ``.mha`` directories."""
+    """Deployment dataset over paired scan/lobe ``.mha`` directories.
+    Each item's MHA reads are an ``io.read`` span and the rest an
+    ``io.prepare`` span (``utils/spans.py``), added to ``counters`` when
+    given (its views add their own work to ``io.prepare``)."""
 
     def __init__(self, scan_path: str, lobe_path: str, crop_border: int = 5,
-                 keep_original: bool = True, compute_ess: bool = True):
+                 keep_original: bool = True, compute_ess: bool = True,
+                 counters: Optional[Dict[str, float]] = None):
         self.scan_path = scan_path
         self.lobe_path = lobe_path
         self.crop_border = crop_border
@@ -69,6 +74,7 @@ class SubtypingInference:
         self.scan_files = sorted(glob.glob(scan_path + "/*.mha"))
         self.lobe_files = sorted(glob.glob(lobe_path + "/*.mha"))
         self.scan_meta_cache: Dict[str, dict] = {}
+        self.counters = counters
 
     def __len__(self):
         return len(self.scan_files)
@@ -88,10 +94,16 @@ class SubtypingInference:
     def get_data(self, index) -> Dict[str, Any]:
         scan_file = self.scan_files[index]
         lobe_file = self.lobe_files[index]
-        scan_name = Path(scan_file).stem
-        scan, origin, spacing, direction = self.read_image(scan_file)
+        with span("io.read", self.counters):
+            scan, origin, spacing, direction = self.read_image(scan_file)
+            lobe, *_ = self.read_image(lobe_file)
+        with span("io.prepare", self.counters):
+            return self._prepare(Path(scan_file).stem, scan, lobe, origin,
+                                 spacing, direction)
+
+    def _prepare(self, scan_name: str, scan, lobe, origin, spacing,
+                 direction) -> Dict[str, Any]:
         original_size = scan.shape
-        lobe, *_ = self.read_image(lobe_file)
         if lobe.shape != scan.shape:
             raise ValueError(f"{scan_name}: scan {scan.shape} and lobe "
                              f"segmentation {lobe.shape} differ in shape")
@@ -190,7 +202,12 @@ class COPDGeneSubtyping:
                                 f"({npz} / {pth})")
 
     def get_data(self, uid: str) -> Dict[str, Any]:
-        data = self._load_cached(uid)
-        data["em_mask"] = np.logical_and(np.asarray(data["image"]) < -950,
-                                         np.asarray(data["lung_mask"]) > 0)
+        """The cache entry of ``uid`` (an ``io.read`` span) and its
+        ``em_mask`` (an ``io.prepare`` span)."""
+        with span("io.read"):
+            data = self._load_cached(uid)
+        with span("io.prepare"):
+            data["em_mask"] = np.logical_and(
+                np.asarray(data["image"]) < -950,
+                np.asarray(data["lung_mask"]) > 0)
         return data

@@ -18,6 +18,8 @@ from typing import Dict, Tuple
 
 import numpy as np
 
+from ..utils.spans import span
+
 
 def _linear_taps(out_size: int, in_size: int, align_corners: bool):
     i = np.arange(out_size, dtype=np.float64)
@@ -116,7 +118,7 @@ def preprocess_sample(sample: Dict[str, np.ndarray],
 
 class PreprocessedView:
     """Dataset adapter: ``preprocess_sample`` on ``__getitem__`` (what the
-    loader threads run)."""
+    loader threads run; an ``io.prepare`` span)."""
 
     def __init__(self, dataset, target_size, window=(-1150.0, -300.0)):
         self.dataset = dataset
@@ -127,8 +129,9 @@ class PreprocessedView:
         return len(self.dataset)
 
     def __getitem__(self, index):
-        return preprocess_sample(self.dataset[index], self.target_size,
-                                 self.window)
+        d = self.dataset[index]
+        with span("io.prepare"):
+            return preprocess_sample(d, self.target_size, self.window)
 
     def __getattr__(self, name):
         return getattr(self.dataset, name)
@@ -139,8 +142,9 @@ class RawPaddedView:
     and its lung mask padded into a static ``pad_shape`` buffer (-2048 and
     0), with its true extent ``in_sizes``; windowing, standardization,
     resizing and the LAA mask run on the device
-    (``ops/preprocess.py::fused_preprocess``).  A sample larger than the
-    pad raises ``ValueError``."""
+    (``ops/preprocess.py::fused_preprocess``).  The padding is an
+    ``io.prepare`` span.  A sample larger than the pad raises
+    ``ValueError``."""
 
     def __init__(self, dataset, pad_shape):
         self.dataset = dataset
@@ -151,6 +155,10 @@ class RawPaddedView:
 
     def __getitem__(self, index):
         d = self.dataset[index]
+        with span("io.prepare"):
+            return self._pad(index, d)
+
+    def _pad(self, index, d):
         img = np.asarray(d["image"])
         lung = np.asarray(d["lung_mask"])
         shape = img.shape

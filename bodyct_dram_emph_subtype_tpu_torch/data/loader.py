@@ -22,6 +22,8 @@ from typing import (Any, Callable, Dict, Iterable, Iterator, List, Optional,
 import numpy as np
 import torch
 
+from ..utils.spans import span
+
 
 def prefetch_to_device(iterator: Iterable, put_fn: Callable, size: int = 2):
     """Keep ``size`` batches in flight: ``put_fn`` (the upload) of batch
@@ -135,20 +137,24 @@ class DataLoader:
     """Iterates ``dataset`` over ``indices`` in batches, ``num_workers``
     threads reading samples and up to ``PREFETCH`` batches ahead;
     ``drop_last`` drops a short final batch (the training loader);
-    ``collate`` stacks a batch (in the producer thread)."""
+    ``collate`` stacks a batch (in the producer thread).  The consumer's
+    time blocked on the next batch is a ``wait.loader`` span
+    (``utils/spans.py``), added to ``counters`` when given."""
 
     PREFETCH = 2
 
     def __init__(self, dataset, indices: Optional[Sequence[int]] = None,
                  batch_size: int = 1, num_workers: int = 4,
                  drop_last: bool = False,
-                 collate: Callable = default_collate):
+                 collate: Callable = default_collate,
+                 counters: Optional[Dict[str, float]] = None):
         self.dataset = dataset
         self.indices = indices
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
         self.drop_last = drop_last
         self.collate = collate
+        self.counters = counters
 
     def _index_batches(self) -> List[List[int]]:
         idx = (list(self.indices) if self.indices is not None
@@ -191,7 +197,8 @@ class DataLoader:
         thread.start()
         try:
             while True:
-                item = q.get()
+                with span("wait.loader", self.counters):
+                    item = q.get()
                 if item is None:
                     break
                 if isinstance(item, Exception):

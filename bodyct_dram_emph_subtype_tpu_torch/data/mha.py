@@ -22,9 +22,11 @@ from __future__ import annotations
 import zlib
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
+
+from ..utils.spans import span
 
 _MET_TO_DTYPE = {
     "MET_CHAR": np.int8, "MET_UCHAR": np.uint8,
@@ -113,17 +115,36 @@ def write_mha(path: Union[str, Path], array: np.ndarray,
               origin: Sequence[float] = (0.0, 0.0, 0.0),
               direction: Sequence[float] = None,
               compressed: bool = True,
-              anatomical_orientation: str = "RAI") -> None:
+              anatomical_orientation: str = "RAI",
+              counters: Optional[Dict[str, float]] = None) -> None:
     """Write a (z,y,x) array as .mha; geometry args are ITK (x,y,z) order,
     mirroring ``sitk.Image`` setters used by the reference
-    (``utils.py:93-104``)."""
-    path = Path(path)
-    array = np.ascontiguousarray(array)
-    ndims = array.ndim
+    (``utils.py:93-104``).  The compression is a ``post.zlib`` span and
+    the rest a ``post.write`` span (``utils/spans.py``), added to
+    ``counters`` when given."""
+    with span("post.write", counters):
+        array = np.ascontiguousarray(array)
+        payload = array.tobytes()
+    if compressed:
+        with span("post.zlib", counters):
+            # level 1: ~4x faster than the default on 1-2 core deployment
+            # hosts; MHA only requires a valid zlib stream
+            payload = zlib.compress(payload, level=1)
+    with span("post.write", counters):
+        _write_mha_file(Path(path), payload, array.shape, array.dtype,
+                        spacing, origin, direction, compressed,
+                        anatomical_orientation)
+
+
+def _write_mha_file(path: Path, payload: bytes, shape, dtype, spacing,
+                    origin, direction, compressed: bool,
+                    anatomical_orientation: str) -> None:
+    """The header and ``payload`` (compressed when ``compressed``) of a
+    (z,y,x) ``shape`` array."""
+    ndims = len(shape)
     if direction is None:
         direction = tuple(np.eye(ndims).ravel())
-    met = _DTYPE_TO_MET[np.dtype(array.dtype)]
-    payload = array.tobytes()
+    met = _DTYPE_TO_MET[np.dtype(dtype)]
     lines = [
         "ObjectType = Image",
         f"NDims = {ndims}",
@@ -132,9 +153,6 @@ def write_mha(path: Union[str, Path], array: np.ndarray,
         f"CompressedData = {'True' if compressed else 'False'}",
     ]
     if compressed:
-        # level 1: ~4x faster than the default on 1-2 core deployment
-        # hosts; MHA only requires a valid zlib stream
-        payload = zlib.compress(payload, level=1)
         lines.append(f"CompressedDataSize = {len(payload)}")
     fmt = lambda vals: " ".join(repr(float(v)) if float(v) != int(v)
                                 else str(int(v)) for v in vals)
@@ -144,7 +162,7 @@ def write_mha(path: Union[str, Path], array: np.ndarray,
         f"CenterOfRotation = {fmt([0.0] * ndims)}",
         f"AnatomicalOrientation = {anatomical_orientation}",
         f"ElementSpacing = {fmt(spacing)}",
-        f"DimSize = {' '.join(str(s) for s in reversed(array.shape))}",
+        f"DimSize = {' '.join(str(s) for s in reversed(shape))}",
         f"ElementType = {met}",
         "ElementDataFile = LOCAL",
     ]
@@ -155,13 +173,16 @@ def write_mha(path: Union[str, Path], array: np.ndarray,
 
 def write_arrays_to_mha(target_dir: Union[str, Path], arrays, names,
                         dtype=np.int16, origin=(0.0, 0.0, 0.0),
-                        direction=None, spacing=(1.0, 1.0, 1.0)) -> None:
+                        direction=None, spacing=(1.0, 1.0, 1.0),
+                        counters: Optional[Dict[str, float]] = None) -> None:
     """Batch writer matching ``write_array_to_mha_itk`` (``utils.py:87-104``):
-    arrays are z-y-x; spacing/origin/direction here are x-y-z (ITK order)."""
+    arrays are z-y-x; spacing/origin/direction here are x-y-z (ITK order).
+    ``counters``: as :func:`write_mha`'s (the cast adds to ``post.write``)."""
     target_dir = Path(target_dir)
     target_dir.mkdir(parents=True, exist_ok=True)
     for arr, name in zip(arrays, names):
-        write_mha(target_dir / f"{name}.mha",
-                  np.asarray(arr).astype(dtype, copy=False),
-                  spacing=spacing, origin=origin, direction=direction,
-                  compressed=True)
+        with span("post.write", counters):
+            arr = np.asarray(arr).astype(dtype, copy=False)
+        write_mha(target_dir / f"{name}.mha", arr, spacing=spacing,
+                  origin=origin, direction=direction, compressed=True,
+                  counters=counters)

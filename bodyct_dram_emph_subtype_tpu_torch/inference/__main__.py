@@ -25,12 +25,17 @@ writing their files; ``--multihost`` joins torchrun's process group (``torchrun
 scores its shard of the scans and writes their heatmaps; rank 0 writes
 the JSONs and prints the results and the run's statistics.  It
 runs on the CUDA card and refuses to start without one unless given
-``--device cpu``.
+``--device cpu``.  ``--profile PATH`` writes a Chrome trace of the run
+(``torch.profiler``: CPU and, on a card, CUDA activities, every thread's
+spans, ``utils/spans.py``) to PATH; rank r > 0 of a process group writes
+``PATH.rank<r>``.
 """
+import contextlib
 import json
 import logging
 import re
 from argparse import ArgumentParser
+from pathlib import Path
 
 from ..parallel.mesh import add_distributed_args, distributed
 
@@ -88,6 +93,10 @@ def main(argv=None):
     parser.add_argument("--seed", default=0, type=int,
                         help="seed of the random weights used when --ckp "
                              "does not exist")
+    parser.add_argument("--profile", default=None, type=str, metavar="PATH",
+                        help="write a torch.profiler Chrome trace of the "
+                             "run, every thread's spans, to PATH (rank r > 0: "
+                             "PATH.rank<r>)")
     add_distributed_args(parser)
     parser.add_argument("--local_rank", default=0, type=int,
                         help="this argument is not used and should be ignored")
@@ -100,17 +109,26 @@ def main(argv=None):
         if place is None:
             return
         device, rank = place
+        from ..utils.device import entry_device
+        from ..utils.spans import profiler
         from .processor import run_inference
         stats = {}
-        results = run_inference(
-            scan_path=args.scan_path, lobe_path=args.lobe_path,
-            output_path=args.output_path, model_arch=args.model_arch,
-            ckp_path=args.ckp, target_size=args.target_size,
-            batch_size=args.batch_size, workers=args.workers,
-            compute_dtype=args.compute_dtype,
-            device_preprocess=not args.host_preprocess,
-            pad_shape=args.pad_shape, gated_frac=args.gated_frac,
-            device=device, seed=args.seed, stats=stats)
+        with (profiler(entry_device(device)) if args.profile
+              else contextlib.nullcontext()) as prof:
+            results = run_inference(
+                scan_path=args.scan_path, lobe_path=args.lobe_path,
+                output_path=args.output_path, model_arch=args.model_arch,
+                ckp_path=args.ckp, target_size=args.target_size,
+                batch_size=args.batch_size, workers=args.workers,
+                compute_dtype=args.compute_dtype,
+                device_preprocess=not args.host_preprocess,
+                pad_shape=args.pad_shape, gated_frac=args.gated_frac,
+                device=device, seed=args.seed, stats=stats)
+        if args.profile:
+            path = args.profile if rank == 0 else f"{args.profile}.rank{rank}"
+            Path(path).parent.mkdir(parents=True, exist_ok=True)
+            prof.export_chrome_trace(path)
+            logging.info("profiler trace written to %s", path)
         if rank == 0:
             print("results:", results)
             print("stats:", json.dumps(stats))

@@ -102,11 +102,19 @@ from ..parallel.mesh import coords, gather_objects, is_leader, mesh, rank, \
 from ..train.checkpoint import CheckpointManager
 from ..train.steps import make_predict_step
 from ..utils.device import entry_device
+from ..utils.spans import span
 from ..utils.viz import windowing
 
 logger = logging.getLogger(__name__)
 
 STAGES = ("upload", "preprocess", "forward", "reduction", "download")
+# host-clock counters of ``stats["stage_ms"]``, each the summed time of the
+# ``utils/spans.py`` span of the same name: the dispatch thread's waits on
+# the loader and on the postprocess, the loader workers' MHA reads and the
+# rest of each item, and the parts of the postprocess
+COUNTERS = ("wait.loader", "wait.post", "io.read", "io.prepare",
+            "post.upsample", "post.uncrop", "post.quantise", "post.zlib",
+            "post.write")
 
 
 class _PredictView:
@@ -122,15 +130,17 @@ class _PredictView:
 
     def __getitem__(self, index):
         sample = self.dataset[index]
-        sample.pop("original_image", None)
-        if "ess_mask" not in sample:
-            # the lean (compute_ess=False) dataset of the device path leaves
-            # the -910 HU mask to its consumer: thresholded here on the
-            # int16 crop, as the JAX package does (processor.py:67-72)
-            sample["ess_mask"] = np.logical_and(
-                np.asarray(sample["image"]) < -910,
-                np.asarray(sample["lung_mask"]))
-        return preprocess_sample(sample, self.target_size)
+        with span("io.prepare", self.dataset.counters):
+            sample.pop("original_image", None)
+            if "ess_mask" not in sample:
+                # the lean (compute_ess=False) dataset of the device path
+                # leaves the -910 HU mask to its consumer: thresholded here
+                # on the int16 crop, as the JAX package does
+                # (processor.py:67-72)
+                sample["ess_mask"] = np.logical_and(
+                    np.asarray(sample["image"]) < -910,
+                    np.asarray(sample["lung_mask"]))
+            return preprocess_sample(sample, self.target_size)
 
 
 class _RawPredictView:
@@ -180,6 +190,10 @@ class _RawPredictView:
 
     def __getitem__(self, index):
         d = self.dataset[index]
+        with span("io.prepare", self.dataset.counters):
+            return self._prepare(index, d)
+
+    def _prepare(self, index, d):
         img = np.asarray(d["image"])         # int16 crop
         if any(s > p for s, p in zip(img.shape[1:], self.up_shape[1:])):
             return self._dummy(index, d, f"crop {img.shape} exceeds "
@@ -363,10 +377,13 @@ class _FetchStage:
     after the batch, into pinned memory), reads its stage clock, and hands
     host arrays to the postprocess pipeline, so batch n+1's device work
     overlaps batch n's host postprocess.  ``maxsize=2`` bounds the batches
-    in flight."""
+    in flight.  The dispatch thread's time blocked in :meth:`submit` (the
+    backpressure) and in :meth:`close` adds to ``stage_ms["wait.post"]``."""
 
-    def __init__(self, pipeline: _PostprocessPipeline):
+    def __init__(self, pipeline: _PostprocessPipeline,
+                 stage_ms: Dict[str, float]):
         self._pipeline = pipeline
+        self._stage_ms = stage_ms
         self._q: "queue.Queue" = queue.Queue(maxsize=2)
         self._err: Optional[BaseException] = None
         self._thread = threading.Thread(target=self._run, daemon=True)
@@ -381,7 +398,8 @@ class _FetchStage:
                 continue
             try:
                 res, clock, post = item
-                stage_ms = clock.stage_ms()       # waits for the copies
+                with span("wait.copies"):
+                    stage_ms = clock.stage_ms()   # waits for the copies
                 host = {k: v.numpy() for k, v in res.items()}
                 self._pipeline.submit(functools.partial(
                     post, host=host, stage_ms=stage_ms))
@@ -391,11 +409,13 @@ class _FetchStage:
     def submit(self, res, clock: _StageClock, post):
         if self._err is not None:
             raise self._err
-        self._q.put((res, clock, post))
+        with span("wait.post", self._stage_ms):
+            self._q.put((res, clock, post))
 
     def close(self):
-        self._q.put(None)
-        self._thread.join()
+        with span("wait.post", self._stage_ms):
+            self._q.put(None)
+            self._thread.join()
         if self._err is not None:
             raise self._err
 
@@ -428,17 +448,18 @@ def _device_batch_post(pipe: _PostprocessPipeline, *, host, stage_ms, batch,
     for i, uid in enumerate(batch["uid"]):
         if batch["oversized"][i] or not pipe.claim(uid):
             continue       # a dummy (re-run on the host path) or a repeat
-        ess = np.unpackbits(host["ess_bits"][i], bitorder="little")
-        ess = ess[:n_vox_t].reshape(target_size)
-        maps = []
-        for name in ("cle", "pse"):
-            # the same linear upsample the device reduction used, with
-            # host float64-derived taps (f16 transfer widened back)
-            up = resize_linear_matmul_np(
-                host[f"{name}_half"][i].astype(np.float32), target_size,
-                (0, 1, 2), align_corners=True)
-            up[ess == 0] = 0.0
-            maps.append(up)
+        with span("post.upsample", stats["stage_ms"]):
+            ess = np.unpackbits(host["ess_bits"][i], bitorder="little")
+            ess = ess[:n_vox_t].reshape(target_size)
+            maps = []
+            for name in ("cle", "pse"):
+                # the same linear upsample the device reduction used, with
+                # host float64-derived taps (f16 transfer widened back)
+                up = resize_linear_matmul_np(
+                    host[f"{name}_half"][i].astype(np.float32), target_size,
+                    (0, 1, 2), align_corners=True)
+                up[ess == 0] = 0.0
+                maps.append(up)
         _emit(pipe, uid, i, batch, stats, *maps, float(host["cle_pct"][i]),
               float(host["pse_pct"][i]))
     _record(stats, stage_ms, t0)
@@ -459,10 +480,13 @@ def _host_batch_post(pipe: _PostprocessPipeline, *, host, stage_ms, batch,
 
 
 def _finalize_scan(uid: str, rec: Dict[str, Any], *, dataset,
-                   out_cle: Path, out_pse: Path) -> Dict[str, Any]:
+                   out_cle: Path, out_pse: Path,
+                   counters: Optional[Dict[str, float]] = None
+                   ) -> Dict[str, Any]:
     """Un-crop both dRAMs into the original scan geometry, write the uint8
     heatmap MHAs, and return the ``results.json`` entry (reference
-    ``processor.py:99-158``)."""
+    ``processor.py:99-158``).  ``counters``: the ``post.uncrop``,
+    ``post.quantise``, ``post.zlib`` and ``post.write`` spans add there."""
     crop = rec["crop_slice"]
     original_size = tuple(int(s) for s in rec["original_size"])
     recon_size = tuple(int(b - a) for a, b in crop)
@@ -472,12 +496,14 @@ def _finalize_scan(uid: str, rec: Dict[str, Any], *, dataset,
     full_maps = {}
     for name, dense, pct in (("cle", rec["cle_dense"], rec["cle_pct"]),
                              ("pse", rec["pse_dense"], rec["pse_pct"])):
-        up = resize_linear_matmul_np(dense, recon_size, (0, 1, 2),
-                                     align_corners=True)
-        # quantize the CROP, then paste into a uint8 canvas: outside the
-        # crop windowing(0) == 0, the uint8 background
-        full = np.zeros(original_size, np.uint8)
-        full[paste] = windowing(up, from_span=(0, 1)).astype(np.uint8)
+        with span("post.uncrop", counters):
+            up = resize_linear_matmul_np(dense, recon_size, (0, 1, 2),
+                                         align_corners=True)
+        with span("post.quantise", counters):
+            # quantize the CROP, then paste into a uint8 canvas: outside
+            # the crop windowing(0) == 0, the uint8 background
+            full = np.zeros(original_size, np.uint8)
+            full[paste] = windowing(up, from_span=(0, 1)).astype(np.uint8)
         full_maps[name] = full
         ratio_map = CLE_RATIO_MAP if name == "cle" else PSE_RATIO_MAP
         metrics[f"{name}_severity_score"] = "{:d}".format(
@@ -491,9 +517,9 @@ def _finalize_scan(uid: str, rec: Dict[str, Any], *, dataset,
             ::-1].flatten().tolist(),
         spacing=meta["spacing"][::-1])
     write_arrays_to_mha(out_cle, [full_maps["cle"]], [uid],
-                        dtype=np.uint8, **itk_kwargs)
+                        dtype=np.uint8, counters=counters, **itk_kwargs)
     write_arrays_to_mha(out_pse, [full_maps["pse"]], [uid],
-                        dtype=np.uint8, **itk_kwargs)
+                        dtype=np.uint8, counters=counters, **itk_kwargs)
     return {"entity": uid, "metrics": metrics, "error_messages": []}
 
 
@@ -542,32 +568,33 @@ def _device_path(model, dataset: SubtypingInference, make_loader,
     up_shape, block, budget = gate_plan(target_size, pad_shape, gated_frac)
     view = _RawPredictView(dataset, up_shape, target_size, budget, block)
     for batch in make_loader(view, subset):
-        t0 = time.perf_counter()
-        packed, gate_bits = pack10_gated_host(
-            batch["image_raw"], batch["gate_blocks"], budget, block)
-        lung_bits = np.packbits(batch["lung_raw"].reshape(len(packed), -1),
-                                axis=-1, bitorder="little")
-        stats["pack_ms"] += 1e3 * (time.perf_counter() - t0)
-        stats["upload_bytes"] += sum(a.nbytes for a in (
-            packed, gate_bits, lung_bits, batch["in_sizes"],
-            batch["moments"]))
-        clock = _StageClock(device)
-        clock.mark()
-        inputs = [_upload(a, device) for a in (
-            packed, gate_bits, lung_bits, batch["in_sizes"],
-            batch["moments"])]
-        clock.mark()
-        res = _predict(model, *inputs, up_shape, block, target_size, dtype,
-                       clock)
-        # enqueue the download now, into pinned host memory, ahead of the
-        # next batch's work on the stream
-        res = {k: v.to("cpu", non_blocking=True) for k, v in res.items()}
-        clock.mark()
-        meta = {k: batch[k] for k in ("uid", "crop_slice", "original_size",
-                                      "oversized")}
-        fetcher.submit(res, clock, functools.partial(
-            _device_batch_post, batch=meta, target_size=target_size,
-            n_vox_t=n_vox_t, stats=stats))
+        with span("proc.dispatch"):
+            with span("pack_ms", stats):
+                packed, gate_bits = pack10_gated_host(
+                    batch["image_raw"], batch["gate_blocks"], budget, block)
+                lung_bits = np.packbits(
+                    batch["lung_raw"].reshape(len(packed), -1), axis=-1,
+                    bitorder="little")
+            stats["upload_bytes"] += sum(a.nbytes for a in (
+                packed, gate_bits, lung_bits, batch["in_sizes"],
+                batch["moments"]))
+            clock = _StageClock(device)
+            clock.mark()
+            inputs = [_upload(a, device) for a in (
+                packed, gate_bits, lung_bits, batch["in_sizes"],
+                batch["moments"])]
+            clock.mark()
+            res = _predict(model, *inputs, up_shape, block, target_size,
+                           dtype, clock)
+            # enqueue the download now, into pinned host memory, ahead of
+            # the next batch's work on the stream
+            res = {k: v.to("cpu", non_blocking=True) for k, v in res.items()}
+            clock.mark()
+            meta = {k: batch[k] for k in ("uid", "crop_slice",
+                                          "original_size", "oversized")}
+            fetcher.submit(res, clock, functools.partial(
+                _device_batch_post, batch=meta, target_size=target_size,
+                n_vox_t=n_vox_t, stats=stats))
     return sorted(view.oversized)
 
 
@@ -577,20 +604,22 @@ def _host_path(model, loader, fetcher: _FetchStage, dtype: torch.dtype,
     :class:`_PredictView`) through ``make_predict_step``."""
     step = make_predict_step(model, compute_dtype=dtype, device=device)
     for batch in loader:
-        clock = _StageClock(device)
-        clock.mark()
-        images = _upload(batch["image"], device)
-        lungs = _upload(batch["lung_mask"], device)
-        ess = _upload(batch["ess_mask"], device)
-        clock.mark()
-        # marks as the forward and the reduction begin and when both end;
-        # no preprocess runs on the device here
-        res = step(images, lungs, ess, mark=lambda name: clock.mark())
-        res = {k: v.to("cpu", non_blocking=True) for k, v in res.items()}
-        clock.mark()
-        meta = {k: batch[k] for k in ("uid", "crop_slice", "original_size")}
-        fetcher.submit(res, clock, functools.partial(
-            _host_batch_post, batch=meta, stats=stats))
+        with span("proc.dispatch"):
+            clock = _StageClock(device)
+            clock.mark()
+            images = _upload(batch["image"], device)
+            lungs = _upload(batch["lung_mask"], device)
+            ess = _upload(batch["ess_mask"], device)
+            clock.mark()
+            # marks as the forward and the reduction begin and when both
+            # end; no preprocess runs on the device here
+            res = step(images, lungs, ess, mark=lambda name: clock.mark())
+            res = {k: v.to("cpu", non_blocking=True) for k, v in res.items()}
+            clock.mark()
+            meta = {k: batch[k] for k in ("uid", "crop_slice",
+                                          "original_size")}
+            fetcher.submit(res, clock, functools.partial(
+                _host_batch_post, batch=meta, stats=stats))
 
 
 def run_inference(scan_path: str, lobe_path: str, output_path: str,
@@ -631,6 +660,17 @@ def run_inference(scan_path: str, lobe_path: str, output_path: str,
     batch, through host pinning and the copies to the device, then each
     device stage, then the copies back; the host path has no device
     preprocess); ``postprocess`` is host time of the postprocess thread.
+    ``COUNTERS`` are the host-clock ms of the ``utils/spans.py`` spans of
+    the same names, summed over the threads: ``wait.loader`` and
+    ``wait.post``, the dispatch thread blocked on the loader and on the
+    postprocess (its backpressure and the final joins); ``io.read`` and
+    ``io.prepare``, the loader workers' MHA reads and the rest of each
+    item; ``post.upsample`` (device path), ``post.uncrop``,
+    ``post.quantise``, ``post.zlib`` and ``post.write``, parts of
+    ``postprocess``.  Under a running ``torch.profiler`` the dispatch
+    thread's spans ``proc.setup``, ``proc.dispatch`` (one batch) and
+    ``proc.results`` and the completion thread's ``wait.copies`` appear
+    too.
 
     Data parallelism (JAX ``nchips``/``mesh``, ``processor.py:605-676``): in a
     process group of W ranks (``parallel/mesh.py::init_distributed``, as the
@@ -655,78 +695,82 @@ def run_inference(scan_path: str, lobe_path: str, output_path: str,
     ``ranks``: every rank's ``rank``, ``pipeline_s``, ``scans``, ``batches``,
     ``host_scans``, ``finalized``, ``fractions`` and ``launches``, in rank
     order (one entry in a world of one)."""
-    device = entry_device(device)
-    world, this_rank = world_size(), rank()
-    dtype = {"float32": torch.float32,
-             "bfloat16": torch.bfloat16}[compute_dtype]
-    target_size = tuple(int(s) for s in target_size)
-    out_root = Path(output_path)
-    cle_json = out_root / "centrilobular-emphysema-score.json"
-    pse_json = out_root / "araseptal-emphysema-score.json"  # contract typo
-    results_json = out_root / "results.json"
-    out_cle = out_root / "images" / "centrilobular-emphysema-heatmap"
-    out_pse = out_root / "images" / "paraseptal-emphysema-heatmap"
-    out_cle.mkdir(parents=True, exist_ok=True)
-    out_pse.mkdir(parents=True, exist_ok=True)
-
-    # the device path thresholds the ess mask on the device (its host
-    # fallback, _PredictView, on the int16 crop); the host path keeps the
-    # dataset's native-dtype threshold (reference dataset.py:79)
-    dataset = SubtypingInference(scan_path, lobe_path, keep_original=False,
-                                 compute_ess=not device_preprocess)
-    if len(dataset) == 0:
-        raise FileNotFoundError(f"no .mha scans under {scan_path}")
-    n_vox_u = target_size[0] * int(pad_shape[1]) * int(pad_shape[2])
-    if device_preprocess and (int(np.prod(target_size)) % 8 or n_vox_u % 8
-                              or pick_gate_block(n_vox_u) == 0):
-        # JAX processor.py:616-631: the bit-packing needs
-        # prod(target_size) % 8 == 0, the gated transport a gate block
-        logger.warning(
-            "target_size %s / pad_shape %s break the device path's packing "
-            "(prod(target_size) %% 8 == 0, a gate block for the upload "
-            "buffer) — using host preprocessing instead", target_size,
-            tuple(pad_shape))
-        device_preprocess = False
-    if model is None:
-        model = build_model(model_arch, ckp_path, seed, compute_dtype)
-    elif tensor.size() > 1:
-        model = copy.deepcopy(model)         # sliced below, not the caller's
-    # on a model axis, this rank's channel slice (JAX processor.py:599-603)
-    model = tensor.shard_model(model.to(device).eval())
-
-    def uid(i: int) -> str:
-        return Path(dataset.scan_files[i]).stem
-
-    dealt, padding = shard_indices(range(len(dataset)), mesh().data,
-                                   coords()[0], shuffle=False,
-                                   return_padding=True)
-    mine = [int(i) for i in dealt]
-    # the data index's scans; its spatial group's first rank writes them
-    ours = {int(i) for i, pad in zip(dealt, padding) if not pad}
-    owned = ours if is_leader() else set()
-
-    def make_loader(view, subset: Sequence[int]) -> DataLoader:
-        indices = list(subset)
-        if len(indices) % batch_size:
-            # wrap around so every batch is full; duplicates drop by uid
-            total = -(-len(indices) // batch_size) * batch_size
-            indices = list(np.resize(np.asarray(indices), total))
-        return DataLoader(view, indices=indices, batch_size=batch_size,
-                          num_workers=workers)
-
     if stats is None:
         stats = {}
-    stats.update(batches=0, scans=len(owned), host_scans=[], fractions={},
-                 upload_bytes=0, pack_ms=0.0,
-                 stage_ms={k: 0.0 for k in (*STAGES, "postprocess")})
+    stage_ms = {k: 0.0 for k in (*STAGES, "postprocess", *COUNTERS)}
+    with span("proc.setup"):
+        device = entry_device(device)
+        world, this_rank = world_size(), rank()
+        dtype = {"float32": torch.float32,
+                 "bfloat16": torch.bfloat16}[compute_dtype]
+        target_size = tuple(int(s) for s in target_size)
+        out_root = Path(output_path)
+        out_cle = out_root / "images" / "centrilobular-emphysema-heatmap"
+        out_pse = out_root / "images" / "paraseptal-emphysema-heatmap"
+        out_cle.mkdir(parents=True, exist_ok=True)
+        out_pse.mkdir(parents=True, exist_ok=True)
 
-    launched = cuda_build.launches()
-    t0 = time.perf_counter()
-    pipeline = _PostprocessPipeline(functools.partial(
-        _finalize_scan, dataset=dataset, out_cle=out_cle, out_pse=out_pse),
-        owned={uid(i) for i in owned})
+        # the device path thresholds the ess mask on the device (its host
+        # fallback, _PredictView, on the int16 crop); the host path keeps
+        # the dataset's native-dtype threshold (reference dataset.py:79)
+        dataset = SubtypingInference(scan_path, lobe_path,
+                                     keep_original=False,
+                                     compute_ess=not device_preprocess,
+                                     counters=stage_ms)
+        if len(dataset) == 0:
+            raise FileNotFoundError(f"no .mha scans under {scan_path}")
+        n_vox_u = target_size[0] * int(pad_shape[1]) * int(pad_shape[2])
+        if device_preprocess and (int(np.prod(target_size)) % 8
+                                  or n_vox_u % 8
+                                  or pick_gate_block(n_vox_u) == 0):
+            # JAX processor.py:616-631: the bit-packing needs
+            # prod(target_size) % 8 == 0, the gated transport a gate block
+            logger.warning(
+                "target_size %s / pad_shape %s break the device path's "
+                "packing (prod(target_size) %% 8 == 0, a gate block for the "
+                "upload buffer) — using host preprocessing instead",
+                target_size, tuple(pad_shape))
+            device_preprocess = False
+        if model is None:
+            model = build_model(model_arch, ckp_path, seed, compute_dtype)
+        elif tensor.size() > 1:
+            model = copy.deepcopy(model)     # sliced below, not the caller's
+        # on a model axis, this rank's channel slice (JAX
+        # processor.py:599-603)
+        model = tensor.shard_model(model.to(device).eval())
+
+        def uid(i: int) -> str:
+            return Path(dataset.scan_files[i]).stem
+
+        dealt, padding = shard_indices(range(len(dataset)), mesh().data,
+                                       coords()[0], shuffle=False,
+                                       return_padding=True)
+        mine = [int(i) for i in dealt]
+        # the data index's scans; its spatial group's first rank writes them
+        ours = {int(i) for i, pad in zip(dealt, padding) if not pad}
+        owned = ours if is_leader() else set()
+
+        def make_loader(view, subset: Sequence[int]) -> DataLoader:
+            indices = list(subset)
+            if len(indices) % batch_size:
+                # wrap around so every batch is full; duplicates drop by uid
+                total = -(-len(indices) // batch_size) * batch_size
+                indices = list(np.resize(np.asarray(indices), total))
+            return DataLoader(view, indices=indices, batch_size=batch_size,
+                              num_workers=workers, counters=stage_ms)
+
+        stats.update(batches=0, scans=len(owned), host_scans=[],
+                     fractions={}, upload_bytes=0, pack_ms=0.0,
+                     stage_ms=stage_ms)
+
+        launched = cuda_build.launches()
+        t0 = time.perf_counter()
+        pipeline = _PostprocessPipeline(functools.partial(
+            _finalize_scan, dataset=dataset, out_cle=out_cle,
+            out_pse=out_pse, counters=stage_ms),
+            owned={uid(i) for i in owned})
     try:
-        fetcher = _FetchStage(pipeline)
+        fetcher = _FetchStage(pipeline, stage_ms)
         try:
             with torch.inference_mode():
                 host_subset = mine
@@ -745,16 +789,25 @@ def run_inference(scan_path: str, lobe_path: str, output_path: str,
         finally:
             fetcher.close()
     finally:
-        results = pipeline.close()
+        with span("wait.post", stage_ms):
+            results = pipeline.close()
     stats["pipeline_s"] = time.perf_counter() - t0
     stats.update(rank=this_rank, world=world,
                  finalized=[r["entity"] for r in results],
                  launches={k: v - launched[k]
                            for k, v in cuda_build.launches().items()})
+    with span("proc.results"):
+        return _gather_results(
+            results, stats, [uid(i) for i in range(len(dataset))], out_root)
 
-    # every rank's files are written: gather the results, one per uid, and
-    # restore the dataset (glob) order (the host-path scans were emitted
-    # after the device-path cohort) so results[0] stays the first scan
+
+def _gather_results(results: List[Dict[str, Any]], stats: Dict[str, Any],
+                    uids: Sequence[str], out_root: Path
+                    ) -> List[Dict[str, Any]]:
+    """Every rank's files are written: gather the results, one per uid, in
+    the dataset (glob) order ``uids`` (the host-path scans were emitted
+    after the device-path cohort, so results[0] stays the first scan);
+    rank 0 writes the three JSONs."""
     parts = gather_objects((results, {k: stats[k] for k in (
         "rank", "pipeline_s", "scans", "batches", "host_scans", "finalized",
         "fractions", "launches")}))
@@ -763,21 +816,20 @@ def run_inference(scan_path: str, lobe_path: str, output_path: str,
     for part, _ in parts:
         for r in part:
             merged.setdefault(r["entity"], r)
-    order = {uid(i): i for i in range(len(dataset))}
+    order = {u: i for i, u in enumerate(uids)}
     results = sorted(merged.values(),
                      key=lambda r: order.get(r["entity"], len(order)))
-    if this_rank != 0:
+    if stats["rank"] != 0:
         return results
-    with open(cle_json, "w") as f:
-        f.write(json.dumps({
-            "score": int(float(results[0]["metrics"]["cle_severity_score"])),
-            "percentage": float(
-                results[0]["metrics"]["cle_lesion_percentage_per_lung"])}))
-    with open(pse_json, "w") as f:
-        f.write(json.dumps({
-            "score": int(float(results[0]["metrics"]["pse_severity_score"])),
-            "percentage": float(
-                results[0]["metrics"]["pse_lesion_percentage_per_lung"])}))
-    with open(results_json, "w") as f:
+    first = results[0]["metrics"]
+    for name, fname in (("cle", "centrilobular-emphysema-score.json"),
+                        ("pse", "araseptal-emphysema-score.json")):
+        # "araseptal": the reference's typo'd filename, part of the contract
+        with open(out_root / fname, "w") as f:
+            f.write(json.dumps({
+                "score": int(float(first[f"{name}_severity_score"])),
+                "percentage": float(
+                    first[f"{name}_lesion_percentage_per_lung"])}))
+    with open(out_root / "results.json", "w") as f:
         f.write(json.dumps(results))
     return results

@@ -122,6 +122,10 @@ path off on a spatial or model mesh (``mesh.py:129-133``,
 
 The JAX package's W-pair packing and space-to-depth stem are TPU layouts
 and are not ported.
+
+Under a running ``torch.profiler`` the Seg models' stages are spans
+(``utils/spans.py``): ``stem``, ``layer1``-``layer4``, ``us1``, ``us2``
+and ``heads`` (us3 and the heads); with no profiler they record nothing.
 """
 from __future__ import annotations
 
@@ -136,6 +140,7 @@ from ..ops.roll_conv import roll_conv_heads_sigmoid
 from ..parallel import spatial, tensor
 from ..parallel.mesh import all_sum
 from ..ops.stem_kernel import fused_stem_pool, supports_fused_stem
+from ..utils.spans import span
 from . import blocks
 from .blocks import (BasicBlock, UpsampleConvBlock, affine, batch_norm_train,
                      bn_affine, checkpointed, conv3d_ndhwc, decoder_kernels,
@@ -385,12 +390,16 @@ class _Trunk(nn.Module):
         trunk neither)."""
         if self.training or blocks.get_conv3d_mode() != "roll":
             bn = batch_norm_train if self.training else affine
-            stem = tensor.gather_if(torch.relu(
-                bn(conv3d_ndhwc(x, self.conv1), self.bn1)), self.conv1)
-            x1 = self._layer("layer1", max_pool3d_ndhwc(stem))
-            x4 = self._layer("layer4", self._layer(
-                "layer3", self._layer("layer2", x1)))
-            return stem, x1, x4
+            with span("stem"):
+                stem = tensor.gather_if(torch.relu(
+                    bn(conv3d_ndhwc(x, self.conv1), self.bn1)), self.conv1)
+            with span("layer1"):
+                x = self._layer("layer1", max_pool3d_ndhwc(stem))
+            x1 = x
+            for name in ("layer2", "layer3", "layer4"):
+                with span(name):
+                    x = self._layer(name, x)
+            return stem, x1, x
         quad = use_quad_stem(x.shape, False, packed_decoder, x.dtype)
         if (not quad and self.block is not BasicBlock
                 and use_pair_stem(x.shape, False, packed_decoder, x.dtype,
@@ -400,23 +409,33 @@ class _Trunk(nn.Module):
                 "a Bottleneck arch cannot take it (the JAX pair path fails "
                 "on its variables)")
         if quad:
-            stem, pooled = self._quad_stem(x)
-            x1 = (fused_layer1(pooled, *_stack_params(self.layer1))
-                  if self.block is BasicBlock else self.layer1(pooled))
+            with span("stem"):
+                stem, pooled = self._quad_stem(x)
+            with span("layer1"):
+                x1 = (fused_layer1(pooled, *_stack_params(self.layer1))
+                      if self.block is BasicBlock else self.layer1(pooled))
         elif self.block is BasicBlock:
             # identity blocks: pool + the whole layer1 stack on kernels C, A
-            stem = self._stem(x)
-            x1 = fused_pool_layer1(stem, *_stack_params(self.layer1))
+            with span("stem"):
+                stem = self._stem(x)
+            with span("layer1"):
+                x1 = fused_pool_layer1(stem, *_stack_params(self.layer1))
         else:
-            stem = self._stem(x)
-            x1 = self.layer1(pool_k3s2p1(stem))
-        x2 = self.layer2[0](x1)
-        if self.block is BasicBlock and len(self.layer2) > 1:
-            x2 = fused_layer1(x2, *_stack_params(self.layer2[1:]))
-        else:
-            for blk in self.layer2[1:]:
-                x2 = blk(x2)
-        x4 = self.layer4(self.layer3(x2))
+            with span("stem"):
+                stem = self._stem(x)
+            with span("layer1"):
+                x1 = self.layer1(pool_k3s2p1(stem))
+        with span("layer2"):
+            x2 = self.layer2[0](x1)
+            if self.block is BasicBlock and len(self.layer2) > 1:
+                x2 = fused_layer1(x2, *_stack_params(self.layer2[1:]))
+            else:
+                for blk in self.layer2[1:]:
+                    x2 = blk(x2)
+        with span("layer3"):
+            x3 = self.layer3(x2)
+        with span("layer4"):
+            x4 = self.layer4(x3)
         return stem, x1, x4
 
     def _stem(self, x: torch.Tensor) -> torch.Tensor:
@@ -499,8 +518,10 @@ class _SegNet(_Trunk):
         run = (checkpointed if self.training
                and "decoder" in remat_scopes(self.remat)
                else lambda stage, *args: stage(*args))
-        xup1 = run(self.us1, x4, x1, self.packed_decoder)
-        return run(self.us2, xup1, stem, self.packed_decoder)
+        with span("us1"):
+            xup1 = run(self.us1, x4, x1, self.packed_decoder)
+        with span("us2"):
+            return run(self.us2, xup1, stem, self.packed_decoder)
 
     def _us3(self, xup2: torch.Tensor) -> torch.Tensor:
         conv, bn, _ = self.us3
@@ -548,7 +569,9 @@ class ResNetSegReg(_SegNet):
 
     def forward(self, x: torch.Tensor, lungs: Optional[torch.Tensor] = None
                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
-        dense = self._decoder_heads(self._up2(x))
+        xup2 = self._up2(x)
+        with span("heads"):     # us3 and the heads (packed: kernel B)
+            dense = self._decoder_heads(xup2)
         dense_outs = [dense[..., i:i + 1] for i in range(dense.shape[-1])]
         if lungs is None:
             lungs = torch.ones(x.shape[:1] + dense.shape[1:4] + (1,),
@@ -578,8 +601,10 @@ class ResNetSegCls(_SegNet):
 
     def forward(self, x: torch.Tensor, lungs: Optional[torch.Tensor] = None
                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
-        xup3 = self._us3(self._up2(x))
-        dense_outs = [_head_logits(xup3, fc) for fc in self.fcs]
+        xup2 = self._up2(x)
+        with span("heads"):     # us3 and the heads
+            xup3 = self._us3(xup2)
+            dense_outs = [_head_logits(xup3, fc) for fc in self.fcs]
         # a float32 mean over ~2 M voxels per sample, never a bf16 sum
         return dense_outs, [volume_mean(d) for d in dense_outs]
 

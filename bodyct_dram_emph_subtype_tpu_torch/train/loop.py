@@ -92,6 +92,7 @@ from ..parallel.tensor import (full_optimizer_state, full_state_dict,
                                shard_model, shard_optimizer_state)
 from ..utils.device import entry_device
 from ..utils.metrics_eval import classification_report
+from ..utils.spans import profiler, span
 from ..utils.viz import (draw_mask_tile_singleview_heatmap,
                          plot_confusion_matrix_from_data,
                          plot_to_numpy_array, save_image, windowing)
@@ -503,17 +504,15 @@ class SubtypeTrainer:
 
     def _profiled_train_epoch(self, epoch: int):
         """The train epoch under ``torch.profiler`` (CPU and, on a card,
-        CUDA activities; each step stage a ``record_function`` span named
-        after its mark); one Chrome trace per rank,
+        CUDA activities, every thread: ``utils/spans.py::profiler``; each
+        step stage a span named after its mark, the loader's
+        ``wait.loader`` inside ``loader``, and the loader threads'
+        ``io.read`` and ``io.prepare``); one Chrome trace per rank,
         ``exp_path/profile/rank<r>.json`` (JAX ``loop.py:337-341``)."""
-        from torch.profiler import ProfilerActivity, profile
-        activities = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
         out = self.config.exp_path / "profile"
         out.mkdir(parents=True, exist_ok=True)
         spans = _StageSpans()
-        with profile(activities=activities) as prof:
+        with profiler(self.device) as prof:
             try:
                 result = self._run_train_epoch(epoch, spans)
             finally:
@@ -768,7 +767,7 @@ class SubtypeTrainer:
 
 class _StageSpans:
     """The ``mark`` hook of a profiled epoch: each call closes the open
-    ``record_function`` span and opens one named after the new stage
+    ``utils/spans.py`` span and opens one named after the new stage
     (``done`` opens none)."""
 
     def __init__(self):
@@ -779,5 +778,4 @@ class _StageSpans:
             self._open.__exit__(None, None, None)
             self._open = None
         if name != "done":
-            self._open = torch.profiler.record_function(name)
-            self._open.__enter__()
+            self._open = span(name).__enter__()

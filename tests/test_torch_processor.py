@@ -110,8 +110,11 @@ def test_processor_matches_jax_processor(cases):
     stats = _run_both(*cases)
     assert stats["batches"] == 1 and stats["scans"] == 2
     assert stats["host_scans"] == []
-    assert set(stats["stage_ms"]) == {"upload", "preprocess", "forward",
-                                      "reduction", "download", "postprocess"}
+    assert set(stats["stage_ms"]) == {
+        "upload", "preprocess", "forward", "reduction", "download",
+        "postprocess", "wait.loader", "wait.post", "io.read", "io.prepare",
+        "post.upsample", "post.uncrop", "post.quantise", "post.zlib",
+        "post.write"}
 
 
 def test_oversized_crop_falls_back_per_scan(cases, caplog):
