@@ -34,12 +34,16 @@ Per batch of the device path (the default):
    forward;
 4. reduction on device: the exact lesion percentages through the
    adjoint-resize identity ``sum(resize(d)*ess) == sum(d * R^T ess)``
-   (``_cached_predict_packed``, processor.py:232-242), f16 half maps and
-   the bit-packed ess mask;
-5. download: the results are copied to pinned host memory right behind
-   the batch on the stream; a completion thread waits for them and a
-   postprocess thread upsamples, un-crops and writes (``_FetchStage``,
-   ``_PostprocessPipeline``), overlapping the next batch's device work.
+   (``_cached_predict_packed``, processor.py:232-242);
+5. heatmaps on device (kernel G, ``ops/heatmap.py``): the maps rounded to
+   f16 as the JAX package ships them, upsampled to the model size, masked
+   with the ess mask, resampled to each scan's crop and quantised to
+   uint8, byte for byte the JAX package's host postprocess;
+6. download: the uint8 crops and the percentages are copied to pinned
+   host memory right behind the batch on the stream; a completion thread
+   waits for them and a postprocess thread pastes each crop into its
+   scan's canvas and writes (``_FetchStage``, ``_PostprocessPipeline``),
+   overlapping the next batch's device work.
 
 The host-preprocess path (``device_preprocess=False``, the CLI's
 ``--host_preprocess``: the strict reference-parity path) runs
@@ -48,8 +52,9 @@ The host-preprocess path (``device_preprocess=False``, the CLI's
 mask), uploads the float32 model inputs, and runs
 ``train/steps.py::make_predict_step``: the eval forward, both maps
 upsampled to the model size and masked, the two numerators in one call of
-kernel F.  A scan whose lung crop exceeds ``pad_shape`` in-plane does not
-stop the cohort: the device path records it, warns naming it and emits a
+kernel F; then kernel G's stage 2 makes the uint8 crops.  A scan whose
+lung crop exceeds ``pad_shape`` in-plane does not stop the cohort: the
+device path records it, warns naming it and emits a
 dummy that is skipped on output, and afterwards just those scans run the
 host path (``stats["host_scans"]``); so does a scan whose live blocks
 exceed the stream's budget.  A ``target_size`` whose voxel count breaks
@@ -82,7 +87,6 @@ import torch
 from ..data.datasets import (CLE_RATIO_MAP, PSE_RATIO_MAP, SubtypingInference,
                              ratio_to_label)
 from ..data.host_preprocess import (depth_indices_np, preprocess_sample,
-                                    resize_linear_matmul_np,
                                     resize_nearest_np, window_moments_np)
 from ..data.loader import DataLoader
 from ..data.mha import write_arrays_to_mha
@@ -90,6 +94,7 @@ from ..data.samplers import shard_indices
 from ..models.registry import get_model_by_name
 from ..models.torch_import import load_weights_file
 from ..ops import cuda_build
+from ..ops.heatmap import Shape, quantised_crops, upsample_masked
 from ..ops.packing import (WINDOW_LO, gate_blocks_np, gated_budget,
                            pack10_gated_host, pick_gate_block,
                            unpack10_gated_device)
@@ -103,15 +108,16 @@ from ..train.checkpoint import CheckpointManager
 from ..train.steps import make_predict_step
 from ..utils.device import entry_device
 from ..utils.spans import span
-from ..utils.viz import windowing
 
 logger = logging.getLogger(__name__)
 
-STAGES = ("upload", "preprocess", "forward", "reduction", "download")
+STAGES = ("upload", "preprocess", "forward", "reduction", "heatmap",
+          "download")
 # host-clock counters of ``stats["stage_ms"]``, each the summed time of the
 # ``utils/spans.py`` span of the same name: the dispatch thread's waits on
 # the loader and on the postprocess, the loader workers' MHA reads and the
-# rest of each item, and the parts of the postprocess
+# rest of each item, and the parts of the postprocess (kernel G took over
+# ``post.upsample`` and ``post.uncrop``: they stay, and read 0)
 COUNTERS = ("wait.loader", "wait.post", "io.read", "io.prepare",
             "post.upsample", "post.uncrop", "post.quantise", "post.zlib",
             "post.write")
@@ -275,11 +281,11 @@ def gate_plan(target_size, pad_shape, gated_frac: float = 0.8):
 
 def _predict(model, packed, gate_bits, lung_bits, in_sizes, moments,
              up_shape, block: int, target_size, dtype: torch.dtype,
-             clock: _StageClock) -> Dict[str, Any]:
+             clock: _StageClock, crops: Sequence[Shape]) -> Dict[str, Any]:
     """The device program of one batch (``_cached_predict_packed``): the
     gated CT stream and the lung bits unpacked (JAX
-    ``processor.py:211-224``), then the preprocess, forward and
-    reduction."""
+    ``processor.py:211-224``), then the preprocess, forward, reduction and
+    kernel G's heatmaps, each scan's at its extents in ``crops``."""
     b = packed.shape[0]
     raw = unpack10_gated_device(packed, gate_bits, up_shape, block)
     shifts = torch.arange(8, dtype=torch.uint8, device=lung_bits.device)
@@ -294,31 +300,26 @@ def _predict(model, packed, gate_bits, lung_bits, in_sizes, moments,
     clock.mark()
     dense, _ = spatial.forward_slabs(model, x, lungs5)
     clock.mark()
-    half = dense[0].shape[1:4]
-    ess_w = resize_linear_matmul_transpose(ess5, half, (1, 2, 3),
+    maps = torch.cat(dense, -1)
+    ess_w = resize_linear_matmul_transpose(ess5, maps.shape[1:4], (1, 2, 3),
                                            align_corners=True)
     # both numerators in one call of kernel F
-    num, _ = masked_sums(torch.cat(dense, -1), ess_w)
+    num, _ = masked_sums(maps, ess_w)
     lung_sums = torch.sum(lungs5, dim=(1, 2, 3, 4))
-    weights = 2 ** torch.arange(8, device=raw.device)
-    ess_bits = (ess5[..., 0].to(torch.uint8).reshape(b, -1, 8) * weights
-                ).sum(-1).to(torch.uint8)
-    out = {
-        # f16 halves the download; its 2^-11 relative error sits ~8x
-        # below one uint8 heatmap count (percentages stay f32)
-        "cle_half": dense[0][..., 0].to(torch.float16),
-        "pse_half": dense[1][..., 0].to(torch.float16),
-        "ess_bits": ess_bits,
-        "cle_pct": num[:, 0] / lung_sums,
-        "pse_pct": num[:, 1] / lung_sums,
-    }
+    out = {"cle_pct": num[:, 0] / lung_sums, "pse_pct": num[:, 1] / lung_sums}
+    clock.mark()
+    # the f16 rounding of the half maps stays (the JAX package ships them
+    # so), so every heatmap byte is its host postprocess's
+    full = upsample_masked(maps.to(torch.float16),
+                           ess5[..., 0].to(torch.uint8), target_size)
+    out["heat"] = quantised_crops(full, crops)
     clock.mark()
     return out
 
 
 class _PostprocessPipeline:
-    """Single consumer thread for the host postprocess (half->full
-    upsample, un-crop, MHA/JSON writes), overlapping the next batch's
+    """Single consumer thread for the host postprocess (the crops pasted
+    into their canvases, MHA/JSON writes), overlapping the next batch's
     device work.  Errors re-raise in :meth:`submit` / :meth:`close`.
     ``owned``: the uids this rank finalizes."""
 
@@ -420,90 +421,62 @@ class _FetchStage:
             raise self._err
 
 
-def _emit(pipe: _PostprocessPipeline, uid: str, i: int, batch, stats,
-          cle_dense: np.ndarray, pse_dense: np.ndarray, cle_pct: float,
-          pse_pct: float) -> None:
-    stats["fractions"][uid] = (cle_pct, pse_pct)
-    pipe.emit(uid, {
-        "cle_dense": cle_dense, "pse_dense": pse_dense,
-        "cle_pct": cle_pct, "pse_pct": pse_pct,
-        "crop_slice": np.asarray(batch["crop_slice"][i]),
-        "original_size": np.asarray(batch["original_size"][i]),
-    })
+def _heat_plan(batch, owned: Set[str]):
+    """Which scans of ``batch`` this rank writes (its own, not an
+    oversized dummy, which re-runs on the host path) and the extents of
+    the crop kernel G makes for each: its lung crop's, (0, 0, 0) for a
+    scan it does not write."""
+    over = batch.get("oversized", [False] * len(batch["uid"]))
+    keep = [uid in owned and not o for uid, o in zip(batch["uid"], over)]
+    crops = [tuple(int(b - a) for a, b in np.asarray(c)) if k else (0, 0, 0)
+             for c, k in zip(batch["crop_slice"], keep)]
+    return keep, crops
 
 
-def _record(stats: Dict[str, Any], stage_ms: Dict[str, float],
-            t0: float) -> None:
+def _batch_post(pipe: _PostprocessPipeline, *, host, stage_ms, batch, keep,
+                crops, stats: Dict[str, Any]):
+    """Postprocess-thread context: emit each scan of one batch that this
+    rank writes, but a repeat, with its uint8 crops (kernel G's rows)."""
+    t0 = time.perf_counter()
+    for i, uid in enumerate(batch["uid"]):
+        if not keep[i] or not pipe.claim(uid):
+            continue
+        n = int(np.prod(crops[i]))
+        pct = float(host["cle_pct"][i]), float(host["pse_pct"][i])
+        stats["fractions"][uid] = pct
+        pipe.emit(uid, {
+            "cle_dense": host["heat"][i, 0, :n].reshape(crops[i]),
+            "pse_dense": host["heat"][i, 1, :n].reshape(crops[i]),
+            "cle_pct": pct[0], "pse_pct": pct[1],
+            "crop_slice": np.asarray(batch["crop_slice"][i]),
+            "original_size": np.asarray(batch["original_size"][i]),
+        })
     stats["batches"] += 1
     for k, v in stage_ms.items():
         stats["stage_ms"][k] += v
     stats["stage_ms"]["postprocess"] += 1e3 * (time.perf_counter() - t0)
 
 
-def _device_batch_post(pipe: _PostprocessPipeline, *, host, stage_ms, batch,
-                       target_size, n_vox_t, stats: Dict[str, Any]):
-    """Postprocess-thread context: unpack one device-path batch, emit each
-    scan but the oversized dummies."""
-    t0 = time.perf_counter()
-    for i, uid in enumerate(batch["uid"]):
-        if batch["oversized"][i] or not pipe.claim(uid):
-            continue       # a dummy (re-run on the host path) or a repeat
-        with span("post.upsample", stats["stage_ms"]):
-            ess = np.unpackbits(host["ess_bits"][i], bitorder="little")
-            ess = ess[:n_vox_t].reshape(target_size)
-            maps = []
-            for name in ("cle", "pse"):
-                # the same linear upsample the device reduction used, with
-                # host float64-derived taps (f16 transfer widened back)
-                up = resize_linear_matmul_np(
-                    host[f"{name}_half"][i].astype(np.float32), target_size,
-                    (0, 1, 2), align_corners=True)
-                up[ess == 0] = 0.0
-                maps.append(up)
-        _emit(pipe, uid, i, batch, stats, *maps, float(host["cle_pct"][i]),
-              float(host["pse_pct"][i]))
-    _record(stats, stage_ms, t0)
-
-
-def _host_batch_post(pipe: _PostprocessPipeline, *, host, stage_ms, batch,
-                     stats: Dict[str, Any]):
-    """Postprocess-thread context: emit each scan of one host-path batch
-    (its maps are already at the model size and masked)."""
-    t0 = time.perf_counter()
-    for i, uid in enumerate(batch["uid"]):
-        if pipe.claim(uid):
-            _emit(pipe, uid, i, batch, stats, host["cle_dense_outs"][i],
-                  host["pse_dense_outs"][i],
-                  float(host["cle_precentages"][i]),
-                  float(host["pse_precentages"][i]))
-    _record(stats, stage_ms, t0)
-
-
 def _finalize_scan(uid: str, rec: Dict[str, Any], *, dataset,
                    out_cle: Path, out_pse: Path,
                    counters: Optional[Dict[str, float]] = None
                    ) -> Dict[str, Any]:
-    """Un-crop both dRAMs into the original scan geometry, write the uint8
+    """Paste both uint8 heatmap crops (``rec["cle_dense"]``,
+    ``rec["pse_dense"]``) into the original scan geometry, write the
     heatmap MHAs, and return the ``results.json`` entry (reference
-    ``processor.py:99-158``).  ``counters``: the ``post.uncrop``,
-    ``post.quantise``, ``post.zlib`` and ``post.write`` spans add there."""
+    ``processor.py:99-158``).  ``counters``: the ``post.quantise`` (canvas
+    and paste), ``post.zlib`` and ``post.write`` spans add there."""
     crop = rec["crop_slice"]
     original_size = tuple(int(s) for s in rec["original_size"])
-    recon_size = tuple(int(b - a) for a, b in crop)
     paste = tuple(slice(int(a), int(b)) for a, b in crop)
 
     metrics = {}
     full_maps = {}
-    for name, dense, pct in (("cle", rec["cle_dense"], rec["cle_pct"]),
-                             ("pse", rec["pse_dense"], rec["pse_pct"])):
-        with span("post.uncrop", counters):
-            up = resize_linear_matmul_np(dense, recon_size, (0, 1, 2),
-                                         align_corners=True)
+    for name, pct in (("cle", rec["cle_pct"]), ("pse", rec["pse_pct"])):
         with span("post.quantise", counters):
-            # quantize the CROP, then paste into a uint8 canvas: outside
-            # the crop windowing(0) == 0, the uint8 background
+            # outside the crop windowing(0) == 0, the uint8 background
             full = np.zeros(original_size, np.uint8)
-            full[paste] = windowing(up, from_span=(0, 1)).astype(np.uint8)
+            full[paste] = rec[f"{name}_dense"]
         full_maps[name] = full
         ratio_map = CLE_RATIO_MAP if name == "cle" else PSE_RATIO_MAP
         metrics[f"{name}_severity_score"] = "{:d}".format(
@@ -556,15 +529,15 @@ def build_model(model_arch: str = "med3ddram",
 
 
 def _device_path(model, dataset: SubtypingInference, make_loader,
-                 subset: Sequence[int], fetcher: _FetchStage, target_size,
-                 pad_shape, gated_frac: float, dtype: torch.dtype,
-                 device: torch.device, stats: Dict[str, Any]) -> List[int]:
+                 subset: Sequence[int], fetcher: _FetchStage, owned: Set[str],
+                 target_size, pad_shape, gated_frac: float,
+                 dtype: torch.dtype, device: torch.device,
+                 stats: Dict[str, Any]) -> List[int]:
     """The scans of ``subset`` through the device program (``_predict``),
     batch by batch, uploaded as the block-gated 10-bit stream
-    (:func:`gate_plan`); returns the dataset indices whose crops exceeded
-    ``pad_shape`` in-plane or whose live blocks exceeded the budget, for
-    the host path."""
-    n_vox_t = int(np.prod(target_size))
+    (:func:`gate_plan`), heatmaps made for the uids of ``owned``; returns
+    the dataset indices whose crops exceeded ``pad_shape`` in-plane or
+    whose live blocks exceeded the budget, for the host path."""
     up_shape, block, budget = gate_plan(target_size, pad_shape, gated_frac)
     view = _RawPredictView(dataset, up_shape, target_size, budget, block)
     for batch in make_loader(view, subset):
@@ -578,6 +551,7 @@ def _device_path(model, dataset: SubtypingInference, make_loader,
             stats["upload_bytes"] += sum(a.nbytes for a in (
                 packed, gate_bits, lung_bits, batch["in_sizes"],
                 batch["moments"]))
+            keep, crops = _heat_plan(batch, owned)
             clock = _StageClock(device)
             clock.mark()
             inputs = [_upload(a, device) for a in (
@@ -585,26 +559,36 @@ def _device_path(model, dataset: SubtypingInference, make_loader,
                 batch["moments"])]
             clock.mark()
             res = _predict(model, *inputs, up_shape, block, target_size,
-                           dtype, clock)
-            # enqueue the download now, into pinned host memory, ahead of
-            # the next batch's work on the stream
-            res = {k: v.to("cpu", non_blocking=True) for k, v in res.items()}
-            clock.mark()
-            meta = {k: batch[k] for k in ("uid", "crop_slice",
-                                          "original_size", "oversized")}
-            fetcher.submit(res, clock, functools.partial(
-                _device_batch_post, batch=meta, target_size=target_size,
-                n_vox_t=n_vox_t, stats=stats))
+                           dtype, clock, crops)
+            _submit(fetcher, res, clock, batch, keep, crops, device, stats)
     return sorted(view.oversized)
 
 
-def _host_path(model, loader, fetcher: _FetchStage, dtype: torch.dtype,
-               device: torch.device, stats: Dict[str, Any]) -> None:
+def _submit(fetcher: _FetchStage, res: Dict[str, torch.Tensor],
+            clock: _StageClock, batch, keep, crops, device: torch.device,
+            stats: Dict[str, Any]) -> None:
+    """Enqueue one batch's download now, into pinned host memory, ahead
+    of the next batch's work on the stream, and hand it to the completion
+    thread."""
+    res = {k: v.to("cpu", non_blocking=True) for k, v in res.items()}
+    clock.mark()
+    if device.type == "cuda":
+        stats["device_heatmaps"] += sum(keep)
+    meta = {k: batch[k] for k in ("uid", "crop_slice", "original_size")}
+    fetcher.submit(res, clock, functools.partial(
+        _batch_post, batch=meta, keep=keep, crops=crops, stats=stats))
+
+
+def _host_path(model, loader, fetcher: _FetchStage, owned: Set[str],
+               dtype: torch.dtype, device: torch.device,
+               stats: Dict[str, Any]) -> None:
     """The host-preprocessed batches of ``loader`` (over a
-    :class:`_PredictView`) through ``make_predict_step``."""
+    :class:`_PredictView`) through ``make_predict_step``, then kernel G's
+    stage 2 for the uids of ``owned``."""
     step = make_predict_step(model, compute_dtype=dtype, device=device)
     for batch in loader:
         with span("proc.dispatch"):
+            keep, crops = _heat_plan(batch, owned)
             clock = _StageClock(device)
             clock.mark()
             images = _upload(batch["image"], device)
@@ -613,13 +597,14 @@ def _host_path(model, loader, fetcher: _FetchStage, dtype: torch.dtype,
             clock.mark()
             # marks as the forward and the reduction begin and when both
             # end; no preprocess runs on the device here
-            res = step(images, lungs, ess, mark=lambda name: clock.mark())
-            res = {k: v.to("cpu", non_blocking=True) for k, v in res.items()}
+            out = step(images, lungs, ess, mark=lambda name: clock.mark())
+            maps = torch.stack([out["cle_dense_outs"],
+                                out["pse_dense_outs"]], -1)
+            res = {"heat": quantised_crops(maps, crops),
+                   "cle_pct": out["cle_precentages"],
+                   "pse_pct": out["pse_precentages"]}
             clock.mark()
-            meta = {k: batch[k] for k in ("uid", "crop_slice",
-                                          "original_size")}
-            fetcher.submit(res, clock, functools.partial(
-                _host_batch_post, batch=meta, stats=stats))
+            _submit(fetcher, res, clock, batch, keep, crops, device, stats)
 
 
 def run_inference(scan_path: str, lobe_path: str, output_path: str,
@@ -650,24 +635,27 @@ def run_inference(scan_path: str, lobe_path: str, output_path: str,
     host path), ``scans``, ``host_scans`` (the uids that ran the host path,
     in cohort order), ``fractions`` (each uid's unrounded CLE and PSE
     lesion fractions), ``upload_bytes`` (bytes the device path uploaded,
-    every batch's stream, gate bits, lung bits, extents and moments) and
+    every batch's stream, gate bits, lung bits, extents and moments),
     ``pack_ms`` (host-clock ms of the dispatch thread's packing, summed
-    over the device-path batches), the summed per-stage milliseconds
-    ``stage_ms`` and
+    over the device-path batches), ``device_heatmaps`` (the scans whose
+    uint8 crops kernel G made on a card; 0 on the CPU, where its plain
+    version runs), the summed per-stage milliseconds ``stage_ms`` and
     ``pipeline_s``, the wall time from the first loader read to the last
     file written.  ``STAGES`` are intervals of the device timeline (on a
     card: from the batch's first event, which may wait behind the previous
     batch, through host pinning and the copies to the device, then each
-    device stage, then the copies back; the host path has no device
-    preprocess); ``postprocess`` is host time of the postprocess thread.
+    device stage, ``heatmap`` kernel G's, then the copies back; the host
+    path has no device preprocess); ``postprocess`` is host time of the
+    postprocess thread.
     ``COUNTERS`` are the host-clock ms of the ``utils/spans.py`` spans of
     the same names, summed over the threads: ``wait.loader`` and
     ``wait.post``, the dispatch thread blocked on the loader and on the
     postprocess (its backpressure and the final joins); ``io.read`` and
     ``io.prepare``, the loader workers' MHA reads and the rest of each
-    item; ``post.upsample`` (device path), ``post.uncrop``,
-    ``post.quantise``, ``post.zlib`` and ``post.write``, parts of
-    ``postprocess``.  Under a running ``torch.profiler`` the dispatch
+    item; ``post.quantise`` (the canvas and the crop's paste),
+    ``post.zlib`` and ``post.write``, parts of ``postprocess``
+    (``post.upsample`` and ``post.uncrop`` read 0: kernel G does that
+    work).  Under a running ``torch.profiler`` the dispatch
     thread's spans ``proc.setup``, ``proc.dispatch`` (one batch) and
     ``proc.results`` and the completion thread's ``wait.copies`` appear
     too.
@@ -761,14 +749,14 @@ def run_inference(scan_path: str, lobe_path: str, output_path: str,
 
         stats.update(batches=0, scans=len(owned), host_scans=[],
                      fractions={}, upload_bytes=0, pack_ms=0.0,
-                     stage_ms=stage_ms)
+                     device_heatmaps=0, stage_ms=stage_ms)
 
         launched = cuda_build.launches()
         t0 = time.perf_counter()
+        owned_uids = {uid(i) for i in owned}
         pipeline = _PostprocessPipeline(functools.partial(
             _finalize_scan, dataset=dataset, out_cle=out_cle,
-            out_pse=out_pse, counters=stage_ms),
-            owned={uid(i) for i in owned})
+            out_pse=out_pse, counters=stage_ms), owned=owned_uids)
     try:
         fetcher = _FetchStage(pipeline, stage_ms)
         try:
@@ -778,14 +766,14 @@ def run_inference(scan_path: str, lobe_path: str, output_path: str,
                     # an oversized scan falls back on its owner alone
                     host_subset = [i for i in _device_path(
                         model, dataset, make_loader, mine, fetcher,
-                        target_size, pad_shape, gated_frac, dtype, device,
-                        stats) if i in ours]
+                        owned_uids, target_size, pad_shape, gated_frac,
+                        dtype, device, stats) if i in ours]
                 if host_subset:
                     stats["host_scans"] = [uid(i) for i in host_subset
                                            if i in ours]
                     _host_path(model, make_loader(
                         _PredictView(dataset, target_size), host_subset),
-                        fetcher, dtype, device, stats)
+                        fetcher, owned_uids, dtype, device, stats)
         finally:
             fetcher.close()
     finally:

@@ -2,7 +2,8 @@
 
 The sources under ``csrc/`` (``conv3x3x3.cu``: kernels A and B;
 ``maxpool3d.cu``: C; ``conv3x3x3_wgrad.cu``: D; ``stem_pool.cu``: E;
-``masked_sums.cu``: F, the lung-masked sums; the headers ``common.cuh``
+``masked_sums.cu``: F, the lung-masked sums; ``heatmap.cu``: G, the
+processor's heatmaps; the headers ``common.cuh``
 and ``mma_bf16.cuh``, the bf16 tensor-core loop of A, B and D; every
 ``*.cu`` there is compiled, and ``pyproject.toml`` ships them as package
 data) have a plain C interface.  At first use they
@@ -20,7 +21,8 @@ right after its kernel was launched, and nowhere else, so a caller can
 show that a run went through the kernels (``reset_launches`` before,
 ``launches`` after).  Kernel D runs its partials and then a fixed-order
 sum of them as a second launch; one call counts once.  Kernel F is one
-launch per call.
+launch per call; kernel G counts its two stages apart
+(``heatmap_upsample``, ``heatmap_crops``), one launch per call each.
 ``OP_LAUNCHES`` counts the kernel-A launches made for each opt-in
 conv-mode op (``pallas_conv3d``, ``tap_conv3d``, ``flat_conv3d``), which
 share kernel A (``op_launches``).
@@ -46,7 +48,7 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 KERNELS = ("conv3x3x3_affine", "conv3x3x3_heads_sigmoid",
            "max_pool3d_k3s2p1", "conv3x3x3_wgrad", "stem_pool",
-           "masked_sums")
+           "masked_sums", "heatmap_upsample", "heatmap_crops")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 MODE_OPS = ("pallas_conv3d", "tap_conv3d", "flat_conv3d")
 OP_LAUNCHES: Dict[str, int] = {k: 0 for k in MODE_OPS}
@@ -71,6 +73,10 @@ _SIGNATURES = {
     # dtype, dense, lung, workspace, tickets, num, den, B, D, H, W, C,
     # splits, stream
     "masked_sums": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # half, ess, table, out, B, d, h, w, D, H, W, stream
+    "heatmap_upsample": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # maps, table, out, B, D, H, W, N, stream
+    "heatmap_crops": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -55,10 +55,22 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    kernels (one launch per call).  ``--masked-sums-only`` runs phases 1,
    2 and 3d alone: a copy of this script in another checkout times that
    checkout's kernel F the same way, so two versions compare in one run;
+3e. kernel G (``ops/heatmap.py``, the processor's heatmaps) at a B=2
+   cohort batch (float16 half maps (2, 64, 112, 144, 2) and an ess mask
+   upsampled to 128x224x288, crops 330x260x360 and 318x252x349) and a
+   wide host-path batch (crops 300x300x430 and 296x305x427): one launch
+   per stage; stage 1's maps and every crop byte equal to the plain
+   version's, and for each batch's first scan to the numpy postprocess
+   (``resize_linear_matmul_np``, the ess mask, ``windowing`` to uint8);
+   kernel, plain and ``F.interpolate`` (trilinear, no mask or
+   quantisation) ms with the L2 flushed, beside the byte bound (each
+   stage's inputs read once, its outputs written once);
 4. main path — three synthetic scans through ``run_inference`` (med3ddram,
    bf16, batch 2, seeded random weights), output contract checked, kernel
    launch counts checked per batch (the forward's, plus one kernel-F call
-   for the reduction), scans/s and per-stage times; the upload: bytes per
+   for the reduction and kernel G's two stages; a host-path batch of the
+   later phases runs G's second stage alone), scans/s and per-stage
+   times; the upload: bytes per
    scan of the block-gated 10-bit CT stream, its gate bits and the lung
    bits (checked against ``stats["upload_bytes"]``) beside the int16
    planes + uint8 lung of the ungated upload, the host-clock ms of the
@@ -350,7 +362,8 @@ from bodyct_dram_emph_subtype_tpu_torch.data.loader import (
     DataLoader, default_collate, pinned_collate, prefetch_to_device)
 from bodyct_dram_emph_subtype_tpu_torch.data.mha import read_mha, write_mha
 from bodyct_dram_emph_subtype_tpu_torch.data.host_preprocess import (
-    PreprocessedView, RawPaddedView, preprocess_sample)
+    PreprocessedView, RawPaddedView, preprocess_sample,
+    resize_linear_matmul_np)
 from bodyct_dram_emph_subtype_tpu_torch.data.samplers import shard_indices
 from bodyct_dram_emph_subtype_tpu_torch.inference.processor import (
     _RawPredictView, build_model, gate_plan, run_inference)
@@ -361,6 +374,9 @@ from bodyct_dram_emph_subtype_tpu_torch.models import blocks, experimental
 from bodyct_dram_emph_subtype_tpu_torch.models.registry import \
     get_model_by_name
 from bodyct_dram_emph_subtype_tpu_torch.ops import cuda_build
+from bodyct_dram_emph_subtype_tpu_torch.ops.heatmap import (
+    quantised_crops, quantised_crops_plain, upsample_masked,
+    upsample_masked_plain)
 from bodyct_dram_emph_subtype_tpu_torch.ops.maxpool_kernel import (
     max_pool_k3s2p1, max_pool_k3s2p1_plain)
 from bodyct_dram_emph_subtype_tpu_torch.ops.pallas_kernels import (
@@ -397,6 +413,7 @@ from bodyct_dram_emph_subtype_tpu_torch.train.state import make_optimizer
 from bodyct_dram_emph_subtype_tpu_torch.train.steps import (
     dense_map_size, make_cls_train_step, make_reg_train_step)
 from bodyct_dram_emph_subtype_tpu_torch.transforms import build_pipeline
+from bodyct_dram_emph_subtype_tpu_torch.utils.viz import windowing
 from bodyct_dram_emph_subtype_tpu_torch.transforms.batch_augment import (
     augment_batch, draw_augment_params)
 
@@ -458,9 +475,19 @@ def per_train_step(sites, kind="reg", remat=None):
 
 # the bf16 processor's forward (packed decoder): A 16, B 1, C 1, F 1
 PER_FORWARD = per_forward()
-# a processor batch: the forward, and one more kernel-F call for the
-# device path's reduction or the host path's predict-step numerators
-PER_BATCH = {**PER_FORWARD, "masked_sums": 2}
+# kernel G per processor batch: both stages on the device path, stage 2
+# alone on the host path
+G_DEVICE = {"heatmap_upsample": 1, "heatmap_crops": 1}
+G_HOST = {"heatmap_upsample": 0, "heatmap_crops": 1}
+# a device-path batch: the forward, one more kernel-F call for the
+# reduction, kernel G; a host-path batch: the predict step's F call for
+# the numerators, G's stage 2
+PER_BATCH = {**PER_FORWARD, "masked_sums": 2, **G_DEVICE}
+HOST_PER_BATCH = {**PER_BATCH, **G_HOST}
+# kernel G at the cohort's shapes (phase 3e): a device-path batch's crops,
+# and a host-path batch of the wide cell's
+G_CROPS = [(330, 260, 360), (318, 252, 349)]
+G_WIDE_CROPS = [(300, 300, 430), (296, 305, 427)]
 # (site, dense shape, kernel-F calls per device-path batch)
 F_SITES = [("model regs", (B, 64, 112, 144, 2), 1),
            ("reduction", (B, 64, 112, 144, 2), 1),
@@ -496,7 +523,7 @@ MODES = {"pallas": "pallas_conv3d", "tapmm": "tap_conv3d",
          "flat": "flat_conv3d"}
 # kernel-A launches per B=2 bf16 forward of the processor (packed decoder)
 MODE_PER_FORWARD = {"pallas": 26, "tapmm": 13, "flat": 18}
-QUAD_PER_BATCH = {**per_forward(quad=True), "masked_sums": 2}
+QUAD_PER_BATCH = {**per_forward(quad=True), "masked_sums": 2, **G_DEVICE}
 PALLAS_PER_TRAIN_STEP = 31                       # phase 6c, unpacked decoder
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HBM_BYTES_S = 3.35e12
@@ -519,6 +546,14 @@ SOURCES = {
     "masked_sums": (
         "bodyct_dram_emph_subtype_tpu_torch/csrc/masked_sums.cu",
         "bodyct_dram_emph_subtype_tpu/ops/pallas_kernels.py:46"),
+    "heatmap_upsample": (
+        "bodyct_dram_emph_subtype_tpu_torch/csrc/heatmap.cu",
+        "none (the processor's numpy postprocess, "
+        "bodyct_dram_emph_subtype_tpu/inference/processor.py:430)"),
+    "heatmap_crops": (
+        "bodyct_dram_emph_subtype_tpu_torch/csrc/heatmap.cu",
+        "none (the processor's numpy postprocess, "
+        "bodyct_dram_emph_subtype_tpu/inference/processor.py:473)"),
     "pallas_conv3d": (
         "bodyct_dram_emph_subtype_tpu_torch/csrc/conv3x3x3.cu",
         "bodyct_dram_emph_subtype_tpu/ops/pallas_conv.py:80"),
@@ -533,6 +568,16 @@ SOURCES = {
 
 class SmokeError(RuntimeError):
     pass
+
+
+def run_launches(st, device=PER_BATCH, host=HOST_PER_BATCH):
+    """The launches a processor run's ``stats`` call for: ``device`` per
+    device-path batch, ``host`` per host-path batch (its host scans, ``B``
+    to a batch)."""
+    nh = -(-len(st["host_scans"]) // B)
+    nd = st["batches"] - nh
+    return {k: device.get(k, 0) * nd + host.get(k, 0) * nh
+            for k in {*device, *host}}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1174,6 +1219,111 @@ def phase_masked_sums():
     return summary
 
 
+def g_numpy(half, ess, maps, crop):
+    """The numpy postprocess that kernel G replaced, for one scan: its
+    float16 half maps (d, h, w, 2) upsampled to ``TARGET`` and zeroed where
+    ``ess`` is 0 (when ``half`` is given; else its model-size ``maps``),
+    then each map resized to ``crop`` and windowed to uint8."""
+    if half is not None:
+        maps = np.empty((*TARGET, 2), np.float32)
+        for c in range(2):
+            maps[..., c] = resize_linear_matmul_np(
+                half[..., c].astype(np.float32), TARGET, (0, 1, 2),
+                align_corners=True)
+        maps[ess == 0] = 0.0
+    return maps, [windowing(resize_linear_matmul_np(
+        maps[..., c], crop, (0, 1, 2), align_corners=True),
+        from_span=(0, 1)).astype(np.uint8) for c in range(2)]
+
+
+def phase_heatmaps():
+    print("== phase 3e: kernel G (the processor's heatmaps) vs its plain "
+          "version and the numpy postprocess")
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    half = (torch.rand((B, 64, 112, 144, 2), generator=gen, device=DEV)
+            * 1.6 - 0.3).half()
+    ess = (torch.rand((B, *TARGET), generator=gen, device=DEV) > 0.3
+           ).to(torch.uint8)
+    wide_maps = torch.rand((B, *TARGET, 2), generator=gen, device=DEV) \
+        * 1.6 - 0.3
+    l2 = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    flush = l2.zero_                 # 64 MB > the H100's 50 MB L2
+    before = cuda_build.launches()
+    maps = upsample_masked(half, ess, TARGET)
+    heat = quantised_crops(maps, G_CROPS)
+    wide = quantised_crops(wide_maps, G_WIDE_CROPS)
+    torch.cuda.synchronize()
+    after = cuda_build.launches()
+    check(after["heatmap_upsample"] - before["heatmap_upsample"] == 1 and
+          after["heatmap_crops"] - before["heatmap_crops"] == 2,
+          "kernel G: not one launch per stage")
+    check(torch.equal(maps, upsample_masked_plain(half, ess, TARGET)),
+          "kernel G stage 1 differs from its plain version")
+    for got, m, crops in ((heat, maps, G_CROPS),
+                          (wide, wide_maps, G_WIDE_CROPS)):
+        plain = quantised_crops_plain(m, crops)
+        for b, crop in enumerate(crops):
+            n = int(np.prod(crop))
+            check(torch.equal(got[b, :, :n], plain[b, :, :n]),
+                  f"kernel G crop {crop} differs from its plain version")
+    # the numpy postprocess of each batch's first scan, byte for byte
+    want_maps, want = g_numpy(half[0].cpu().numpy(), ess[0].cpu().numpy(),
+                              None, G_CROPS[0])
+    check(np.array_equal(maps[0].cpu().numpy().view(np.int32),
+                         want_maps.view(np.int32)),
+          "kernel G stage 1 differs from numpy")
+    _, want_wide = g_numpy(None, None, wide_maps[0].cpu().numpy(),
+                           G_WIDE_CROPS[0])
+    for got, crop, ref in ((heat, G_CROPS[0], want),
+                           (wide, G_WIDE_CROPS[0], want_wide)):
+        n = int(np.prod(crop))
+        for c in range(2):
+            check(np.array_equal(got[0, c, :n].cpu().numpy().reshape(crop),
+                                 ref[c]),
+                  f"kernel G crop {crop} map {c} differs from numpy")
+
+    def interpolate(x, sizes):
+        return [F.interpolate(x[i:i + 1].permute(0, 4, 1, 2, 3).float(),
+                              size=size, mode="trilinear",
+                              align_corners=True)
+                for i, size in enumerate(sizes)]
+
+    out = {}
+    for name, kernel, plain, library, moved in (
+            ("heatmap_upsample",
+             lambda: upsample_masked(half, ess, TARGET),
+             lambda: upsample_masked_plain(half, ess, TARGET),
+             lambda: interpolate(half, [TARGET] * B),
+             nbytes(half, ess, maps)),
+            ("heatmap_crops", lambda: quantised_crops(maps, G_CROPS),
+             lambda: quantised_crops_plain(maps, G_CROPS),
+             lambda: interpolate(maps, G_CROPS),
+             nbytes(maps) + 2 * sum(int(np.prod(c)) for c in G_CROPS)),
+            ("heatmap_crops (wide)",
+             lambda: quantised_crops(wide_maps, G_WIDE_CROPS),
+             lambda: quantised_crops_plain(wide_maps, G_WIDE_CROPS),
+             lambda: interpolate(wide_maps, G_WIDE_CROPS),
+             nbytes(wide_maps)
+             + 2 * sum(int(np.prod(c)) for c in G_WIDE_CROPS))):
+        r = timed(kernel, plain, library, torch.float32, moved, 0,
+                  flush=flush)
+        print(f"{name:24s} B={B} {moved / 1e6:.1f} MB moved: kernel "
+              f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms library "
+              f"(F.interpolate trilinear, no mask or quantisation) "
+              f"{r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
+              f"(bytes) [{r['rate']}]; bytes equal to the plain version "
+              f"and numpy")
+        if name in cuda_build.KERNELS:
+            out[name] = {"max_abs_err": 0.0, **{k: r[k] for k in TIMES}}
+    total = {k: out["heatmap_upsample"][k] + out["heatmap_crops"][k]
+             for k in ("ms", "plain_ms", "bound_ms")}
+    print(f"kernel G per B=2 device-path batch of the cohort (both stages, "
+          f"L2 flushed): {total['ms']:.4f} ms (plain "
+          f"{total['plain_ms']:.4f}, bound {total['bound_ms']:.4f}: "
+          f"{100 * total['bound_ms'] / total['ms']:.1f}% of it)")
+    return out
+
+
 def write_scan(scan_dir: Path, lobe_dir: Path, uid: str, shape, radii,
                seed: int):
     """A synthetic int16 CT with a lobe ellipsoid of ``radii`` (fractions
@@ -1442,7 +1592,7 @@ def phase_modes(model, scan_dir: Path, lobe_dir: Path, work: Path,
         want = ({**{k: 0 for k in launches}, **QUAD_PER_BATCH} if quad else
                 {**{k: 0 for k in launches},
                  "conv3x3x3_affine": MODE_PER_FORWARD[mode],
-                 "masked_sums": PER_BATCH["masked_sums"]})
+                 "masked_sums": PER_BATCH["masked_sums"], **G_DEVICE})
         want_ops = {op: (0 if quad or m != mode else MODE_PER_FORWARD[m])
                     for m, op in MODES.items()}
         check(launches == want and ops == want_ops,
@@ -1541,7 +1691,7 @@ def phase_host_path(model, scan_dir: Path, lobe_dir: Path, work: Path,
     nb = stats["batches"]
     check(nb == 2 and stats["host_scans"] == uids,
           f"host path: {nb} batches, host scans {stats['host_scans']}")
-    check(launches == {k: PER_BATCH.get(k, 0) * nb for k in launches},
+    check(launches == run_launches(stats),
           f"host path launches {launches} for {nb} batches")
     total = Counter(launches)
     for uid in uids:
@@ -1575,7 +1725,8 @@ def phase_host_path(model, scan_dir: Path, lobe_dir: Path, work: Path,
     model32 = build_model("med3ddram", ckp_path=None, seed=0,
                           compute_dtype="float32")
     check(not model32.packed_decoder, "float32 processor decoder")
-    f32_batch = {**per_forward(packed_decoder=False), "masked_sums": 2}
+    f32_batch = {**per_forward(packed_decoder=False), "masked_sums": 2,
+                 **G_DEVICE}
     for path, host in (("device", False), ("host", True)):
         st = {}
         cuda_build.reset_launches()
@@ -1587,7 +1738,7 @@ def phase_host_path(model, scan_dir: Path, lobe_dir: Path, work: Path,
         got = cuda_build.launches()
         check(st["host_scans"] == (["scan0"] if host else []),
               f"float32 {path} path host scans {st['host_scans']}")
-        check(got == {k: v * st["batches"] for k, v in f32_batch.items()},
+        check(got == run_launches(st, f32_batch, {**f32_batch, **G_HOST}),
               f"float32 {path} path launches {got}")
         f32[path] = st["fractions"]["scan0"]
     print("float32 processor (unpacked decoder), launches per batch: "
@@ -1627,7 +1778,7 @@ def phase_host_path(model, scan_dir: Path, lobe_dir: Path, work: Path,
           f"fallback host scans {stats['host_scans']}")
     nb = stats["batches"]      # 2 device-path batches (one with the dummy)
     check(nb == 3, f"fallback: {nb} batches, expected 2 device + 1 host")
-    check(launches == {k: PER_BATCH.get(k, 0) * nb for k in launches},
+    check(launches == run_launches(stats),
           f"fallback launches {launches} for {nb} batches")
     total.update(launches)
     frac = max(abs(a - b) for uid in uids for a, b in
@@ -1705,7 +1856,7 @@ def phase_gated_overflow(model, scan_dir: Path, lobe_dir: Path, work: Path,
     nb = stats["batches"]
     check(nb == 3, f"gated overflow: {nb} batches, expected 2 device + 1 "
           f"host")
-    check(launches == {k: PER_BATCH.get(k, 0) * nb for k in launches},
+    check(launches == run_launches(stats),
           f"gated overflow launches {launches} for {nb} batches")
     worst = 0.0
     for uid in uids:
@@ -1786,7 +1937,7 @@ def phase_processor_ranks(model, scan_dir: Path, lobe_dir: Path, work: Path,
               for h in hs.values()), f"phase {label} heatmaps {heat}")
     launches = Counter()
     for r in ranks:
-        want = {k: PER_BATCH.get(k, 0) * r["batches"] for k in r["launches"]}
+        want = run_launches(r)
         check(r["batches"] > 0 and r["launches"] == want,
               f"rank {r['rank']}: launches {r['launches']} for "
               f"{r['batches']} batches")
@@ -3483,6 +3634,7 @@ def main():
     summary["conv3x3x3_wgrad"], _ = phase_train_kernels()
     summary.update(phase_mode_kernels())
     summary["masked_sums"] = phase_masked_sums()
+    summary.update(phase_heatmaps())
     main_launches, main_ops = Counter(), Counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         model, scan_dir, lobe_dir, launches, stage, rate, results, \

@@ -16,6 +16,8 @@ import pytest
 import torch
 
 from bodyct_dram_emph_subtype_tpu_torch.ops import cuda_build
+from bodyct_dram_emph_subtype_tpu_torch.ops.heatmap import (
+    quantised_crops_plain, upsample_masked_plain)
 from bodyct_dram_emph_subtype_tpu_torch.ops.layer1_kernel import (
     fused_layer1, fused_pool_layer1)
 from bodyct_dram_emph_subtype_tpu_torch.ops.masked_pool import \
@@ -32,6 +34,8 @@ from bodyct_dram_emph_subtype_tpu_torch.ops.roll_conv import (
     MMA_STAGES, WGRAD_K)
 from bodyct_dram_emph_subtype_tpu_torch.ops.stem_kernel import (
     fused_stem_pool, fused_stem_pool_plain, stem_weights_s2d)
+from test_torch_heatmap import (CASES, assert_bytes_equal, case_inputs,
+                                oracle, run_g)
 
 pytestmark = pytest.mark.cuda
 
@@ -601,3 +605,42 @@ def test_wgrad_kernel_wraps_the_ring(dev, dtype):
     ref = conv3x3x3_wgrad_plain(x, g)
     assert (got - ref).abs().max().item() <= 5e-5 * ref.abs().max().item()
     assert torch.equal(got, again)
+
+
+# kernel G at the deployment's shapes, beside the CPU tests' cases: a
+# device-path batch of the cohort (stage 1 from the half maps, two crops)
+# and a host-path batch of the wide cell (stage 2, crops wider than the
+# model size in-plane)
+G_CASES = {**CASES,
+           "cohort batch": ((2, 64, 112, 144), (128, 224, 288),
+                            [(330, 260, 360), (318, 252, 349)], "spread"),
+           "wide batch, host path": ((2, 128, 224, 288), None,
+                                     [(300, 300, 430), (296, 305, 427)],
+                                     "spread")}
+
+
+@pytest.mark.parametrize("name", sorted(G_CASES))
+def test_heatmap_kernel_matches_plain_and_numpy(dev, name):
+    """Kernel G byte for byte against the numpy postprocess and its plain
+    version on the card; one launch per stage (stage 1 only where the
+    case has half maps)."""
+    case = G_CASES[name]
+    before = cuda_build.launches()
+    got = run_g(case, dev)
+    torch.cuda.synchronize()
+    after = cuda_build.launches()
+    assert after["heatmap_upsample"] - before["heatmap_upsample"] == \
+        int(case[1] is not None)
+    assert after["heatmap_crops"] - before["heatmap_crops"] == 1
+    assert_bytes_equal(case, *got, *oracle(case))
+    half, ess, maps = case_inputs(case)
+    if half is not None:
+        maps = upsample_masked_plain(torch.from_numpy(half).to(dev),
+                                     torch.from_numpy(ess).to(dev), case[1])
+        assert torch.equal(maps.cpu(), torch.from_numpy(got[0]))
+    else:
+        maps = torch.from_numpy(maps).to(dev)
+    plain = quantised_crops_plain(maps, case[2]).cpu().numpy()
+    for b, crop in enumerate(case[2]):
+        n = int(np.prod(crop))
+        assert np.array_equal(got[1][b, :, :n], plain[b, :, :n])

@@ -111,10 +111,98 @@ def test_processor_matches_jax_processor(cases):
     assert stats["batches"] == 1 and stats["scans"] == 2
     assert stats["host_scans"] == []
     assert set(stats["stage_ms"]) == {
-        "upload", "preprocess", "forward", "reduction", "download",
+        "upload", "preprocess", "forward", "reduction", "heatmap", "download",
         "postprocess", "wait.loader", "wait.post", "io.read", "io.prepare",
         "post.upsample", "post.uncrop", "post.quantise", "post.zlib",
         "post.write"}
+
+
+@pytest.mark.parametrize("device_preprocess", [True, False],
+                         ids=["device_path", "host_path"])
+def test_heatmaps_are_the_numpy_postprocess_bytes(cases, monkeypatch,
+                                                  device_preprocess):
+    """A CPU run writes every heatmap byte of the numpy postprocess that
+    kernel G replaced, fed the same model outputs: on the device path the
+    f16 half maps ``resize_linear_matmul_np``-ed to the model size and
+    zeroed outside the ess mask, on the host path the predict step's
+    masked maps; then ``resize_linear_matmul_np`` to the crop,
+    ``windowing(x, (0, 1))`` as uint8, pasted into a zero canvas.  No
+    crop came from a card."""
+    from bodyct_dram_emph_subtype_tpu_torch.inference import processor
+    from bodyct_dram_emph_subtype_tpu_torch.parallel import spatial
+    from bodyct_dram_emph_subtype_tpu_torch.data.host_preprocess import \
+        resize_linear_matmul_np
+    from bodyct_dram_emph_subtype_tpu_torch.utils.viz import windowing
+    root, scans, lobes = cases
+    seen = {"uids": [], "dense": [], "ess": [], "full": []}
+    plan, forward = processor._heat_plan, spatial.forward_slabs
+    preprocess, make_step = (processor.fused_preprocess_preselected,
+                             processor.make_predict_step)
+
+    def heat_plan(batch, owned):
+        seen["uids"].append(list(batch["uid"]))
+        return plan(batch, owned)
+
+    def forward_slabs(*a):
+        dense, heads = forward(*a)
+        seen["dense"].append([d.clone() for d in dense])
+        return dense, heads
+
+    def fused_preprocess(*a, **k):
+        out = preprocess(*a, **k)
+        seen["ess"].append(out["em_mask"].clone())
+        return out
+
+    def make_predict_step(*a, **k):
+        step = make_step(*a, **k)
+
+        def run(*a, **k):
+            out = step(*a, **k)
+            seen["full"].append([out[f"{n}_dense_outs"].clone()
+                                 for n in ("cle", "pse")])
+            return out
+        return run
+
+    monkeypatch.setattr(processor, "_heat_plan", heat_plan)
+    monkeypatch.setattr(spatial, "forward_slabs", forward_slabs)
+    monkeypatch.setattr(processor, "fused_preprocess_preselected",
+                        fused_preprocess)
+    monkeypatch.setattr(processor, "make_predict_step", make_predict_step)
+    stats, out = {}, root / "out"
+    run_inference(str(scans), str(lobes), str(out), target_size=TARGET,
+                  batch_size=2, workers=1,
+                  model=get_model_by_name("med3ddramtiny"), device="cpu",
+                  stats=stats, device_preprocess=device_preprocess)
+    assert stats["device_heatmaps"] == 0
+    ds = SubtypingInference(str(scans), str(lobes), keep_original=False,
+                            compute_ess=False)
+    meta = {d["uid"]: d for d in (ds[i] for i in range(len(ds)))}
+    assert [u for uids in seen["uids"] for u in uids] == ["case1", "case2"]
+    for b, uids in enumerate(seen["uids"]):
+        for i, uid in enumerate(uids):
+            if device_preprocess:
+                ess = seen["ess"][b][i].numpy()
+                maps = []
+                for d in seen["dense"][b]:
+                    up = resize_linear_matmul_np(
+                        d[i, ..., 0].to(torch.float16).numpy().astype(
+                            np.float32), TARGET, (0, 1, 2),
+                        align_corners=True)
+                    up[ess == 0] = 0.0
+                    maps.append(up)
+            else:
+                maps = [f[i].numpy() for f in seen["full"][b]]
+            crop = np.asarray(meta[uid]["crop_slice"])
+            paste = tuple(slice(int(a), int(e)) for a, e in crop)
+            for sub, m in zip(HEATMAPS, maps):
+                want = np.zeros(tuple(int(s) for s in
+                                      meta[uid]["original_size"]), np.uint8)
+                want[paste] = windowing(resize_linear_matmul_np(
+                    m, [int(e - a) for a, e in crop], (0, 1, 2),
+                    align_corners=True), from_span=(0, 1)).astype(np.uint8)
+                got = read_mha(out / "images" / sub / f"{uid}.mha").array
+                assert got.dtype == np.uint8 and np.array_equal(got, want)
+                assert want.any()
 
 
 def test_oversized_crop_falls_back_per_scan(cases, caplog):

@@ -21,6 +21,9 @@ from bodyct_dram_emph_subtype_tpu_torch.utils.spans import profiler, span
 
 POST = ("post.upsample", "post.uncrop", "post.quantise", "post.zlib",
         "post.write")
+# the postprocess spans that kernel G took over: kept as counters, never
+# entered
+KERNEL_G = {"post.upsample", "post.uncrop"}
 DISPATCH = ("proc.setup", "wait.loader", "wait.post")
 
 
@@ -168,19 +171,18 @@ def test_processor_spans_and_counters(cohort, device_preprocess):
 
     stage_ms = stats["stage_ms"]
     assert set(stage_ms) == {*STAGES, "postprocess", *COUNTERS}
-    ran = set(COUNTERS) - (set() if device_preprocess
-                           else {"post.upsample"})
+    ran = set(COUNTERS) - KERNEL_G
     assert all(stage_ms[k] > 0 for k in ran), stage_ms
-    assert all(stage_ms[k] == 0 for k in set(COUNTERS) - ran)
+    assert all(stage_ms[k] == 0 for k in KERNEL_G)
+    assert stage_ms["heatmap"] > 0 and stats["device_heatmaps"] == 0
     assert sum(stage_ms[k] for k in POST) <= stage_ms["postprocess"]
     assert stats["pack_ms"] > 0 if device_preprocess else \
         stats["pack_ms"] == 0
 
     assert set(DISPATCH) | {"proc.dispatch", "proc.results"} <= main_only
-    names = {"io.read", "io.prepare", "wait.copies", *POST}
-    if not device_preprocess:
-        names.discard("post.upsample")
+    names = {"io.read", "io.prepare", "wait.copies", *POST} - KERNEL_G
     assert set(DISPATCH) | names <= every
+    assert not KERNEL_G & every
     # the eval forward's stages, on the dispatch thread
     assert {"stem", "layer1", "layer2", "layer3", "layer4", "us1", "us2",
             "heads"} <= main_only
