@@ -14,7 +14,8 @@ closes at the first batch fetch after ``--seconds``: the benchmark's
 The hook marks each step's phases (``loader``, ``augment``, ``forward``,
 ``backward``, ``optimizer``, ``done``) on the host clock and with CUDA
 events; with ``--trace`` the profiler covers ``trace_steps`` steps from the
-window's second, each phase a span of the benchmark's own.
+window's second, each phase a span of the benchmark's own; the trace is
+exported and read after the window.
 
 After the window (the program freed) the float32 reference
 (``reference/train.py``) follows the set-up steps on the program's own
@@ -173,7 +174,7 @@ class Marks:
         self.steps: List[Dict] = []          # per step: name -> (t, event)
         self.deadline = self.t_stop = None
         self.t_fit = time.perf_counter()
-        self.prof = self.trace = None
+        self.prof = self.trace = self._stopped = None
         self._spans: List = []
 
     def _event(self):
@@ -229,8 +230,15 @@ class Marks:
             torch.cuda.synchronize()
         self._window.__exit__(None, None, None)
         self.prof.stop()
-        self.trace = from_profiler(self.prof, self.ctx.work / "trace.json")
-        self.prof = None
+        self._stopped, self.prof = self.prof, None
+
+    def read_trace(self) -> None:
+        """The stopped profiler's :class:`Trace`, read once the window has
+        closed: exporting and parsing it takes seconds that are no step's."""
+        if self._stopped is not None:
+            self.trace = from_profiler(self._stopped,
+                                       self.ctx.work / "trace.json")
+            self._stopped = None
 
     def _profile(self, n: int) -> None:
         import torch
@@ -269,6 +277,7 @@ def run(ctx) -> Dict:
     if cuda:
         torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() if cuda else 0
+    marks.read_trace()
     b = int(cfg["batch_per_rank"])
     measured = marks.steps[n_check:]
     bounds = [s["loader"][0] for s in measured] + [marks.t_stop]
@@ -288,6 +297,11 @@ def run(ctx) -> Dict:
               for k, v in ctx.limits.items()}
     shutil.rmtree(ctx.work, ignore_errors=True)
     steps = len(durations)
+    ctx.log(f"{steps} steps; step ms p10 / p50 / p90 / max "
+            + " / ".join(f"{1e3 * win.percentile(durations, q):.1f}"
+                         for q in (10, 50, 90, 100))
+            + "; phase ms " + ", ".join(f"{k} {v:.1f}"
+                                        for k, v in phases.items()))
     step_flops = flops.model_flops(cfg["arch"], (1, 1, *cfg["input_size"]),
                                    True) * b
     rec = {

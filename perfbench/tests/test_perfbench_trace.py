@@ -1,6 +1,7 @@
 """The trace reduction on a synthetic Chrome trace, and the kernel classes
 against kernel names as the profiler gives them on the card."""
 import fnmatch
+import time
 
 import pytest
 
@@ -69,3 +70,35 @@ def test_busy_idle_and_classes():
 def test_no_window_span():
     with pytest.raises(ValueError):
         Trace([_ev(CONV[0], "kernel", 0.0, 1.0)])
+
+
+def test_trainer_reads_its_trace_after_the_window(tmp_path):
+    """A traced tiny trainer run reports its cell's per-layer metrics with
+    the device's busy and window seconds, and exports and reads the
+    profiler's trace only once the window has closed."""
+    from perfbench.tests import tiny
+
+    seen = {}
+
+    def hook(driver):
+        marks, read = driver.Marks, driver.from_profiler
+
+        class Kept(marks):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                seen["marks"] = self
+
+        def from_profiler(*a, **k):
+            seen["read_at"] = time.perf_counter()
+            return read(*a, **k)
+
+        driver.Marks, driver.from_profiler = Kept, from_profiler
+
+    res = tiny.run(tmp_path, "train.tiny", trace=True, seconds=2.0,
+                   driver_hook=hook)
+    assert res["correct"], res["checks"]
+    # no convolution kernel runs on a device in a CPU run
+    assert set(res["metrics"]) == {m["name"] for m in tiny.TRAIN_LAYER} - {
+        "conv_roofline.train"}
+    assert res["device"]["window_s"] > 0 and "breakdown" in res
+    assert seen["read_at"] > seen["marks"].t_stop
