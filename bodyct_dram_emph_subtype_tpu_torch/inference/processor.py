@@ -113,6 +113,9 @@ logger = logging.getLogger(__name__)
 
 STAGES = ("upload", "preprocess", "forward", "reduction", "heatmap",
           "download")
+# the forward's two parts, split where the model marks ``decoder``: the
+# stem through layer4, then us1, us2, us3 and the heads
+FORWARD_SPLIT = ("trunk", "decoder")
 # host-clock counters of ``stats["stage_ms"]``, each the summed time of the
 # ``utils/spans.py`` span of the same name: the dispatch thread's waits on
 # the loader and on the postprocess, the loader workers' MHA reads and the
@@ -228,29 +231,43 @@ class _StageClock:
     """Stage boundaries of one batch.  On a card: CUDA events on the
     current stream, read only after the batch's results reached the host
     (timing adds no synchronisation).  On the CPU every op is synchronous
-    and host clocks serve."""
+    and host clocks serve.  ``mark()`` ends one stage of ``STAGES`` and
+    begins the next (so does any name but ``decoder``: the predict step's
+    names); the model's ``mark("decoder")`` splits the forward into
+    ``FORWARD_SPLIT``."""
 
     def __init__(self, device: torch.device):
         self._cuda = device.type == "cuda"
         self._marks: List[Any] = []
+        self._split: Any = None
 
-    def mark(self) -> None:
+    def mark(self, name: Optional[str] = None) -> None:
         if self._cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self._marks.append(ev)
+            t = torch.cuda.Event(enable_timing=True)
+            t.record()
         else:
-            self._marks.append(time.perf_counter())
+            t = time.perf_counter()
+        if name == "decoder":
+            self._split = t
+        else:
+            self._marks.append(t)
 
     def stage_ms(self) -> Dict[str, float]:
-        """Milliseconds between consecutive marks, named by ``STAGES``."""
+        """Milliseconds between consecutive marks, named by ``STAGES``,
+        and the forward's ``trunk`` and ``decoder`` where the model
+        marked the split: together the ``forward`` interval."""
         m = self._marks
         if self._cuda:
             m[-1].synchronize()
-            ms = [a.elapsed_time(b) for a, b in zip(m, m[1:])]
-        else:
-            ms = [1e3 * (b - a) for a, b in zip(m, m[1:])]
-        return dict(zip(STAGES, ms))
+        out = dict(zip(STAGES, (self._ms(a, b) for a, b in zip(m, m[1:]))))
+        if self._split is not None:
+            f = STAGES.index("forward")
+            out["trunk"] = self._ms(m[f], self._split)
+            out["decoder"] = self._ms(self._split, m[f + 1])
+        return out
+
+    def _ms(self, a, b) -> float:
+        return a.elapsed_time(b) if self._cuda else 1e3 * (b - a)
 
 
 def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -298,7 +315,7 @@ def _predict(model, packed, gate_bits, lung_bits, in_sizes, moments,
     lungs5 = pre["lung_mask"][..., None]
     ess5 = pre["em_mask"][..., None]
     clock.mark()
-    dense, _ = spatial.forward_slabs(model, x, lungs5)
+    dense, _ = spatial.forward_slabs(model, x, lungs5, clock.mark)
     clock.mark()
     maps = torch.cat(dense, -1)
     ess_w = resize_linear_matmul_transpose(ess5, maps.shape[1:4], (1, 2, 3),
@@ -595,9 +612,10 @@ def _host_path(model, loader, fetcher: _FetchStage, owned: Set[str],
             lungs = _upload(batch["lung_mask"], device)
             ess = _upload(batch["ess_mask"], device)
             clock.mark()
-            # marks as the forward and the reduction begin and when both
-            # end; no preprocess runs on the device here
-            out = step(images, lungs, ess, mark=lambda name: clock.mark())
+            # marks as the forward and the reduction begin, between the
+            # trunk and the decoder, and when both end; no preprocess runs
+            # on the device here
+            out = step(images, lungs, ess, mark=clock.mark)
             maps = torch.stack([out["cle_dense_outs"],
                                 out["pse_dense_outs"]], -1)
             res = {"heat": quantised_crops(maps, crops),
@@ -645,8 +663,10 @@ def run_inference(scan_path: str, lobe_path: str, output_path: str,
     card: from the batch's first event, which may wait behind the previous
     batch, through host pinning and the copies to the device, then each
     device stage, ``heatmap`` kernel G's, then the copies back; the host
-    path has no device preprocess); ``postprocess`` is host time of the
-    postprocess thread.
+    path has no device preprocess); ``FORWARD_SPLIT`` splits ``forward``
+    where the model marks its decoder's start: ``trunk`` (the stem through
+    layer4) and ``decoder`` (us1, us2, us3 and the heads) sum to it;
+    ``postprocess`` is host time of the postprocess thread.
     ``COUNTERS`` are the host-clock ms of the ``utils/spans.py`` spans of
     the same names, summed over the threads: ``wait.loader`` and
     ``wait.post``, the dispatch thread blocked on the loader and on the
@@ -685,7 +705,8 @@ def run_inference(scan_path: str, lobe_path: str, output_path: str,
     order (one entry in a world of one)."""
     if stats is None:
         stats = {}
-    stage_ms = {k: 0.0 for k in (*STAGES, "postprocess", *COUNTERS)}
+    stage_ms = {k: 0.0 for k in (*STAGES, *FORWARD_SPLIT, "postprocess",
+                                 *COUNTERS)}
     with span("proc.setup"):
         device = entry_device(device)
         world, this_rank = world_size(), rank()

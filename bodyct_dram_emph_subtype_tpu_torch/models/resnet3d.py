@@ -124,12 +124,16 @@ The JAX package's W-pair packing and space-to-depth stem are TPU layouts
 and are not ported.
 
 Under a running ``torch.profiler`` the Seg models' stages are spans
-(``utils/spans.py``): ``stem``, ``layer1``-``layer4``, ``us1``, ``us2``
-and ``heads`` (us3 and the heads); with no profiler they record nothing.
+(``utils/spans.py``): ``trunk`` (``stem``, ``layer1``-``layer4``) and
+``decoder`` (``us1``, ``us2`` and ``heads``: us3 and the heads); with no
+profiler they record nothing.  A Seg model's ``forward(x, lungs,
+mark=None)`` calls ``mark("decoder")``, if given, between the two: the
+processor's device-side boundary (``inference/processor.py::
+_StageClock``).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple, Type
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Type
 
 import torch
 import torch.nn as nn
@@ -510,11 +514,20 @@ class _SegNet(_Trunk):
         init_weights(self, generator)
         self.eval()
 
-    def _up2(self, x: torch.Tensor) -> torch.Tensor:
-        """The trunk, us1 and us2: the decoder's 64-channel output.  In
-        training us1 and us2 are checkpointed where ``remat`` names the
-        decoder."""
-        stem, x1, x4 = self.trunk(x, self.packed_decoder)
+    def _encode(self, x: torch.Tensor, mark: Optional[Callable[[str], None]]
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The trunk's (stem, layer1, layer4), then ``mark("decoder")`` if
+        ``mark`` is given."""
+        with span("trunk"):
+            feats = self.trunk(x, self.packed_decoder)
+        if mark is not None:
+            mark("decoder")
+        return feats
+
+    def _up2(self, stem: torch.Tensor, x1: torch.Tensor, x4: torch.Tensor
+             ) -> torch.Tensor:
+        """us1 and us2: the decoder's 64-channel output.  In training us1
+        and us2 are checkpointed where ``remat`` names the decoder."""
         run = (checkpointed if self.training
                and "decoder" in remat_scopes(self.remat)
                else lambda stage, *args: stage(*args))
@@ -567,11 +580,14 @@ class ResNetSegReg(_SegNet):
             lambda x: roll_conv_heads_sigmoid(x, kernel, mul, shift, head_w,
                                               head_b), xup2, 3, 1, 1, 1)
 
-    def forward(self, x: torch.Tensor, lungs: Optional[torch.Tensor] = None
+    def forward(self, x: torch.Tensor, lungs: Optional[torch.Tensor] = None,
+                mark: Optional[Callable[[str], None]] = None
                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
-        xup2 = self._up2(x)
-        with span("heads"):     # us3 and the heads (packed: kernel B)
-            dense = self._decoder_heads(xup2)
+        feats = self._encode(x, mark)
+        with span("decoder"):
+            xup2 = self._up2(*feats)
+            with span("heads"):     # us3 and the heads (packed: kernel B)
+                dense = self._decoder_heads(xup2)
         dense_outs = [dense[..., i:i + 1] for i in range(dense.shape[-1])]
         if lungs is None:
             lungs = torch.ones(x.shape[:1] + dense.shape[1:4] + (1,),
@@ -599,12 +615,15 @@ class ResNetSegCls(_SegNet):
         super().__init__(block, layers, tuple(n_classes), generator,
                          packed_decoder, shortcut_type, remat)
 
-    def forward(self, x: torch.Tensor, lungs: Optional[torch.Tensor] = None
+    def forward(self, x: torch.Tensor, lungs: Optional[torch.Tensor] = None,
+                mark: Optional[Callable[[str], None]] = None
                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
-        xup2 = self._up2(x)
-        with span("heads"):     # us3 and the heads
-            xup3 = self._us3(xup2)
-            dense_outs = [_head_logits(xup3, fc) for fc in self.fcs]
+        feats = self._encode(x, mark)
+        with span("decoder"):
+            xup2 = self._up2(*feats)
+            with span("heads"):     # us3 and the heads
+                xup3 = self._us3(xup2)
+                dense_outs = [_head_logits(xup3, fc) for fc in self.fcs]
         # a float32 mean over ~2 M voxels per sample, never a bf16 sum
         return dense_outs, [volume_mean(d) for d in dense_outs]
 

@@ -274,14 +274,18 @@ def halo_apply(op: Callable[..., torch.Tensor], x: torch.Tensor, kernel: int,
 
 
 def forward_slabs(model: torch.nn.Module, x: torch.Tensor,
-                  lungs: Optional[torch.Tensor]):
+                  lungs: Optional[torch.Tensor],
+                  mark: Optional[Callable[[str], None]] = None):
     """An eval forward of ``model`` on (B, D, H, W, 1) ``x`` and ``lungs``
     (at any resolution): on H slabs where :func:`can_shard` holds, with the
     dense outputs gathered back to the whole volume on every rank of the
-    spatial group.  Returns the model's (dense outputs, heads)."""
+    spatial group.  Returns the model's (dense outputs, heads).  ``mark``
+    goes to the Seg model's forward, which calls ``mark("decoder")``, if
+    given, between its trunk and its decoder."""
     if not can_shard(x.shape[H_AXIS]):
-        return model(x, lungs)
+        return model(x, lungs, mark=mark)
     with sharded():
         dense, heads = model(shard_h(x),
-                             None if lungs is None else shard_h(lungs))
+                             None if lungs is None else shard_h(lungs),
+                             mark=mark)
     return [unshard_h(d) for d in dense], heads

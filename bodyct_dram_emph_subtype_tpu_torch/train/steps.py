@@ -356,8 +356,9 @@ def make_predict_step(model: torch.nn.Module, batch_lung_norm: bool = False,
     ``batch_lung_norm=False``: each sample divides by its own lung volume;
     ``True``: every sample divides by the whole batch's (the reference's
     strict parity at batch > 1).  ``mark(name)``, if given, is called as
-    each phase begins (``forward``, ``reduction``) and with ``done`` at the
-    end — a hook for timing."""
+    each phase begins (``forward``, ``reduction``), by the model with
+    ``decoder`` between its trunk and its decoder, and with ``done`` at
+    the end — a hook for timing."""
     device = torch.device(device) if device is not None else \
         next(model.parameters()).device
 
@@ -371,7 +372,7 @@ def make_predict_step(model: torch.nn.Module, batch_lung_norm: bool = False,
             ess5 = _as_tensor(ess, device, torch.float32)[..., None]
             mark("forward")
             dense, _ = spatial.forward_slabs(model, x.to(compute_dtype),
-                                             lungs5)
+                                             lungs5, mark)
             mark("reduction")
             full = resize_linear_matmul(torch.cat(dense, -1), x.shape[1:4],
                                         (1, 2, 3), align_corners=True)

@@ -56,7 +56,7 @@ def test_predict_step_matches_jax(batch_lung_norm):
     marks = []
     got = make_predict_step(port, batch_lung_norm, device="cpu")(
         x, lungs, ess, mark=marks.append)
-    assert marks == ["forward", "reduction", "done"]
+    assert marks == ["forward", "decoder", "reduction", "done"]
     assert set(got) == set(KEYS)
     for key in KEYS[:2]:
         assert got[key].shape == SHAPE

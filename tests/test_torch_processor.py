@@ -112,7 +112,7 @@ def test_processor_matches_jax_processor(cases):
     assert stats["host_scans"] == []
     assert set(stats["stage_ms"]) == {
         "upload", "preprocess", "forward", "reduction", "heatmap", "download",
-        "postprocess", "wait.loader", "wait.post", "io.read", "io.prepare",
+        "trunk", "decoder", "postprocess", "wait.loader", "wait.post", "io.read", "io.prepare",
         "post.upsample", "post.uncrop", "post.quantise", "post.zlib",
         "post.write"}
 

@@ -11,9 +11,10 @@ import pytest
 import torch
 
 from bodyct_dram_emph_subtype_tpu_torch.data.mha import write_mha
-from bodyct_dram_emph_subtype_tpu_torch.inference import run_inference
+from bodyct_dram_emph_subtype_tpu_torch.inference import processor, \
+    run_inference
 from bodyct_dram_emph_subtype_tpu_torch.inference.processor import (
-    COUNTERS, STAGES)
+    COUNTERS, FORWARD_SPLIT, STAGES)
 from bodyct_dram_emph_subtype_tpu_torch.models.registry import \
     get_model_by_name
 from bodyct_dram_emph_subtype_tpu_torch.utils import spans
@@ -170,7 +171,8 @@ def test_processor_spans_and_counters(cohort, device_preprocess):
     _, every = run(profiler(torch.device("cpu")), "every")
 
     stage_ms = stats["stage_ms"]
-    assert set(stage_ms) == {*STAGES, "postprocess", *COUNTERS}
+    assert set(stage_ms) == {*STAGES, *FORWARD_SPLIT, "postprocess",
+                             *COUNTERS}
     ran = set(COUNTERS) - KERNEL_G
     assert all(stage_ms[k] > 0 for k in ran), stage_ms
     assert all(stage_ms[k] == 0 for k in KERNEL_G)
@@ -184,5 +186,37 @@ def test_processor_spans_and_counters(cohort, device_preprocess):
     assert set(DISPATCH) | names <= every
     assert not KERNEL_G & every
     # the eval forward's stages, on the dispatch thread
-    assert {"stem", "layer1", "layer2", "layer3", "layer4", "us1", "us2",
-            "heads"} <= main_only
+    assert {"trunk", "stem", "layer1", "layer2", "layer3", "layer4",
+            "decoder", "us1", "us2", "heads"} <= main_only
+
+
+@pytest.mark.parametrize("device_preprocess", [True, False],
+                         ids=["device_path", "host_path"])
+def test_forward_splits_into_trunk_and_decoder(cohort, monkeypatch,
+                                               device_preprocess):
+    """``trunk`` and ``decoder`` (the model's ``decoder`` mark) sum to
+    ``forward`` per batch, here on the CPU clock: both batches, both
+    paths."""
+    root, scans, lobes = cohort
+    seen = []
+
+    def post(*args, stage_ms, **kw):
+        seen.append(dict(stage_ms))
+        return batch_post(*args, stage_ms=stage_ms, **kw)
+
+    batch_post = processor._batch_post
+    monkeypatch.setattr(processor, "_batch_post", post)
+    stats = {}
+    run_inference(str(scans), str(lobes),
+                  str(root / f"split{device_preprocess}"),
+                  target_size=(32, 48, 64), batch_size=1, workers=1,
+                  model=get_model_by_name("med3ddramtiny"), device="cpu",
+                  stats=stats, device_preprocess=device_preprocess)
+    assert len(seen) == stats["batches"] == 2
+    for ms in seen:
+        assert ms["trunk"] > 0 and ms["decoder"] > 0
+        assert ms["trunk"] + ms["decoder"] == pytest.approx(ms["forward"],
+                                                            rel=0.02)
+    total = stats["stage_ms"]
+    assert total["trunk"] + total["decoder"] == pytest.approx(
+        total["forward"], rel=0.02)
