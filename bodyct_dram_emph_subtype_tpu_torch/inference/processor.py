@@ -41,9 +41,10 @@ Per batch of the device path (the default):
    uint8, byte for byte the JAX package's host postprocess;
 6. download: the uint8 crops and the percentages are copied to pinned
    host memory right behind the batch on the stream; a completion thread
-   waits for them and a postprocess thread pastes each crop into its
-   scan's canvas and writes (``_FetchStage``, ``_PostprocessPipeline``),
-   overlapping the next batch's device work.
+   waits for them and a postprocess thread writes each crop as its
+   scan's heatmap, zero outside the crop, its slabs made and deflated on
+   a thread pool (``data/mha.py::write_pasted_mha``; ``_FetchStage``,
+   ``_PostprocessPipeline``), overlapping the next batch's device work.
 
 The host-preprocess path (``device_preprocess=False``, the CLI's
 ``--host_preprocess``: the strict reference-parity path) runs
@@ -89,7 +90,7 @@ from ..data.datasets import (CLE_RATIO_MAP, PSE_RATIO_MAP, SubtypingInference,
 from ..data.host_preprocess import (depth_indices_np, preprocess_sample,
                                     resize_nearest_np, window_moments_np)
 from ..data.loader import DataLoader
-from ..data.mha import write_arrays_to_mha
+from ..data.mha import pool_width, write_pasted_mha
 from ..data.samplers import shard_indices
 from ..models.registry import get_model_by_name
 from ..models.torch_import import load_weights_file
@@ -335,8 +336,8 @@ def _predict(model, packed, gate_bits, lung_bits, in_sizes, moments,
 
 
 class _PostprocessPipeline:
-    """Single consumer thread for the host postprocess (the crops pasted
-    into their canvases, MHA/JSON writes), overlapping the next batch's
+    """Single consumer thread for the host postprocess (the crops written
+    as heatmap MHAs, the JSON entries), overlapping the next batch's
     device work.  Errors re-raise in :meth:`submit` / :meth:`close`.
     ``owned``: the uids this rank finalizes."""
 
@@ -476,40 +477,40 @@ def _batch_post(pipe: _PostprocessPipeline, *, host, stage_ms, batch, keep,
 
 def _finalize_scan(uid: str, rec: Dict[str, Any], *, dataset,
                    out_cle: Path, out_pse: Path,
-                   counters: Optional[Dict[str, float]] = None
+                   counters: Optional[Dict[str, float]] = None,
+                   zlib_stats: Optional[Dict[str, Any]] = None
                    ) -> Dict[str, Any]:
-    """Paste both uint8 heatmap crops (``rec["cle_dense"]``,
-    ``rec["pse_dense"]``) into the original scan geometry, write the
-    heatmap MHAs, and return the ``results.json`` entry (reference
-    ``processor.py:99-158``).  ``counters``: the ``post.quantise`` (canvas
-    and paste), ``post.zlib`` and ``post.write`` spans add there."""
-    crop = rec["crop_slice"]
-    original_size = tuple(int(s) for s in rec["original_size"])
-    paste = tuple(slice(int(a), int(b)) for a, b in crop)
-
-    metrics = {}
-    full_maps = {}
-    for name, pct in (("cle", rec["cle_pct"]), ("pse", rec["pse_pct"])):
-        with span("post.quantise", counters):
-            # outside the crop windowing(0) == 0, the uint8 background
-            full = np.zeros(original_size, np.uint8)
-            full[paste] = rec[f"{name}_dense"]
-        full_maps[name] = full
-        ratio_map = CLE_RATIO_MAP if name == "cle" else PSE_RATIO_MAP
-        metrics[f"{name}_severity_score"] = "{:d}".format(
-            ratio_to_label(pct, ratio_map))
-        metrics[f"{name}_lesion_percentage_per_lung"] = "{:.3f}".format(pct)
-
+    """Write both uint8 heatmap crops (``rec["cle_dense"]``,
+    ``rec["pse_dense"]``) as heatmap MHAs of the original scan geometry,
+    zero outside the crop, and return the ``results.json`` entry
+    (reference ``processor.py:99-158``).  ``counters``: the
+    ``post.quantise`` (the paste plan, the crops as uint8), ``post.zlib``
+    (each map's slabs made from its crop and deflated) and ``post.write``
+    spans add there; ``zlib_stats``: as ``data/mha.py::write_mha``'s."""
+    with span("post.quantise", counters):
+        original_size = tuple(int(s) for s in rec["original_size"])
+        # outside the crop windowing(0) == 0, the uint8 background
+        paste = tuple(slice(int(a), int(b)) for a, b in rec["crop_slice"])
+        # the heatmap files are uint8 whatever the crops hold
+        crops = {name: np.asarray(rec[f"{name}_dense"]).astype(
+            np.uint8, copy=False) for name in ("cle", "pse")}
     meta = dataset.scan_meta_cache[uid]
     itk_kwargs = dict(
         origin=meta["origin"][::-1],
         direction=np.asarray(meta["direction"]).reshape(3, 3)[
             ::-1].flatten().tolist(),
         spacing=meta["spacing"][::-1])
-    write_arrays_to_mha(out_cle, [full_maps["cle"]], [uid],
-                        dtype=np.uint8, counters=counters, **itk_kwargs)
-    write_arrays_to_mha(out_pse, [full_maps["pse"]], [uid],
-                        dtype=np.uint8, counters=counters, **itk_kwargs)
+
+    metrics = {}
+    for name, pct, out in (("cle", rec["cle_pct"], out_cle),
+                           ("pse", rec["pse_pct"], out_pse)):
+        write_pasted_mha(out / f"{uid}.mha", crops[name], paste,
+                         original_size, counters=counters,
+                         zlib_stats=zlib_stats, **itk_kwargs)
+        ratio_map = CLE_RATIO_MAP if name == "cle" else PSE_RATIO_MAP
+        metrics[f"{name}_severity_score"] = "{:d}".format(
+            ratio_to_label(pct, ratio_map))
+        metrics[f"{name}_lesion_percentage_per_lung"] = "{:.3f}".format(pct)
     return {"entity": uid, "metrics": metrics, "error_messages": []}
 
 
@@ -657,7 +658,11 @@ def run_inference(scan_path: str, lobe_path: str, output_path: str,
     ``pack_ms`` (host-clock ms of the dispatch thread's packing, summed
     over the device-path batches), ``device_heatmaps`` (the scans whose
     uint8 crops kernel G made on a card; 0 on the CPU, where its plain
-    version runs), the summed per-stage milliseconds ``stage_ms`` and
+    version runs), ``zlib`` (the heatmap writer's ``threads``: the slab
+    pool's width, ``data/mha.py::pool_width``; ``slabs``: the slabs it
+    deflated; ``work_ms``: their summed time in the pool's threads, so
+    ``work_ms / stage_ms["post.zlib"]`` is the parallelism it reached),
+    the summed per-stage milliseconds ``stage_ms`` and
     ``pipeline_s``, the wall time from the first loader read to the last
     file written.  ``STAGES`` are intervals of the device timeline (on a
     card: from the batch's first event, which may wait behind the previous
@@ -672,10 +677,11 @@ def run_inference(scan_path: str, lobe_path: str, output_path: str,
     ``wait.post``, the dispatch thread blocked on the loader and on the
     postprocess (its backpressure and the final joins); ``io.read`` and
     ``io.prepare``, the loader workers' MHA reads and the rest of each
-    item; ``post.quantise`` (the canvas and the crop's paste),
-    ``post.zlib`` and ``post.write``, parts of ``postprocess``
-    (``post.upsample`` and ``post.uncrop`` read 0: kernel G does that
-    work).  Under a running ``torch.profiler`` the dispatch
+    item; ``post.quantise`` (the paste plan, the crops as uint8),
+    ``post.zlib`` (a map's slabs made from its crop and deflated on the
+    slab pool, wall time) and ``post.write`` (header and file), parts of
+    ``postprocess`` (``post.upsample`` and ``post.uncrop`` read 0: kernel
+    G does that work).  Under a running ``torch.profiler`` the dispatch
     thread's spans ``proc.setup``, ``proc.dispatch`` (one batch) and
     ``proc.results`` and the completion thread's ``wait.copies`` appear
     too.
@@ -770,14 +776,17 @@ def run_inference(scan_path: str, lobe_path: str, output_path: str,
 
         stats.update(batches=0, scans=len(owned), host_scans=[],
                      fractions={}, upload_bytes=0, pack_ms=0.0,
-                     device_heatmaps=0, stage_ms=stage_ms)
+                     device_heatmaps=0, stage_ms=stage_ms,
+                     zlib={"threads": pool_width(), "slabs": 0,
+                           "work_ms": 0.0})
 
         launched = cuda_build.launches()
         t0 = time.perf_counter()
         owned_uids = {uid(i) for i in owned}
         pipeline = _PostprocessPipeline(functools.partial(
             _finalize_scan, dataset=dataset, out_cle=out_cle,
-            out_pse=out_pse, counters=stage_ms), owned=owned_uids)
+            out_pse=out_pse, counters=stage_ms, zlib_stats=stats["zlib"]),
+            owned=owned_uids)
     try:
         fetcher = _FetchStage(pipeline, stage_ms)
         try:

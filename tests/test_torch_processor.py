@@ -12,6 +12,7 @@ budget of 1000 blocks) sends case1 alone to the host path."""
 import functools
 import json
 import logging
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -24,11 +25,12 @@ from bodyct_dram_emph_subtype_tpu.inference import \
     run_inference as jax_run_inference
 from bodyct_dram_emph_subtype_tpu.models import get_model_by_name as jax_model
 from bodyct_dram_emph_subtype_tpu.train.state import TrainState, make_optimizer
+from bodyct_dram_emph_subtype_tpu_torch.data import mha
 from bodyct_dram_emph_subtype_tpu_torch.data.datasets import \
     SubtypingInference
 from bodyct_dram_emph_subtype_tpu_torch.inference import run_inference
 from bodyct_dram_emph_subtype_tpu_torch.inference.processor import (
-    _RawPredictView, gate_plan)
+    _finalize_scan, _RawPredictView, gate_plan)
 from bodyct_dram_emph_subtype_tpu_torch.models.registry import \
     get_model_by_name
 from bodyct_dram_emph_subtype_tpu_torch.models.torch_import import \
@@ -86,6 +88,48 @@ def _assert_matches_jax(tres, jres, tout, jout, want=("case1", "case2")):
             assert diff.max() <= 1
 
 
+def _assert_zlib_stats(stats, out):
+    """``stats["zlib"]`` counts every slab of the heatmaps written under
+    ``out``, at the pool's width, and each file's payload decodes with
+    plain ``zlib.decompress`` to its voxels."""
+    slabs = 0
+    for sub in HEATMAPS:
+        for path in sorted((out / "images" / sub).glob("*.mha")):
+            raw = path.read_bytes()
+            payload = raw[raw.index(b"ElementDataFile = LOCAL\n") + 24:]
+            img = read_mha(path)
+            assert zlib.decompress(payload) == img.array.tobytes()
+            slabs += len(mha.slab_bounds(img.array.shape, np.uint8)) - 1
+    assert slabs >= 4
+    z = stats["zlib"]
+    assert z["threads"] == mha.pool_width() >= 1
+    assert z["slabs"] == slabs and z["work_ms"] > 0
+
+
+def test_finalize_writes_uint8_whatever_the_crops_hold(tmp_path):
+    """Crops of another dtype are written as uint8, cast as the uint8
+    canvas cast them before the writer pasted the crops itself."""
+    rng = np.random.default_rng(0)
+    crop = rng.uniform(0, 255, (2, 3, 3))
+    rec = {"crop_slice": [(1, 3), (0, 3), (2, 5)], "original_size": (4, 3, 6),
+           "cle_dense": crop, "pse_dense": (crop * 0.9).astype(np.float32),
+           "cle_pct": 0.1, "pse_pct": 0.2}
+    meta = {"origin": (0.0, 0.0, 0.0), "spacing": (1.0, 1.0, 1.0),
+            "direction": np.eye(3).ravel()}
+    dataset = type("D", (), {"scan_meta_cache": {"s": meta}})
+    out = {n: tmp_path / n for n in ("cle", "pse")}
+    for d in out.values():
+        d.mkdir()
+    _finalize_scan("s", rec, dataset=dataset, out_cle=out["cle"],
+                   out_pse=out["pse"])
+    for name in out:
+        path = out[name] / "s.mha"
+        assert b"ElementType = MET_UCHAR" in path.read_bytes()
+        want = np.zeros((4, 3, 6), np.uint8)
+        want[1:3, :, 2:5] = rec[f"{name}_dense"]
+        assert np.array_equal(read_mha(path).array, want)
+
+
 def _run_both(root, scans, lobes, batch_size=2, **kw):
     """Both packages' ``run_inference`` on the same weights; the port's
     ``stats`` come back too."""
@@ -108,6 +152,7 @@ def _run_both(root, scans, lobes, batch_size=2, **kw):
 
 def test_processor_matches_jax_processor(cases):
     stats = _run_both(*cases)
+    _assert_zlib_stats(stats, cases[0] / "torch_out")
     assert stats["batches"] == 1 and stats["scans"] == 2
     assert stats["host_scans"] == []
     assert set(stats["stage_ms"]) == {
@@ -127,7 +172,8 @@ def test_heatmaps_are_the_numpy_postprocess_bytes(cases, monkeypatch,
     zeroed outside the ess mask, on the host path the predict step's
     masked maps; then ``resize_linear_matmul_np`` to the crop,
     ``windowing(x, (0, 1))`` as uint8, pasted into a zero canvas.  No
-    crop came from a card."""
+    crop came from a card.  Slabs of 16 KiB make each heatmap's stream
+    several slabs long."""
     from bodyct_dram_emph_subtype_tpu_torch.inference import processor
     from bodyct_dram_emph_subtype_tpu_torch.parallel import spatial
     from bodyct_dram_emph_subtype_tpu_torch.data.host_preprocess import \
@@ -168,12 +214,15 @@ def test_heatmaps_are_the_numpy_postprocess_bytes(cases, monkeypatch,
     monkeypatch.setattr(processor, "fused_preprocess_preselected",
                         fused_preprocess)
     monkeypatch.setattr(processor, "make_predict_step", make_predict_step)
+    monkeypatch.setattr(mha, "_SLAB_BYTES", 16 << 10)
     stats, out = {}, root / "out"
     run_inference(str(scans), str(lobes), str(out), target_size=TARGET,
                   batch_size=2, workers=1,
                   model=get_model_by_name("med3ddramtiny"), device="cpu",
                   stats=stats, device_preprocess=device_preprocess)
     assert stats["device_heatmaps"] == 0
+    _assert_zlib_stats(stats, out)
+    assert stats["zlib"]["slabs"] > 4
     ds = SubtypingInference(str(scans), str(lobes), keep_original=False,
                             compute_ess=False)
     meta = {d["uid"]: d for d in (ds[i] for i in range(len(ds)))}

@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from bodyct_dram_emph_subtype_tpu_torch.data.mha import write_mha
+from bodyct_dram_emph_subtype_tpu_torch.data.mha import (
+    pool_width, read_mha, slab_bounds, write_mha)
 from bodyct_dram_emph_subtype_tpu_torch.inference import processor, \
     run_inference
 from bodyct_dram_emph_subtype_tpu_torch.inference.processor import (
@@ -180,6 +181,13 @@ def test_processor_spans_and_counters(cohort, device_preprocess):
     assert sum(stage_ms[k] for k in POST) <= stage_ms["postprocess"]
     assert stats["pack_ms"] > 0 if device_preprocess else \
         stats["pack_ms"] == 0
+    # the heatmap writer's slab pool: every slab of the 4 maps written
+    heat = sorted((root / "main" / "images").glob("*/*.mha"))
+    assert len(heat) == 4
+    z = stats["zlib"]
+    assert z["threads"] == pool_width() >= 1 and z["work_ms"] > 0
+    assert z["slabs"] == sum(len(slab_bounds(read_mha(f).array.shape,
+                                             np.uint8)) - 1 for f in heat)
 
     assert set(DISPATCH) | {"proc.dispatch", "proc.results"} <= main_only
     names = {"io.read", "io.prepare", "wait.copies", *POST} - KERNEL_G
