@@ -8,7 +8,8 @@ The reference reads and writes MHA through SimpleITK (``dataset.py:49-55``,
 simple enough that a first-party codec is the cleaner dependency story: an
 ASCII ``Key = Value`` header followed by raw (optionally zlib-compressed)
 voxel data in x-fastest order.  The writer's compressed payload is one
-zlib stream of slabs deflated in parallel (see ``_SLAB_BYTES``).
+zlib stream of slabs that a caller's map may deflate in parallel (see
+``_SLAB_BYTES``).
 
 Conventions match SimpleITK:
 - arrays are returned/accepted in (z, y, x) index order
@@ -21,20 +22,14 @@ Conventions match SimpleITK:
 from __future__ import annotations
 
 import functools
-import os
 import struct
-import threading
-import time
 import zlib
-from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
-                    Union)
+from typing import (Any, Callable, Dict, Iterable, List, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
-
-from ..utils.spans import span
 
 _MET_TO_DTYPE = {
     "MET_CHAR": np.int8, "MET_UCHAR": np.uint8,
@@ -119,48 +114,23 @@ def read_mha(path: Union[str, Path]) -> MhaImage:
 
 
 # The compressed payload is one zlib stream (RFC 1950) of fixed slabs of
-# whole leading-axis planes, about _SLAB_BYTES each, deflated apart on a
-# thread pool, as pigz does: each slab a raw deflate whose dictionary is
-# the 32 KiB before it, closed by a sync flush (the last by the final
-# block); the header 0x78 0x01 and the Adler-32 of the whole volume
-# around them.  Any inflater reads it.  The slab bounds follow the shape
-# and dtype alone, so the bytes do not depend on the pool's width.  Level
+# whole leading-axis planes, about _SLAB_BYTES each, that a caller's map
+# may deflate apart on a thread pool, as pigz does: each slab a raw deflate
+# whose dictionary is the 32 KiB before it, closed by a sync flush (the
+# last by the final block); the header 0x78 0x01 and the Adler-32 of the
+# whole volume around them.  Any inflater reads it.  The slab bounds follow
+# the shape and dtype alone, so the bytes do not depend on the map.  Level
 # 1: about 4x faster than the default; MHA only requires a valid stream.
 _SLAB_BYTES = 4 << 20
 _WINDOW = 32 << 10          # deflate's window: a slab's dictionary
 _ZLIB_HEADER = b"\x78\x01"  # deflate, 32 KiB window, fastest level
 _ADLER_BASE = 65521
 
-# (width, executor) of the slab pool, made at the first compressed write
-# and kept for the process; no executor at width 1
-_POOL: Optional[Tuple[int, Optional[ThreadPoolExecutor]]] = None
-_POOL_LOCK = threading.Lock()
-
 # the planes [z0, z1) of a volume as one flat C-order buffer
 Planes = Callable[[int, int], memoryview]
-
-
-def pool_width() -> int:
-    """Threads that deflate slabs: the CPUs this process may run on,
-    shared among the ranks of this host (``LOCAL_WORLD_SIZE``, as torchrun
-    and ``parallel/mesh.py::spawn_ranks`` set it), less one for the loader
-    thread; at least 1, and at 1 the slabs run in turn on the caller.
-    On an 8-CPU H100 host, pools of 4 and 5 threads ran the processor's
-    cohort benchmark 8-10% slower than this rule's 7."""
-    cpus = len(os.sched_getaffinity(0))
-    ranks = max(1, int(os.environ.get("LOCAL_WORLD_SIZE", 1)))
-    return max(1, cpus // ranks - 1)
-
-
-def _pool() -> Tuple[int, Optional[ThreadPoolExecutor]]:
-    global _POOL
-    with _POOL_LOCK:
-        if _POOL is None:
-            width = pool_width()
-            _POOL = (width, ThreadPoolExecutor(
-                width, thread_name_prefix="mha-deflate")
-                if width > 1 else None)
-        return _POOL
+# a function mapped over the slab indices, as the builtin ``map`` or an
+# executor's ``map`` does it
+SlabMap = Callable[[Callable[[int], Any], Iterable[int]], Iterable[Any]]
 
 
 def slab_bounds(shape: Sequence[int], dtype) -> List[int]:
@@ -182,10 +152,9 @@ def _adler32_combine(a1: int, a2: int, len2: int) -> int:
 
 
 def _deflate_slab(planes: Planes, bounds: List[int], plane: int, k: int):
-    """Slab ``k``: its raw deflate stream, its Adler-32, its length and
-    the seconds it took.  The planes before it that hold its dictionary
-    are made again here, so no slab waits for another."""
-    t0 = time.perf_counter()
+    """Slab ``k``: its raw deflate stream, its Adler-32 and its length.
+    The planes before it that hold its dictionary are made again here, so
+    no slab waits for another."""
     z0, z1 = bounds[k], bounds[k + 1]
     context = -(-_WINDOW // plane) if plane else 0    # planes
     c0 = max(0, z0 - context)
@@ -197,84 +166,30 @@ def _deflate_slab(planes: Planes, bounds: List[int], plane: int, k: int):
     last = k == len(bounds) - 2
     out = co.compress(data) + co.flush(zlib.Z_FINISH if last
                                        else zlib.Z_SYNC_FLUSH)
-    return out, zlib.adler32(data), len(data), time.perf_counter() - t0
+    return out, zlib.adler32(data), len(data)
 
 
-def _deflate(planes: Planes, shape, dtype,
-             zlib_stats: Optional[Dict[str, Any]] = None) -> List[bytes]:
+def deflate(planes: Planes, shape, dtype,
+            slab_map: Optional[SlabMap] = None) -> List[bytes]:
     """The compressed payload of a ``shape``/``dtype`` volume whose planes
-    ``planes`` makes, as the chunks to write in turn.  ``zlib_stats``:
-    ``threads`` (the pool's width), ``slabs`` and ``work_ms`` (the slabs'
-    summed time in the workers) add there."""
+    ``planes`` makes, as the chunks to write in turn.  ``slab_map`` maps
+    the deflate over the slabs (an executor's ``map`` runs them on its
+    threads); without one they run in turn on the caller."""
     bounds = slab_bounds(shape, dtype)
     plane = np.dtype(dtype).itemsize * int(np.prod(shape[1:]))
     run = functools.partial(_deflate_slab, planes, bounds, plane)
-    n, (width, pool) = len(bounds) - 1, _pool()
-    slabs = (list(pool.map(run, range(n))) if pool and n > 1
-             else [run(k) for k in range(n)])
+    slabs = list((slab_map or map)(run, range(len(bounds) - 1)))
     adler = 1
-    for _, a, length, _ in slabs:
+    for _, a, length in slabs:
         adler = _adler32_combine(adler, a, length)
-    if zlib_stats is not None:
-        zlib_stats["threads"] = width
-        zlib_stats["slabs"] = zlib_stats.get("slabs", 0) + n
-        zlib_stats["work_ms"] = zlib_stats.get("work_ms", 0.0) + 1e3 * sum(
-            s[3] for s in slabs)
     return [_ZLIB_HEADER, *(s[0] for s in slabs), struct.pack(">I", adler)]
 
 
-def _write(path, planes: Planes, shape, dtype, spacing, origin, direction,
-           compressed: bool, anatomical_orientation: str, counters,
-           zlib_stats) -> None:
-    """The file of a volume whose planes ``planes`` makes: the
-    compression in a ``post.zlib`` span, header and file in
-    ``post.write``."""
-    if compressed:
-        with span("post.zlib", counters):
-            chunks = _deflate(planes, shape, dtype, zlib_stats)
-    else:
-        chunks = [planes(0, shape[0])]
-    with span("post.write", counters):
-        _write_mha_file(Path(path), chunks, shape, dtype, spacing, origin,
-                        direction, compressed, anatomical_orientation)
-
-
-def write_mha(path: Union[str, Path], array: np.ndarray,
-              spacing: Sequence[float] = (1.0, 1.0, 1.0),
-              origin: Sequence[float] = (0.0, 0.0, 0.0),
-              direction: Sequence[float] = None,
-              compressed: bool = True,
-              anatomical_orientation: str = "RAI",
-              counters: Optional[Dict[str, float]] = None,
-              zlib_stats: Optional[Dict[str, Any]] = None) -> None:
-    """Write a (z,y,x) array as .mha; geometry args are ITK (x,y,z) order,
-    mirroring ``sitk.Image`` setters used by the reference
-    (``utils.py:93-104``).  The slabs are views of the array's memory.
-    The compression is a ``post.zlib`` span and the rest a ``post.write``
-    span (``utils/spans.py``), added to ``counters`` when given;
-    ``zlib_stats`` as :func:`_deflate`'s."""
-    with span("post.write", counters):
-        array = np.ascontiguousarray(array)
-        flat = memoryview(array.reshape(-1).view(np.uint8))
-        plane = array.itemsize * int(np.prod(array.shape[1:]))
-    _write(path, lambda z0, z1: flat[z0 * plane:z1 * plane], array.shape,
-           array.dtype, spacing, origin, direction, compressed,
-           anatomical_orientation, counters, zlib_stats)
-
-
-def write_pasted_mha(path: Union[str, Path], crop: np.ndarray,
-                     paste: Sequence[slice], shape: Sequence[int],
-                     spacing: Sequence[float] = (1.0, 1.0, 1.0),
-                     origin: Sequence[float] = (0.0, 0.0, 0.0),
-                     direction: Sequence[float] = None,
-                     compressed: bool = True,
-                     anatomical_orientation: str = "RAI",
-                     counters: Optional[Dict[str, float]] = None,
-                     zlib_stats: Optional[Dict[str, Any]] = None) -> None:
-    """Write, as :func:`write_mha` does, the ``shape`` volume that holds
-    ``crop`` at ``paste`` (one slice per axis) and zeros elsewhere, the
-    same bytes, without making that volume: each slab's planes are made
-    from the crop where the slab is deflated."""
+def pasted_planes(crop: np.ndarray, paste: Sequence[slice],
+                  shape: Sequence[int]) -> Planes:
+    """The planes of the ``shape`` volume that holds ``crop`` at ``paste``
+    (one slice per axis) and zeros elsewhere, each made from the crop when
+    asked for, so that volume is never made."""
     shape = tuple(int(s) for s in shape)
     box = [s.indices(n)[:2] for s, n in zip(paste, shape)]
     if len(box) != len(shape) or tuple(b - a for a, b in box) != crop.shape:
@@ -288,16 +203,64 @@ def write_pasted_mha(path: Union[str, Path], crop: np.ndarray,
         if a < b:
             out[(slice(a - z0, b - z0), *inner)] = crop[a - za:b - za]
         return memoryview(out.reshape(-1).view(np.uint8))
-
-    _write(path, planes, shape, crop.dtype, spacing, origin, direction,
-           compressed, anatomical_orientation, counters, zlib_stats)
+    return planes
 
 
-def _write_mha_file(path: Path, chunks: Sequence, shape, dtype, spacing,
-                    origin, direction, compressed: bool,
-                    anatomical_orientation: str) -> None:
-    """The header and the payload ``chunks`` (compressed when
-    ``compressed``) of a (z,y,x) ``shape`` array."""
+def _write(path, planes: Planes, shape, dtype, spacing, origin, direction,
+           compressed: bool, anatomical_orientation: str,
+           slab_map: Optional[SlabMap]) -> None:
+    chunks = (deflate(planes, shape, dtype, slab_map) if compressed
+              else [planes(0, shape[0])])
+    write_mha_file(path, chunks, shape, dtype, spacing, origin, direction,
+                   compressed, anatomical_orientation)
+
+
+def write_mha(path: Union[str, Path], array: np.ndarray,
+              spacing: Sequence[float] = (1.0, 1.0, 1.0),
+              origin: Sequence[float] = (0.0, 0.0, 0.0),
+              direction: Sequence[float] = None,
+              compressed: bool = True,
+              anatomical_orientation: str = "RAI",
+              slab_map: Optional[SlabMap] = None) -> None:
+    """Write a (z,y,x) array as .mha; geometry args are ITK (x,y,z) order,
+    mirroring ``sitk.Image`` setters used by the reference
+    (``utils.py:93-104``).  The slabs are views of the array's memory,
+    deflated through ``slab_map`` as :func:`deflate` does."""
+    array = np.ascontiguousarray(array)
+    flat = memoryview(array.reshape(-1).view(np.uint8))
+    plane = array.itemsize * int(np.prod(array.shape[1:]))
+    _write(path, lambda z0, z1: flat[z0 * plane:z1 * plane], array.shape,
+           array.dtype, spacing, origin, direction, compressed,
+           anatomical_orientation, slab_map)
+
+
+def write_pasted_mha(path: Union[str, Path], crop: np.ndarray,
+                     paste: Sequence[slice], shape: Sequence[int],
+                     spacing: Sequence[float] = (1.0, 1.0, 1.0),
+                     origin: Sequence[float] = (0.0, 0.0, 0.0),
+                     direction: Sequence[float] = None,
+                     compressed: bool = True,
+                     anatomical_orientation: str = "RAI",
+                     slab_map: Optional[SlabMap] = None) -> None:
+    """Write, as :func:`write_mha` does, the ``shape`` volume that holds
+    ``crop`` at ``paste`` and zeros elsewhere, the same bytes, from
+    :func:`pasted_planes`: each slab's planes are made from the crop where
+    the slab is deflated."""
+    shape = tuple(int(s) for s in shape)
+    _write(path, pasted_planes(crop, paste, shape), shape, crop.dtype,
+           spacing, origin, direction, compressed, anatomical_orientation,
+           slab_map)
+
+
+def write_mha_file(path: Union[str, Path], chunks: Sequence, shape, dtype,
+                   spacing: Sequence[float] = (1.0, 1.0, 1.0),
+                   origin: Sequence[float] = (0.0, 0.0, 0.0),
+                   direction: Sequence[float] = None,
+                   compressed: bool = True,
+                   anatomical_orientation: str = "RAI") -> None:
+    """Write the header and the payload ``chunks`` (compressed when
+    ``compressed``, as :func:`deflate` makes them) of a (z,y,x) ``shape``
+    array."""
     ndims = len(shape)
     if direction is None:
         direction = tuple(np.eye(ndims).ravel())

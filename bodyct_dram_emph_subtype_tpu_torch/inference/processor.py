@@ -40,11 +40,11 @@ Per batch of the device path (the default):
    with the ess mask, resampled to each scan's crop and quantised to
    uint8, byte for byte the JAX package's host postprocess;
 6. download: the uint8 crops and the percentages are copied to pinned
-   host memory right behind the batch on the stream; a completion thread
-   waits for them and a postprocess thread writes each crop as its
-   scan's heatmap, zero outside the crop, its slabs made and deflated on
-   a thread pool (``data/mha.py::write_pasted_mha``; ``_FetchStage``,
-   ``_PostprocessPipeline``), overlapping the next batch's device work.
+   host memory right behind the batch on the stream; a completion stage
+   waits for them and a postprocess stage writes each crop as its scan's
+   heatmap, zero outside the crop, its slabs made and deflated on the
+   run's slab pool (``_Stage``, :func:`pool_width`,
+   ``data/mha.py::deflate``), overlapping the next batch's device work.
 
 The host-preprocess path (``device_preprocess=False``, the CLI's
 ``--host_preprocess``: the strict reference-parity path) runs
@@ -72,13 +72,16 @@ their files.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import json
 import logging
+import os
 import queue
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Sequence, Set
 
@@ -90,7 +93,7 @@ from ..data.datasets import (CLE_RATIO_MAP, PSE_RATIO_MAP, SubtypingInference,
 from ..data.host_preprocess import (depth_indices_np, preprocess_sample,
                                     resize_nearest_np, window_moments_np)
 from ..data.loader import DataLoader
-from ..data.mha import pool_width, write_pasted_mha
+from ..data.mha import SlabMap, deflate, pasted_planes, write_mha_file
 from ..data.samplers import shard_indices
 from ..models.registry import get_model_by_name
 from ..models.torch_import import load_weights_file
@@ -335,108 +338,85 @@ def _predict(model, packed, gate_bits, lung_bits, in_sizes, moments,
     return out
 
 
-class _PostprocessPipeline:
-    """Single consumer thread for the host postprocess (the crops written
-    as heatmap MHAs, the JSON entries), overlapping the next batch's
-    device work.  Errors re-raise in :meth:`submit` / :meth:`close`.
-    ``owned``: the uids this rank finalizes."""
+class _Stage:
+    """One host thread that applies ``fn`` to each item submitted, in
+    turn, behind a queue of ``maxsize=2``: the bound on the batches in
+    flight.  The first error is kept, the items after it are skipped, and
+    it re-raises in :meth:`submit` and :meth:`close`.  The processor runs
+    two: the completion stage (:func:`_complete`) and the postprocess
+    stage (:func:`_batch_post`)."""
 
-    def __init__(self, finalize: Callable[[str, Dict[str, Any]],
-                                          Dict[str, Any]],
-                 owned: Set[str]):
-        self._finalize = finalize
-        self._owned = owned
-        self._seen = set()
-        self.results: List[Dict[str, Any]] = []
+    def __init__(self, fn: Callable[[Any], None], name: str):
+        self._fn = fn
         self._q: "queue.Queue" = queue.Queue(maxsize=2)
         self._err: Optional[BaseException] = None
-        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread = threading.Thread(target=self._run, name=name,
+                                        daemon=True)
         self._thread.start()
 
     def _run(self):
-        while True:
-            thunk = self._q.get()
-            if thunk is None:
-                return
+        while (item := self._q.get()) is not None:
             if self._err is None:
                 try:
-                    thunk(self)
-                except BaseException as e:  # noqa: BLE001 — reraised in close
+                    self._fn(item)
+                except BaseException as e:  # noqa: BLE001 — reraised
                     self._err = e
 
-    def claim(self, uid: str) -> bool:
-        """Worker-thread context: True the first time ``uid`` is seen, so
-        wrap-around duplicates are dropped before any host work; False for
-        a uid that another rank finalizes."""
-        if uid in self._seen or uid not in self._owned:
-            return False
-        self._seen.add(uid)
-        return True
-
-    def emit(self, uid: str, rec: Dict[str, Any]):
-        """Worker-thread context: finalize one scan."""
-        self.results.append(self._finalize(uid, rec))
-
-    def submit(self, thunk: Callable[["_PostprocessPipeline"], None]):
+    def submit(self, item) -> None:
         if self._err is not None:
             raise self._err
-        self._q.put(thunk)
+        self._q.put(item)
 
-    def close(self) -> List[Dict[str, Any]]:
+    def close(self) -> None:
+        """Return once every item submitted has run and the thread ended."""
         self._q.put(None)
         self._thread.join()
         if self._err is not None:
             raise self._err
-        return self.results
 
 
-class _FetchStage:
-    """Completion thread between dispatch and postprocess: waits for a
-    batch's device-to-host copies (enqueued by the dispatch loop right
-    after the batch, into pinned memory), reads its stage clock, and hands
-    host arrays to the postprocess pipeline, so batch n+1's device work
-    overlaps batch n's host postprocess.  ``maxsize=2`` bounds the batches
-    in flight.  The dispatch thread's time blocked in :meth:`submit` (the
-    backpressure) and in :meth:`close` adds to ``stage_ms["wait.post"]``."""
+def pool_width() -> int:
+    """Threads of the slab pool that deflates the heatmaps: the CPUs this
+    process may run on, shared among the ranks of this host
+    (``LOCAL_WORLD_SIZE``, as torchrun and ``parallel/mesh.py::
+    spawn_ranks`` set it), less one for the loader thread; at least 1, and
+    at 1 there is no pool: the slabs run in turn on the postprocess
+    thread.  On an 8-CPU H100 host, pools of 4 and 5 threads ran the
+    processor's cohort benchmark 8-10% slower than this rule's 7."""
+    cpus = len(os.sched_getaffinity(0))
+    ranks = max(1, int(os.environ.get("LOCAL_WORLD_SIZE", 1)))
+    return max(1, cpus // ranks - 1)
 
-    def __init__(self, pipeline: _PostprocessPipeline,
-                 stage_ms: Dict[str, float]):
-        self._pipeline = pipeline
-        self._stage_ms = stage_ms
-        self._q: "queue.Queue" = queue.Queue(maxsize=2)
-        self._err: Optional[BaseException] = None
-        self._thread = threading.Thread(target=self._run, daemon=True)
-        self._thread.start()
 
-    def _run(self):
-        while True:
-            item = self._q.get()
-            if item is None:
-                return
-            if self._err is not None:
-                continue
-            try:
-                res, clock, post = item
-                with span("wait.copies"):
-                    stage_ms = clock.stage_ms()   # waits for the copies
-                host = {k: v.numpy() for k, v in res.items()}
-                self._pipeline.submit(functools.partial(
-                    post, host=host, stage_ms=stage_ms))
-            except BaseException as e:  # noqa: BLE001 — reraised in close
-                self._err = e
+def _slab_map(pool: Optional[ThreadPoolExecutor],
+              zlib_stats: Dict[str, Any]) -> SlabMap:
+    """The heatmap writer's slab map: each slab deflated on ``pool`` (in
+    turn on the caller without one), counted in ``zlib_stats["slabs"]``
+    and its time in the thread added to ``zlib_stats["work_ms"]``."""
+    def timed(fn, k):
+        t0 = time.perf_counter()
+        return fn(k), time.perf_counter() - t0
 
-    def submit(self, res, clock: _StageClock, post):
-        if self._err is not None:
-            raise self._err
-        with span("wait.post", self._stage_ms):
-            self._q.put((res, clock, post))
+    def slab_map(fn, ks):
+        run = functools.partial(timed, fn)
+        done = list(pool.map(run, ks) if pool else map(run, ks))
+        zlib_stats["slabs"] += len(done)
+        zlib_stats["work_ms"] += 1e3 * sum(t for _, t in done)
+        return [out for out, _ in done]
+    return slab_map
 
-    def close(self):
-        with span("wait.post", self._stage_ms):
-            self._q.put(None)
-            self._thread.join()
-        if self._err is not None:
-            raise self._err
+
+def _complete(post: _Stage, item) -> None:
+    """Completion-stage context: wait for one batch's device-to-host
+    copies (enqueued by the dispatch thread right after the batch, into
+    pinned memory), read its stage clock, and hand the host arrays to the
+    postprocess stage, so batch n+1's device work overlaps batch n's host
+    postprocess."""
+    res, clock, batch_post = item
+    with span("wait.copies"):
+        stage_ms = clock.stage_ms()   # waits for the copies
+    host = {k: v.numpy() for k, v in res.items()}
+    post.submit(functools.partial(batch_post, host=host, stage_ms=stage_ms))
 
 
 def _heat_plan(batch, owned: Set[str]):
@@ -451,24 +431,28 @@ def _heat_plan(batch, owned: Set[str]):
     return keep, crops
 
 
-def _batch_post(pipe: _PostprocessPipeline, *, host, stage_ms, batch, keep,
-                crops, stats: Dict[str, Any]):
-    """Postprocess-thread context: emit each scan of one batch that this
-    rank writes, but a repeat, with its uint8 crops (kernel G's rows)."""
+def _batch_post(pending: Set[str], results: List[Dict[str, Any]],
+                finalize: Callable[[str, Dict[str, Any]], Dict[str, Any]], *,
+                host, stage_ms, batch, keep, crops, stats: Dict[str, Any]):
+    """Postprocess-stage context: finalize into ``results`` each scan of
+    one batch that this rank writes, with its uint8 crops (kernel G's
+    rows); ``pending`` passes each uid once, so a wrap-around repeat is
+    dropped before any host work."""
     t0 = time.perf_counter()
     for i, uid in enumerate(batch["uid"]):
-        if not keep[i] or not pipe.claim(uid):
+        if not keep[i] or uid not in pending:
             continue
+        pending.remove(uid)
         n = int(np.prod(crops[i]))
         pct = float(host["cle_pct"][i]), float(host["pse_pct"][i])
         stats["fractions"][uid] = pct
-        pipe.emit(uid, {
+        results.append(finalize(uid, {
             "cle_dense": host["heat"][i, 0, :n].reshape(crops[i]),
             "pse_dense": host["heat"][i, 1, :n].reshape(crops[i]),
             "cle_pct": pct[0], "pse_pct": pct[1],
             "crop_slice": np.asarray(batch["crop_slice"][i]),
             "original_size": np.asarray(batch["original_size"][i]),
-        })
+        }))
     stats["batches"] += 1
     for k, v in stage_ms.items():
         stats["stage_ms"][k] += v
@@ -478,15 +462,14 @@ def _batch_post(pipe: _PostprocessPipeline, *, host, stage_ms, batch, keep,
 def _finalize_scan(uid: str, rec: Dict[str, Any], *, dataset,
                    out_cle: Path, out_pse: Path,
                    counters: Optional[Dict[str, float]] = None,
-                   zlib_stats: Optional[Dict[str, Any]] = None
-                   ) -> Dict[str, Any]:
+                   slab_map: Optional[SlabMap] = None) -> Dict[str, Any]:
     """Write both uint8 heatmap crops (``rec["cle_dense"]``,
     ``rec["pse_dense"]``) as heatmap MHAs of the original scan geometry,
     zero outside the crop, and return the ``results.json`` entry
     (reference ``processor.py:99-158``).  ``counters``: the
     ``post.quantise`` (the paste plan, the crops as uint8), ``post.zlib``
-    (each map's slabs made from its crop and deflated) and ``post.write``
-    spans add there; ``zlib_stats``: as ``data/mha.py::write_mha``'s."""
+    (each map's slabs made from its crop and deflated through ``slab_map``)
+    and ``post.write`` (header and file) spans add there."""
     with span("post.quantise", counters):
         original_size = tuple(int(s) for s in rec["original_size"])
         # outside the crop windowing(0) == 0, the uint8 background
@@ -504,9 +487,12 @@ def _finalize_scan(uid: str, rec: Dict[str, Any], *, dataset,
     metrics = {}
     for name, pct, out in (("cle", rec["cle_pct"], out_cle),
                            ("pse", rec["pse_pct"], out_pse)):
-        write_pasted_mha(out / f"{uid}.mha", crops[name], paste,
-                         original_size, counters=counters,
-                         zlib_stats=zlib_stats, **itk_kwargs)
+        planes = pasted_planes(crops[name], paste, original_size)
+        with span("post.zlib", counters):
+            chunks = deflate(planes, original_size, np.uint8, slab_map)
+        with span("post.write", counters):
+            write_mha_file(out / f"{uid}.mha", chunks, original_size,
+                           np.uint8, **itk_kwargs)
         ratio_map = CLE_RATIO_MAP if name == "cle" else PSE_RATIO_MAP
         metrics[f"{name}_severity_score"] = "{:d}".format(
             ratio_to_label(pct, ratio_map))
@@ -547,7 +533,7 @@ def build_model(model_arch: str = "med3ddram",
 
 
 def _device_path(model, dataset: SubtypingInference, make_loader,
-                 subset: Sequence[int], fetcher: _FetchStage, owned: Set[str],
+                 subset: Sequence[int], fetcher: _Stage, owned: Set[str],
                  target_size, pad_shape, gated_frac: float,
                  dtype: torch.dtype, device: torch.device,
                  stats: Dict[str, Any]) -> List[int]:
@@ -582,22 +568,24 @@ def _device_path(model, dataset: SubtypingInference, make_loader,
     return sorted(view.oversized)
 
 
-def _submit(fetcher: _FetchStage, res: Dict[str, torch.Tensor],
+def _submit(fetcher: _Stage, res: Dict[str, torch.Tensor],
             clock: _StageClock, batch, keep, crops, device: torch.device,
             stats: Dict[str, Any]) -> None:
     """Enqueue one batch's download now, into pinned host memory, ahead
     of the next batch's work on the stream, and hand it to the completion
-    thread."""
+    stage; the dispatch thread's time blocked there (the backpressure) is
+    ``wait.post``."""
     res = {k: v.to("cpu", non_blocking=True) for k, v in res.items()}
     clock.mark()
     if device.type == "cuda":
         stats["device_heatmaps"] += sum(keep)
     meta = {k: batch[k] for k in ("uid", "crop_slice", "original_size")}
-    fetcher.submit(res, clock, functools.partial(
-        _batch_post, batch=meta, keep=keep, crops=crops, stats=stats))
+    with span("wait.post", stats["stage_ms"]):
+        fetcher.submit((res, clock, functools.partial(
+            _batch_post, batch=meta, keep=keep, crops=crops, stats=stats)))
 
 
-def _host_path(model, loader, fetcher: _FetchStage, owned: Set[str],
+def _host_path(model, loader, fetcher: _Stage, owned: Set[str],
                dtype: torch.dtype, device: torch.device,
                stats: Dict[str, Any]) -> None:
     """The host-preprocessed batches of ``loader`` (over a
@@ -659,7 +647,7 @@ def run_inference(scan_path: str, lobe_path: str, output_path: str,
     over the device-path batches), ``device_heatmaps`` (the scans whose
     uint8 crops kernel G made on a card; 0 on the CPU, where its plain
     version runs), ``zlib`` (the heatmap writer's ``threads``: the slab
-    pool's width, ``data/mha.py::pool_width``; ``slabs``: the slabs it
+    pool's width, :func:`pool_width`; ``slabs``: the slabs it
     deflated; ``work_ms``: their summed time in the pool's threads, so
     ``work_ms / stage_ms["post.zlib"]`` is the parallelism it reached),
     the summed per-stage milliseconds ``stage_ms`` and
@@ -774,41 +762,49 @@ def run_inference(scan_path: str, lobe_path: str, output_path: str,
             return DataLoader(view, indices=indices, batch_size=batch_size,
                               num_workers=workers, counters=stage_ms)
 
+        width = pool_width()
         stats.update(batches=0, scans=len(owned), host_scans=[],
                      fractions={}, upload_bytes=0, pack_ms=0.0,
                      device_heatmaps=0, stage_ms=stage_ms,
-                     zlib={"threads": pool_width(), "slabs": 0,
-                           "work_ms": 0.0})
+                     zlib={"threads": width, "slabs": 0, "work_ms": 0.0})
 
         launched = cuda_build.launches()
         t0 = time.perf_counter()
         owned_uids = {uid(i) for i in owned}
-        pipeline = _PostprocessPipeline(functools.partial(
-            _finalize_scan, dataset=dataset, out_cle=out_cle,
-            out_pse=out_pse, counters=stage_ms, zlib_stats=stats["zlib"]),
-            owned=owned_uids)
-    try:
-        fetcher = _FetchStage(pipeline, stage_ms)
-        try:
-            with torch.inference_mode():
-                host_subset = mine
-                if device_preprocess:
-                    # an oversized scan falls back on its owner alone
-                    host_subset = [i for i in _device_path(
-                        model, dataset, make_loader, mine, fetcher,
-                        owned_uids, target_size, pad_shape, gated_frac,
-                        dtype, device, stats) if i in ours]
-                if host_subset:
-                    stats["host_scans"] = [uid(i) for i in host_subset
-                                           if i in ours]
-                    _host_path(model, make_loader(
-                        _PredictView(dataset, target_size), host_subset),
-                        fetcher, owned_uids, dtype, device, stats)
-        finally:
-            fetcher.close()
-    finally:
+
+    def close(stage: _Stage):
         with span("wait.post", stage_ms):
-            results = pipeline.close()
+            stage.close()
+
+    # the run's host threads, ended in turn on the way out, an error or
+    # not: the completion stage, the postprocess stage, the slab pool
+    with contextlib.ExitStack() as threads:
+        pool = threads.enter_context(ThreadPoolExecutor(
+            width, thread_name_prefix="proc-deflate")) if width > 1 else None
+        finalize = functools.partial(
+            _finalize_scan, dataset=dataset, out_cle=out_cle,
+            out_pse=out_pse, counters=stage_ms,
+            slab_map=_slab_map(pool, stats["zlib"]))
+        pending, results = set(owned_uids), []
+        post = _Stage(lambda batch_post: batch_post(pending, results,
+                                                    finalize), "proc-post")
+        threads.callback(close, post)
+        fetcher = _Stage(functools.partial(_complete, post), "proc-complete")
+        threads.callback(close, fetcher)
+        with torch.inference_mode():
+            host_subset = mine
+            if device_preprocess:
+                # an oversized scan falls back on its owner alone
+                host_subset = [i for i in _device_path(
+                    model, dataset, make_loader, mine, fetcher, owned_uids,
+                    target_size, pad_shape, gated_frac, dtype, device,
+                    stats) if i in ours]
+            if host_subset:
+                stats["host_scans"] = [uid(i) for i in host_subset
+                                       if i in ours]
+                _host_path(model, make_loader(
+                    _PredictView(dataset, target_size), host_subset),
+                    fetcher, owned_uids, dtype, device, stats)
     stats["pipeline_s"] = time.perf_counter() - t0
     stats.update(rank=this_rank, world=world,
                  finalized=[r["entity"] for r in results],

@@ -12,6 +12,7 @@ budget of 1000 blocks) sends case1 alone to the host path."""
 import functools
 import json
 import logging
+import threading
 import zlib
 
 import jax
@@ -28,9 +29,10 @@ from bodyct_dram_emph_subtype_tpu.train.state import TrainState, make_optimizer
 from bodyct_dram_emph_subtype_tpu_torch.data import mha
 from bodyct_dram_emph_subtype_tpu_torch.data.datasets import \
     SubtypingInference
-from bodyct_dram_emph_subtype_tpu_torch.inference import run_inference
+from bodyct_dram_emph_subtype_tpu_torch.inference import processor, \
+    run_inference
 from bodyct_dram_emph_subtype_tpu_torch.inference.processor import (
-    _finalize_scan, _RawPredictView, gate_plan)
+    _finalize_scan, _RawPredictView, gate_plan, pool_width)
 from bodyct_dram_emph_subtype_tpu_torch.models.registry import \
     get_model_by_name
 from bodyct_dram_emph_subtype_tpu_torch.models.torch_import import \
@@ -102,7 +104,7 @@ def _assert_zlib_stats(stats, out):
             slabs += len(mha.slab_bounds(img.array.shape, np.uint8)) - 1
     assert slabs >= 4
     z = stats["zlib"]
-    assert z["threads"] == mha.pool_width() >= 1
+    assert z["threads"] == pool_width() >= 1
     assert z["slabs"] == slabs and z["work_ms"] > 0
 
 
@@ -128,6 +130,64 @@ def test_finalize_writes_uint8_whatever_the_crops_hold(tmp_path):
         want = np.zeros((4, 3, 6), np.uint8)
         want[1:3, :, 2:5] = rec[f"{name}_dense"]
         assert np.array_equal(read_mha(path).array, want)
+
+
+def _host_threads():
+    """The names of the processor's live host threads: its completion and
+    postprocess stages and its slab pool."""
+    return sorted(t.name for t in threading.enumerate()
+                  if t.name.startswith("proc-"))
+
+
+def _run_watching_threads(cases, monkeypatch, fail=None):
+    """A CPU ``run_inference`` of both scans in one batch on a slab pool
+    of 3 threads, ``_finalize_scan`` raising for the uid ``fail``; returns
+    the host threads seen alive where the completion stage handed the
+    batch on and after each scan's files were written."""
+    root, scans, lobes = cases
+    seen, finalize, complete = [], processor._finalize_scan, \
+        processor._complete
+
+    def complete_watched(*a):
+        complete(*a)
+        seen.append(_host_threads())
+
+    def finalize_watched(uid, rec, **kw):
+        if uid == fail:
+            raise RuntimeError(f"finalize {uid}")
+        out = finalize(uid, rec, **kw)
+        seen.append(_host_threads())
+        return out
+
+    monkeypatch.setattr(processor, "_finalize_scan", finalize_watched)
+    monkeypatch.setattr(processor, "_complete", complete_watched)
+    monkeypatch.setattr(processor, "pool_width", lambda: 3)
+    run_inference(str(scans), str(lobes), str(root / "out"),
+                  target_size=TARGET, batch_size=2, workers=1,
+                  model=get_model_by_name("med3ddramtiny"), device="cpu")
+    return seen
+
+
+def test_postprocess_error_reaches_the_caller(cases, monkeypatch):
+    """An error in the postprocess stage (``_finalize_scan`` of the
+    second scan, after the first scan's slabs ran on the pool) re-raises
+    in the caller of ``run_inference``, and neither stage thread nor any
+    slab thread is left alive."""
+    assert _host_threads() == []
+    with pytest.raises(RuntimeError, match="finalize case2"):
+        _run_watching_threads(cases, monkeypatch, fail="case2")
+    assert _host_threads() == []
+
+
+def test_no_host_thread_outlives_a_run(cases, monkeypatch):
+    """While a run writes its heatmaps both stages and the slab pool are
+    alive; after ``run_inference`` returns, none of their threads is."""
+    seen = _run_watching_threads(cases, monkeypatch)
+    assert len(seen) == 3 and all("proc-post" in names for names in seen)
+    assert any("proc-complete" in names for names in seen)
+    assert sum(any(n.startswith("proc-deflate") for n in names)
+               for names in seen) >= 2
+    assert _host_threads() == []
 
 
 def _run_both(root, scans, lobes, batch_size=2, **kw):

@@ -11,11 +11,11 @@ import pytest
 import torch
 
 from bodyct_dram_emph_subtype_tpu_torch.data.mha import (
-    pool_width, read_mha, slab_bounds, write_mha)
+    read_mha, slab_bounds, write_mha)
 from bodyct_dram_emph_subtype_tpu_torch.inference import processor, \
     run_inference
 from bodyct_dram_emph_subtype_tpu_torch.inference.processor import (
-    COUNTERS, FORWARD_SPLIT, STAGES)
+    COUNTERS, FORWARD_SPLIT, STAGES, pool_width)
 from bodyct_dram_emph_subtype_tpu_torch.models.registry import \
     get_model_by_name
 from bodyct_dram_emph_subtype_tpu_torch.utils import spans
