@@ -12,16 +12,18 @@ or a reference ``{uid}.pth`` cache, and its ``merged.csv`` (reference
 """
 from __future__ import annotations
 
+import functools
 import glob
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..ops.morphology import binary_dilate_np, find_crops_np
+from ..ops.morphology import dilate_axis_np, find_crops_np
 from ..utils.spans import span
 from .csv_utils import read_csv_in_dict
-from .mha import read_mha
+from .host_preprocess import moments_from_sums, window_sums_np
+from .mha import SlabMap, read_mha
 
 CLE_RATIO_MAP = {0: (0.0, 0.01), 1: (0.01, 0.05), 2: (0.05, 0.1),
                  3: (0.1, 0.2), 4: (0.2, 0.3), 5: (0.3, 1.0001)}
@@ -53,15 +55,30 @@ def load_torch_cache(path) -> Dict[str, Any]:
     return out
 
 
+# planes of a z-slab of the crop in the prepare's one pass: a few MB of
+# int16, bool and int32 temporaries, so each slab's passes run in cache
+SLAB_PLANES = 8
+# the reach of the reference's dilation: 2 iterations of the full 3^3
+# structure are a max filter of radius 2 along each axis
+DILATE = 2
+
+
 class SubtypingInference:
     """Deployment dataset over paired scan/lobe ``.mha`` directories.
     Each item's MHA reads are an ``io.read`` span and the rest an
     ``io.prepare`` span (``utils/spans.py``), added to ``counters`` when
-    given (its views add their own work to ``io.prepare``)."""
+    given (its views add their own work to ``io.prepare``).
+
+    An item is prepared in one pass over z-slabs of its lung crop
+    (:func:`_crop_slab`), after the crop's bounding box is found in
+    z-slabs of the lobe map; ``slab_map`` maps both passes' slabs (an
+    executor's ``map`` runs them on its threads; without one they run in
+    turn on the caller, with the same bytes)."""
 
     def __init__(self, scan_path: str, lobe_path: str, crop_border: int = 5,
                  keep_original: bool = True, compute_ess: bool = True,
-                 counters: Optional[Dict[str, float]] = None):
+                 counters: Optional[Dict[str, float]] = None,
+                 slab_map: Optional[SlabMap] = None):
         self.scan_path = scan_path
         self.lobe_path = lobe_path
         self.crop_border = crop_border
@@ -75,6 +92,7 @@ class SubtypingInference:
         self.lobe_files = sorted(glob.glob(lobe_path + "/*.mha"))
         self.scan_meta_cache: Dict[str, dict] = {}
         self.counters = counters
+        self.slab_map = slab_map
 
     def __len__(self):
         return len(self.scan_files)
@@ -91,7 +109,12 @@ class SubtypingInference:
         direction = np.asarray(img.direction).reshape(3, 3)[::-1].flatten().tolist()
         return img.array, origin, spacing, direction
 
-    def get_data(self, index) -> Dict[str, Any]:
+    def get_data(self, index,
+                 moments: Optional[Callable[[Tuple[int, ...]], bool]] = None
+                 ) -> Dict[str, Any]:
+        """Item ``index``; where ``moments`` holds for the crop's shape it
+        also carries ``moments``, the crop's ``window_moments_np`` taken
+        from the same pass."""
         scan_file = self.scan_files[index]
         lobe_file = self.lobe_files[index]
         with span("io.read", self.counters):
@@ -99,57 +122,84 @@ class SubtypingInference:
             lobe, *_ = self.read_image(lobe_file)
         with span("io.prepare", self.counters):
             return self._prepare(Path(scan_file).stem, scan, lobe, origin,
-                                 spacing, direction)
+                                 spacing, direction, moments)
 
     def _prepare(self, scan_name: str, scan, lobe, origin, spacing,
-                 direction) -> Dict[str, Any]:
+                 direction, moments=None) -> Dict[str, Any]:
         original_size = scan.shape
         if lobe.shape != scan.shape:
             raise ValueError(f"{scan_name}: scan {scan.shape} and lobe "
                              f"segmentation {lobe.shape} differ in shape")
-        lung = lobe > 0
-        slices = find_crops_np(lung, spacing, self.crop_border)
-        # crop FIRST, then dilate + mask out only the crop: the reference
-        # dilates the whole volume before cropping (dataset.py:69-71), but
-        # the 2-iteration 3^3 dilation reaches exactly 2 voxels, so
-        # dilating the crop expanded by 2 reproduces the full-volume
-        # dilation everywhere inside the crop — identical output at a
-        # fraction of the host work, and the full scan is never copied
-        # astype (always copies) — scan may be the codec's read-only
-        # zero-copy file view, and the crop can alias the whole volume
-        image = scan[slices].astype(np.int16)
-        original = image.copy() if self.keep_original else None
-        ext = tuple(slice(max(0, s.start - 2), min(n, s.stop + 2))
-                    for s, n in zip(slices, lung.shape))
-        inner = tuple(slice(s.start - e.start,
-                            s.start - e.start + (s.stop - s.start))
-                      for s, e in zip(slices, ext))
-        dlung = binary_dilate_np(lung[ext], iterations=2)[inner]
-        image[~dlung] = -2048
-        lung = lung[slices]
+        run = self.slab_map or map
+        slices = find_crops_np(lobe, spacing, self.crop_border, run)
+        shape = tuple(s.stop - s.start for s in slices)
         ret = {
-            "image": image,
-            "lung_mask": lung,
+            "image": np.empty(shape, np.int16),
+            "lung_mask": np.empty(shape, bool),
             "crop_slice": np.asarray([(s.start, s.stop) for s in slices]),
             "original_size": np.asarray(original_size),
             "uid": scan_name,
         }
-        if original is not None:
-            ret["original_image"] = original
+        if self.keep_original:
+            ret["original_image"] = np.empty(shape, np.int16)
         if self.compute_ess:
-            # NOTE: −910 HU here vs −950 in training — a reference quirk we
-            # preserve (dataset.py:79 vs dataset.py:149).  Thresholded on
-            # the NATIVE-dtype crop (a view, no copy): for float-typed
-            # scans a voxel at −910.4 must count as ess exactly like the
-            # reference's pre-cast compare; inside the lung the mask-out
-            # never fires (lung ⊂ dilated lung), so the un-masked view is
-            # equivalent to the reference's masked volume here
-            ret["ess_mask"] = np.logical_and(
-                np.asarray(scan[slices]) < -910, lung)
+            ret["ess_mask"] = np.empty(shape, bool)
+        sums = moments is not None and moments(shape)
+        parts = list(run(functools.partial(
+            _crop_slab, scan, lobe, slices, ret, sums),
+            range(0, shape[0], SLAB_PLANES)))
+        if sums:
+            # exact integers: the slabs' order cannot change the moments
+            ret["moments"] = moments_from_sums(
+                *(sum(p[k] for p in parts) for k in range(3)))
         self.scan_meta_cache[scan_name] = {
             "spacing": spacing, "origin": origin, "direction": direction,
         }
         return ret
+
+
+def _crop_slab(scan, lobe, crop: Tuple[slice, ...], item: Dict[str, Any],
+               sums: bool, z: int) -> Optional[Tuple[int, int, int]]:
+    """Planes ``[z, z + SLAB_PLANES)`` of an item's crop, written into its
+    arrays: the lung (``lobe > 0``), the crop cast to int16 (a copy in
+    ``original_image``), -2048 outside the dilated lung, the -910 HU
+    ``ess_mask``; returns the slab's ``window_sums_np`` if ``sums``.
+
+    The reference dilates the whole volume, then crops
+    (``dataset.py:68-71``).  The dilation reaches ``DILATE`` voxels, so
+    the lung of the slab widened by ``DILATE`` along each axis, clipped to
+    the volume (whose outside the reference's dilation reads as 0), gives
+    the same dilated lung inside the slab."""
+    z0 = crop[0].start + z
+    slab = (slice(z0, min(crop[0].stop, z0 + SLAB_PLANES)), *crop[1:])
+    near = tuple(slice(max(0, s.start - DILATE), min(n, s.stop + DILATE))
+                 for s, n in zip(slab, lobe.shape))
+    # the slab's planes, rows and columns inside ``near``
+    inner = [(s.start - e.start, s.stop - e.start)
+             for s, e in zip(slab, near)]
+    lung = lobe[near] > 0
+    grown = lung
+    for axis, (lo, hi) in enumerate(inner):
+        grown = dilate_axis_np(grown, axis, lo, hi, DILATE)
+    planes = slice(z, z + slab[0].stop - z0)
+    item["lung_mask"][planes] = lung[tuple(slice(*b) for b in inner)]
+    raw = scan[slab]
+    image = item["image"][planes]
+    np.copyto(image, raw, casting="unsafe")     # astype's cast (float CT)
+    if "original_image" in item:
+        item["original_image"][planes] = image
+    np.copyto(image, np.int16(-2048), where=~grown)
+    if "ess_mask" in item:
+        # NOTE: −910 HU here vs −950 in training — a reference quirk we
+        # preserve (dataset.py:79 vs dataset.py:149).  Thresholded on
+        # the NATIVE-dtype crop: for float-typed scans a voxel at −910.4
+        # must count as ess exactly like the reference's pre-cast
+        # compare; inside the lung the mask-out never fires (lung ⊂
+        # dilated lung), so the un-masked crop is equivalent to the
+        # reference's masked volume here
+        np.logical_and(raw < -910, item["lung_mask"][planes],
+                       out=item["ess_mask"][planes])
+    return window_sums_np(image) if sums else None
 
 
 class COPDGeneSubtyping:

@@ -81,11 +81,26 @@ def window_moments_np(img: np.ndarray,
     """``[mean, 1/std]`` (float32) of the windowed volume from exact int64
     sums, one float division each; unbiased (ddof=1) like torch
     ``Tensor.std()``."""
+    return moments_from_sums(*window_sums_np(img, window), window)
+
+
+def window_sums_np(img: np.ndarray, window=(-1150.0, -300.0)
+                   ) -> Tuple[int, int, int]:
+    """Exact ``(n, sum c, sum c*c)`` of ``c = clip(img, *window)`` over
+    int16 ``img``: the sums of a volume's slabs add up to the volume's."""
     lo_i, hi_i = int(window[0]), int(window[1])
-    c = np.clip(np.asarray(img, np.int16), lo_i, hi_i).astype(np.int32)
-    n = int(c.size)
-    s1 = int(c.sum(dtype=np.int64))
-    s2 = int((c * c).sum(dtype=np.int64))   # |c| <= 2048: c*c fits int32
+    img = np.asarray(img, np.int16)
+    c = np.empty(img.shape, np.int32)
+    np.clip(img, lo_i, hi_i, out=c)
+    s1 = int(np.add.reduce(c, axis=None, dtype=np.int64))
+    np.multiply(c, c, out=c)       # |c| <= 2048: c*c fits int32
+    return int(c.size), s1, int(np.add.reduce(c, axis=None, dtype=np.int64))
+
+
+def moments_from_sums(n: int, s1: int, s2: int,
+                      window=(-1150.0, -300.0)) -> np.ndarray:
+    """:func:`window_moments_np` from :func:`window_sums_np`'s sums."""
+    lo_i, hi_i = int(window[0]), int(window[1])
     r = hi_i - lo_i
     mean = (s1 - n * lo_i) / (n * r)
     var = (s2 * n - s1 * s1) / (n * max(n - 1, 1) * r * r)

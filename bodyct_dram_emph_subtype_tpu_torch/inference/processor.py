@@ -13,11 +13,14 @@ typo'd filename is part of the deployed contract).
 
 Per batch of the device path (the default):
 
-1. loader threads read, dilate, mask and crop each scan, take the exact
-   linspace depth planes of the CT into an in-plane padded int16 buffer,
-   compute its block gate (the ``block``-voxel flat blocks holding a voxel
-   above the HU window floor), nearest-select the lung to the model size
-   and compute the exact standardize moments (``_RawPredictView``);
+1. loader threads read each scan; its crop, dilated lung, mask-out and
+   exact standardize moments are made in one pass over z-slabs of the
+   crop, spread over the run's prepare pool (``data/datasets.py::
+   SubtypingInference``); then, in chunks of planes on the same pool, the
+   exact linspace depth planes of the CT go into an in-plane padded int16
+   buffer with its block gate (the ``block``-voxel flat blocks holding a
+   voxel above the HU window floor), and the lung is nearest-selected to
+   the model size (``_RawPredictView``);
 2. upload (JAX ``processor.py:357-414``): the dispatch thread packs the
    batch's CT as the block-gated 10-bit window-domain stream of
    ``ops/packing.py`` (only the live blocks, window-clamped, in a static
@@ -91,7 +94,7 @@ import torch
 from ..data.datasets import (CLE_RATIO_MAP, PSE_RATIO_MAP, SubtypingInference,
                              ratio_to_label)
 from ..data.host_preprocess import (depth_indices_np, preprocess_sample,
-                                    resize_nearest_np, window_moments_np)
+                                    resize_nearest_np)
 from ..data.loader import DataLoader
 from ..data.mha import SlabMap, deflate, pasted_planes, write_mha_file
 from ..data.samplers import shard_indices
@@ -99,7 +102,7 @@ from ..models.registry import get_model_by_name
 from ..models.torch_import import load_weights_file
 from ..ops import cuda_build
 from ..ops.heatmap import Shape, quantised_crops, upsample_masked
-from ..ops.packing import (WINDOW_LO, gate_blocks_np, gated_budget,
+from ..ops.packing import (WINDOW_LO, gated_budget,
                            pack10_gated_host, pick_gate_block,
                            unpack10_gated_device)
 from ..ops.pallas_kernels import masked_sums
@@ -163,7 +166,9 @@ class _RawPredictView:
     (``gate_blocks_np(img > WINDOW_LO)``, computed here so that the
     dispatch thread's packing does not scan the buffer again); the lung
     nearest-selected all the way to ``target_size``; the standardize
-    moments from exact integer sums.
+    moments from exact integer sums, taken in the dataset's slab pass.
+    The selected planes are made in chunks of ``PLANE_CHUNK`` on the
+    dataset's ``slab_map``.
 
     A scan whose lung crop exceeds ``up_shape`` in-plane, or whose live
     blocks exceed ``budget`` voxels, does not abort the cohort: its index
@@ -172,6 +177,8 @@ class _RawPredictView:
     marked ``oversized`` takes its place; the caller skips the dummy on
     output and re-runs those scans on the host path (JAX
     ``processor.py:76-164``)."""
+
+    PLANE_CHUNK = 4
 
     def __init__(self, dataset: SubtypingInference, up_shape, target_size,
                  budget: int, block: int):
@@ -201,34 +208,59 @@ class _RawPredictView:
                 "uid": d["uid"], "crop_slice": d["crop_slice"],
                 "original_size": d["original_size"], "oversized": True}
 
+    def _fits(self, shape) -> bool:
+        return all(s <= p for s, p in zip(shape[1:], self.up_shape[1:]))
+
     def __getitem__(self, index):
-        d = self.dataset[index]
+        # an oversized scan's dummy needs no moments
+        d = self.dataset.get_data(index, moments=self._fits)
         with span("io.prepare", self.dataset.counters):
             return self._prepare(index, d)
 
     def _prepare(self, index, d):
         img = np.asarray(d["image"])         # int16 crop
-        if any(s > p for s, p in zip(img.shape[1:], self.up_shape[1:])):
+        if not self._fits(img.shape):
             return self._dummy(index, d, f"crop {img.shape} exceeds "
                                f"in-plane pad {self.up_shape[1:]}")
         idx = depth_indices_np(img.shape[0], self.up_shape[0])
-        img_p = np.full(self.up_shape, -2048, np.int16)
-        img_p[:, :img.shape[1], :img.shape[2]] = img[idx]
-        gate = gate_blocks_np((img_p > WINDOW_LO).reshape(1, -1),
-                              self.block)[0]
+        img_p = np.empty(self.up_shape, np.int16)
+        lung_sel = np.empty(self.target_size, np.uint8)
+        gate = np.zeros(self.nblk, bool)
+        for b0, live in (self.dataset.slab_map or map)(functools.partial(
+                self._planes, img, np.asarray(d["lung_mask"]), idx, img_p,
+                lung_sel), range(0, self.up_shape[0], self.PLANE_CHUNK)):
+            gate[b0:b0 + len(live)] |= live
         if int(np.count_nonzero(gate)) * self.block > self.budget:
             return self._dummy(index, d, f"gated voxel count exceeds budget "
                                f"{self.budget}")
-        lung_sel = resize_nearest_np(
-            np.ascontiguousarray(np.asarray(d["lung_mask"])[idx],
-                                 dtype=bool).view(np.uint8),
-            self.target_size[1:], (1, 2))
         return {"image_raw": img_p, "gate_blocks": gate, "lung_raw": lung_sel,
                 "in_sizes": np.asarray(
                     (self.up_shape[0], img.shape[1], img.shape[2]), np.int32),
-                "moments": window_moments_np(img),
+                "moments": d["moments"],
                 "uid": d["uid"], "crop_slice": d["crop_slice"],
                 "original_size": d["original_size"], "oversized": False}
+
+    def _planes(self, img, lung, idx, img_p, lung_sel, j: int):
+        """Planes ``[j, j + PLANE_CHUNK)`` of the padded buffer and of the
+        selected lung; returns the first gate block they touch and the
+        liveness of each block they touch (a block shared with the next
+        chunk is OR-ed with its part there)."""
+        j1 = min(j + self.PLANE_CHUNK, len(idx))
+        _, h, w = img.shape
+        out = img_p[j:j1]
+        out[:, :h, :w] = img[idx[j:j1]]
+        out[:, h:] = -2048
+        out[:, :h, w:] = -2048
+        lung_sel[j:j1] = resize_nearest_np(
+            np.ascontiguousarray(lung[idx[j:j1]], dtype=bool).view(np.uint8),
+            self.target_size[1:], (1, 2))
+        plane = self.up_shape[1] * self.up_shape[2]
+        f0, f1 = j * plane, j1 * plane
+        b0 = f0 // self.block
+        flat = np.zeros((-(-f1 // self.block) - b0) * self.block, bool)
+        np.greater(out.reshape(-1), WINDOW_LO,
+                   out=flat[f0 - b0 * self.block:f1 - b0 * self.block])
+        return b0, flat.reshape(-1, self.block).any(-1)
 
 
 class _StageClock:
@@ -376,23 +408,27 @@ class _Stage:
 
 
 def pool_width() -> int:
-    """Threads of the slab pool that deflates the heatmaps: the CPUs this
-    process may run on, shared among the ranks of this host
-    (``LOCAL_WORLD_SIZE``, as torchrun and ``parallel/mesh.py::
-    spawn_ranks`` set it), less one for the loader thread; at least 1, and
-    at 1 there is no pool: the slabs run in turn on the postprocess
-    thread.  On an 8-CPU H100 host, pools of 4 and 5 threads ran the
-    processor's cohort benchmark 8-10% slower than this rule's 7."""
+    """Threads of each slab pool, the one that deflates the heatmaps and
+    the one that prepares the loader's scans: the CPUs this process may
+    run on, shared among the ranks of this host (``LOCAL_WORLD_SIZE``, as
+    torchrun and ``parallel/mesh.py::spawn_ranks`` set it), less one; at
+    least 1, and at 1 there are no pools: the slabs run in turn on the
+    postprocess and loader threads.  On an 8-CPU H100 host, deflate pools
+    of 4 and 5 threads ran the processor's cohort benchmark 8-10% slower
+    than this rule's 7."""
     cpus = len(os.sched_getaffinity(0))
     ranks = max(1, int(os.environ.get("LOCAL_WORLD_SIZE", 1)))
     return max(1, cpus // ranks - 1)
 
 
 def _slab_map(pool: Optional[ThreadPoolExecutor],
-              zlib_stats: Dict[str, Any]) -> SlabMap:
-    """The heatmap writer's slab map: each slab deflated on ``pool`` (in
-    turn on the caller without one), counted in ``zlib_stats["slabs"]``
-    and its time in the thread added to ``zlib_stats["work_ms"]``."""
+              slab_stats: Dict[str, Any]) -> SlabMap:
+    """A slab map on ``pool`` (in turn on the caller without one): each
+    slab counted in ``slab_stats["slabs"]`` and its time in the thread
+    added to ``slab_stats["work_ms"]``; callers on several threads (the
+    loader workers) may share it."""
+    lock = threading.Lock()
+
     def timed(fn, k):
         t0 = time.perf_counter()
         return fn(k), time.perf_counter() - t0
@@ -400,8 +436,9 @@ def _slab_map(pool: Optional[ThreadPoolExecutor],
     def slab_map(fn, ks):
         run = functools.partial(timed, fn)
         done = list(pool.map(run, ks) if pool else map(run, ks))
-        zlib_stats["slabs"] += len(done)
-        zlib_stats["work_ms"] += 1e3 * sum(t for _, t in done)
+        with lock:
+            slab_stats["slabs"] += len(done)
+            slab_stats["work_ms"] += 1e3 * sum(t for _, t in done)
         return [out for out, _ in done]
     return slab_map
 
@@ -650,6 +687,9 @@ def run_inference(scan_path: str, lobe_path: str, output_path: str,
     pool's width, :func:`pool_width`; ``slabs``: the slabs it
     deflated; ``work_ms``: their summed time in the pool's threads, so
     ``work_ms / stage_ms["post.zlib"]`` is the parallelism it reached),
+    ``prepare`` (the same of the loader's prepare pool: its slabs of lobe
+    maps and crops and its chunks of selected planes, so ``work_ms /
+    stage_ms["io.prepare"]`` is the parallelism the prepare reached),
     the summed per-stage milliseconds ``stage_ms`` and
     ``pipeline_s``, the wall time from the first loader read to the last
     file written.  ``STAGES`` are intervals of the device timeline (on a
@@ -766,7 +806,8 @@ def run_inference(scan_path: str, lobe_path: str, output_path: str,
         stats.update(batches=0, scans=len(owned), host_scans=[],
                      fractions={}, upload_bytes=0, pack_ms=0.0,
                      device_heatmaps=0, stage_ms=stage_ms,
-                     zlib={"threads": width, "slabs": 0, "work_ms": 0.0})
+                     **{k: {"threads": width, "slabs": 0, "work_ms": 0.0}
+                        for k in ("zlib", "prepare")})
 
         launched = cuda_build.launches()
         t0 = time.perf_counter()
@@ -777,14 +818,18 @@ def run_inference(scan_path: str, lobe_path: str, output_path: str,
             stage.close()
 
     # the run's host threads, ended in turn on the way out, an error or
-    # not: the completion stage, the postprocess stage, the slab pool
+    # not: the completion stage, the postprocess stage, the slab pools.
+    # The loader's prepare has a pool of its own: the deflate pool is
+    # FIFO, and a batch's deflate slabs would queue the loader behind them
     with contextlib.ExitStack() as threads:
-        pool = threads.enter_context(ThreadPoolExecutor(
-            width, thread_name_prefix="proc-deflate")) if width > 1 else None
+        pools = {k: threads.enter_context(ThreadPoolExecutor(
+            width, thread_name_prefix=f"proc-{k}")) if width > 1 else None
+            for k in ("deflate", "prepare")}
+        dataset.slab_map = _slab_map(pools["prepare"], stats["prepare"])
         finalize = functools.partial(
             _finalize_scan, dataset=dataset, out_cle=out_cle,
             out_pse=out_pse, counters=stage_ms,
-            slab_map=_slab_map(pool, stats["zlib"]))
+            slab_map=_slab_map(pools["deflate"], stats["zlib"]))
         pending, results = set(owned_uids), []
         post = _Stage(lambda batch_post: batch_post(pending, results,
                                                     finalize), "proc-post")

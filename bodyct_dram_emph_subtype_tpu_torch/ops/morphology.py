@@ -13,13 +13,18 @@ host copies.
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..data.mha import SlabMap
+
 _MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+# planes of a lobe map's z-slab in :func:`find_crops_np`: 1 MiB of a
+# 512 x 512 uint8 map and its bool, in a core's cache
+BBOX_PLANES = 4
 
 
 def binary_dilate(mask: torch.Tensor, iterations: int = 1) -> torch.Tensor:
@@ -64,46 +69,61 @@ def pad_bbox_mm(bbox: torch.Tensor, shape: Sequence[int],
 
 
 def binary_dilate_np(mask: np.ndarray, iterations: int = 1) -> np.ndarray:
-    """NumPy max-filter dilation with the full box structure (host fallback)."""
-    if iterations <= 0:
-        return mask.astype(bool)
+    """NumPy dilation with the full box structure (host fallback): per axis
+    a max filter of radius ``iterations`` (:func:`dilate_axis_np`)."""
     out = mask.astype(bool)
+    if iterations <= 0:
+        return out
     for axis in range(mask.ndim):
-        acc = out.copy()
-        for shift in range(1, iterations + 1):
-            acc |= _shift_bool(out, shift, axis)
-            acc |= _shift_bool(out, -shift, axis)
-        out = acc
+        out = dilate_axis_np(out, axis, 0, out.shape[axis], iterations)
     return out
 
 
-def _shift_bool(a: np.ndarray, shift: int, axis: int) -> np.ndarray:
-    out = np.zeros_like(a)
-    src = [slice(None)] * a.ndim
-    dst = [slice(None)] * a.ndim
-    if shift > 0:
-        dst[axis] = slice(shift, None)
-        src[axis] = slice(None, -shift)
-    else:
-        dst[axis] = slice(None, shift)
-        src[axis] = slice(-shift, None)
-    out[tuple(dst)] = a[tuple(src)]
+def dilate_axis_np(a: np.ndarray, axis: int, lo: int, hi: int,
+                   radius: int) -> np.ndarray:
+    """Indices ``[lo, hi)`` along ``axis`` of the binary max filter of
+    ``radius`` of bool ``a`` along that axis, False beyond ``a``'s ends:
+    a copy and ``2 * radius`` in-place ORs of shifted slices.  A halo of
+    ``radius`` around ``[lo, hi)`` inside ``a`` makes the result that of
+    the whole axis."""
+    n = a.shape[axis]
+
+    def at(start, stop):
+        return (slice(None),) * axis + (slice(start, stop),)
+
+    out = a[at(lo, hi)].copy()
+    for d in range(-radius, radius + 1):
+        # the k of [lo, hi) whose neighbour k + d lies inside a
+        start, stop = max(lo, -d), min(hi, n - d)
+        if d and start < stop:
+            out[at(start - lo, stop - lo)] |= a[at(start + d, stop + d)]
     return out
 
 
 def find_crops_np(mask: np.ndarray, spacing: Sequence[float],
-                  border_mm: float) -> Tuple[slice, ...]:
-    """Host bbox-with-border crop slices, parity with ``utils.py:53-63``.
+                  border_mm: float, slab_map: Optional[SlabMap] = None
+                  ) -> Tuple[slice, ...]:
+    """Host bbox-with-border crop slices of ``mask > 0``, parity with
+    ``utils.py:53-63``.
 
     Per-axis ``any`` reductions + argmax instead of ``np.nonzero``: the
     latter materializes index arrays for every nonzero voxel (hundreds of
-    MB for a deployment lung mask), while the reductions stream the volume
-    twice with no allocation — the bbox is identical."""
-    m = mask if mask.dtype == np.bool_ else mask > 0
-    if m.ndim == 3:
-        zy = m.any(axis=2)
-        lines = [zy.any(axis=1), zy.any(axis=0), m.any(axis=(0, 1))]
+    MB for a deployment lung mask).  A 3-D mask (a lobe map as it was read)
+    is reduced in z-slabs of ``BBOX_PLANES``, mapped by ``slab_map`` (in
+    turn without one), each compared with 0 while it is in cache: no
+    whole-volume bool is made, and the bbox is identical."""
+    if mask.ndim == 3:
+        def slab_lines(z):
+            s = mask[z:z + BBOX_PLANES]
+            m = s if s.dtype == np.bool_ else s > 0
+            return m.any(axis=2), m.any(axis=(0, 1))
+        parts = list((slab_map or map)(
+            slab_lines, range(0, mask.shape[0], BBOX_PLANES)))
+        zy = np.concatenate([zy for zy, _ in parts])
+        lines = [zy.any(axis=1), zy.any(axis=0),
+                 np.logical_or.reduce([x for _, x in parts])]
     else:
+        m = mask if mask.dtype == np.bool_ else mask > 0
         lines = [m.any(axis=tuple(a for a in range(m.ndim) if a != axis))
                  for axis in range(m.ndim)]
     slices = []

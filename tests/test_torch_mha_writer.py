@@ -273,9 +273,10 @@ def test_pool_width_rule(monkeypatch):
 
 
 def test_pool_is_made_once_and_only_when_used(tmp_path, monkeypatch):
-    """``run_inference`` makes one slab pool a run, of ``pool_width()``
-    threads, and none at width 1; the run's slabs deflate on its pool's
-    threads, which have ended when it returns."""
+    """``run_inference`` makes two slab pools a run, the deflate pool and
+    the prepare pool, of ``pool_width()`` threads each, and none at width
+    1; the run's slabs deflate on its deflate pool's threads, which have
+    ended when it returns, as have the prepare pool's."""
     made = []
 
     class Recording(ThreadPoolExecutor):
@@ -290,7 +291,7 @@ def test_pool_is_made_once_and_only_when_used(tmp_path, monkeypatch):
     lobes.mkdir()
     _write_case(scans, lobes, "case1", shape=(40, 56, 72))
     model = get_model_by_name("med3ddramtiny")
-    for run, (width, pools) in enumerate(((1, 0), (3, 1), (3, 2))):
+    for run, (width, pools) in enumerate(((1, 0), (3, 2), (3, 4))):
         monkeypatch.setattr(os, "sched_getaffinity",
                             lambda pid, n=width + 1: set(range(n)))
         stats = {}
@@ -299,13 +300,17 @@ def test_pool_is_made_once_and_only_when_used(tmp_path, monkeypatch):
             target_size=(32, 48, 64), batch_size=1, workers=1, model=model,
             device="cpu", stats=stats)
         assert len(made) == pools
-        assert stats["zlib"]["threads"] == width
+        assert stats["zlib"]["threads"] == stats["prepare"]["threads"] \
+            == width
         assert stats["zlib"]["slabs"] == 2 and stats["zlib"]["work_ms"] > 0
         if pools:
-            assert made[-1][0] == width
-            threads = made[-1][1]._threads
-            assert threads and not any(t.is_alive() for t in threads)
-            assert all(t.name.startswith("proc-deflate") for t in threads)
+            for (made_width, pool), kind in zip(made[-2:],
+                                                ("deflate", "prepare")):
+                assert made_width == width
+                threads = pool._threads
+                assert threads and not any(t.is_alive() for t in threads)
+                assert all(t.name.startswith(f"proc-{kind}")
+                           for t in threads)
     files = [sorted(p.read_bytes() for p in
                     (tmp_path / f"out{r}" / "images").rglob("*.mha"))
              for r in range(3)]

@@ -26,7 +26,7 @@ from bodyct_dram_emph_subtype_tpu.inference import \
     run_inference as jax_run_inference
 from bodyct_dram_emph_subtype_tpu.models import get_model_by_name as jax_model
 from bodyct_dram_emph_subtype_tpu.train.state import TrainState, make_optimizer
-from bodyct_dram_emph_subtype_tpu_torch.data import mha
+from bodyct_dram_emph_subtype_tpu_torch.data import datasets, mha
 from bodyct_dram_emph_subtype_tpu_torch.data.datasets import \
     SubtypingInference
 from bodyct_dram_emph_subtype_tpu_torch.inference import processor, \
@@ -188,6 +188,40 @@ def test_no_host_thread_outlives_a_run(cases, monkeypatch):
     assert sum(any(n.startswith("proc-deflate") for n in names)
                for names in seen) >= 2
     assert _host_threads() == []
+
+
+def test_prepare_pool_fills_its_stats(cases, monkeypatch):
+    """The device path prepares each scan in slabs on the run's prepare
+    pool, of ``pool_width()`` threads, counted in ``stats["prepare"]``;
+    none of its threads outlives the run.  At width 1 the same slabs run
+    in turn on the loader thread and the heatmaps are the same bytes."""
+    root, scans, lobes = cases
+    names, crop_slab = [], datasets._crop_slab
+
+    def crop_slab_watched(*a):
+        names.append(threading.current_thread().name)
+        return crop_slab(*a)
+
+    monkeypatch.setattr(datasets, "_crop_slab", crop_slab_watched)
+    model = get_model_by_name("med3ddramtiny")
+    runs = []
+    for width in (3, 1):
+        monkeypatch.setattr(processor, "pool_width", lambda w=width: w)
+        names.clear()
+        stats, out = {}, root / f"out{width}"
+        run_inference(str(scans), str(lobes), str(out), target_size=TARGET,
+                      batch_size=2, workers=1, model=model, device="cpu",
+                      stats=stats)
+        assert _host_threads() == []
+        assert stats["prepare"]["threads"] == processor.pool_width() \
+            == width
+        assert stats["prepare"]["slabs"] > len(names) > 0
+        assert stats["prepare"]["work_ms"] > 0
+        assert all(n.startswith("proc-prepare") == (width > 1)
+                   for n in names)
+        runs.append((stats["prepare"]["slabs"], sorted(
+            p.read_bytes() for p in (out / "images").rglob("*.mha"))))
+    assert runs[0] == runs[1]
 
 
 def _run_both(root, scans, lobes, batch_size=2, **kw):
